@@ -1,0 +1,222 @@
+"""The pixel DQN slice of the port as a whole (tianshou_tpu_torch) against
+the JAX package, on the CPU at a small size: SyntheticPixelEnv(36, 36, 2),
+NatureCNN in float32 (so that argmax ties and bf16 rounding cannot differ),
+3 envs, ring capacity 16.
+
+(a) From the same parameters and env phases, one greedy segment gives
+    identical actions and bitwise-identical buffer storage; then the
+    presample of the same indices and k updates give the same losses and
+    parameters (rtol 1e-4 / atol 1e-5).
+(b) OffPolicyTrainer.run() completes with the right counters.
+(c) Without CUDA, every entry point's default device raises.
+(d) The port imports nothing of JAX or of tianshou_tpu.
+"""
+
+import ast
+import math
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tianshou_tpu.algos.dqn import DQN as JaxDQN
+from tianshou_tpu.collect.collector import Collector as JaxCollector
+from tianshou_tpu.collect.collector import rollout_segment as jax_rollout_segment
+from tianshou_tpu.data.buffer import ReplayBuffer as JaxReplayBuffer
+from tianshou_tpu.envs.base import VectorEnv as JaxVectorEnv
+from tianshou_tpu.envs.synthetic import SyntheticPixelEnv as JaxPixelEnv
+from tianshou_tpu.envs.synthetic import SyntheticPixelState as JaxPixelState
+from tianshou_tpu.networks.conv import ConvQNet as JaxConvQNet
+from tianshou_tpu.trainer.offpolicy import build_update_scan as jax_build_update_scan
+from tianshou_tpu_torch.algos.dqn import DQN
+from tianshou_tpu_torch.collect.collector import Collector, rollout_segment
+from tianshou_tpu_torch.data.buffer import ReplayBuffer
+from tianshou_tpu_torch.envs.base import VectorEnv
+from tianshou_tpu_torch.envs.synthetic import SyntheticPixelEnv, SyntheticPixelState
+from tianshou_tpu_torch.networks.conv import ConvQNet
+from tianshou_tpu_torch.networks.convert import params_from_flax
+from tianshou_tpu_torch.trainer.offpolicy import OffPolicyTrainer, build_update_scan
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+H, W, C, A = 36, 36, 2, 4
+N_ENVS, CAP, SEG = 3, 16, 20  # the segment wraps the ring
+K, BATCH, N_STEP = 3, 8, 3
+
+
+def _jax_side(env_seeds, lr=1e-3):
+    env = JaxPixelEnv(H, W, C, num_actions=A, episode_len=64)
+    venv = JaxVectorEnv(env, N_ENVS)
+    buf = JaxReplayBuffer(CAP, N_ENVS)
+    algo = JaxDQN(
+        JaxConvQNet(num_actions=A, encoder="nature", encoder_kwargs={"compute_dtype": jnp.float32}),
+        env.action_space, lr=lr, gamma=0.99, n_step=N_STEP, target_update_freq=2,
+    )
+    col = JaxCollector(algo, venv, buf)
+    cstate = col.reset(jax.random.key(0))
+    es = JaxPixelState(jnp.zeros(N_ENVS, jnp.int32), jnp.asarray(env_seeds))
+    cstate = cstate.replace(env_state=es, obs=jax.vmap(env._frame)(es.t, es.seed))
+    ts = algo.init(jax.random.key(1), cstate.obs[0])
+    bstate = buf.init(col.example_transition(ts, cstate))
+    return algo, venv, buf, ts, cstate, bstate
+
+
+def _torch_side(env_seeds, flax_params, lr=1e-3):
+    env = SyntheticPixelEnv(H, W, C, num_actions=A, episode_len=64)
+    venv = VectorEnv(env, N_ENVS, device="cpu")
+    buf = ReplayBuffer(CAP, N_ENVS)
+    algo = DQN(
+        ConvQNet((H, W, C), A, encoder_kwargs={"compute_dtype": torch.float32}),
+        env.action_space, lr=lr, gamma=0.99, n_step=N_STEP, target_update_freq=2, device="cpu",
+    )
+    col = Collector(algo, venv, buf, device="cpu")
+    cstate = col.reset(torch.Generator().manual_seed(0))
+    es = SyntheticPixelState(torch.zeros(N_ENVS, dtype=torch.int32), torch.from_numpy(env_seeds))
+    cstate.env_state, cstate.obs = es, env.frame(es.t, es.seed)
+    ts = algo.init(torch.Generator().manual_seed(1))
+    sd = params_from_flax(flax_params)
+    ts.online.load_state_dict(sd)
+    ts.target.load_state_dict(sd)
+    bstate = buf.init(col.example_transition(ts, cstate), device="cpu")
+    return algo, venv, buf, ts, cstate, bstate
+
+
+def test_slice_matches_jax():
+    rng = np.random.default_rng(0)
+    env_seeds = rng.integers(0, 1 << 20, N_ENVS).astype(np.int32)
+    jalgo, jvenv, jbuf, jts, jcs, jbs = _jax_side(env_seeds)
+    talgo, tvenv, tbuf, tts, tcs, tbs = _torch_side(env_seeds, jax.device_get(jts.params))
+
+    # one greedy segment
+    jseg = jax.jit(jax_rollout_segment(jalgo, jvenv, jbuf, SEG, explore=False, record_traj=False))
+    jcs, jbs, jout = jseg(jts, jcs, jbs, 0.0)
+    tcs, tbs, tout = rollout_segment(talgo, tvenv, tbuf, SEG, explore=False)(tts, tcs, tbs, 0.0)
+    np.testing.assert_array_equal(tbs.storage["act"].numpy(), np.asarray(jbs.storage["act"]))
+    assert len(np.unique(np.asarray(jbs.storage["act"]))) > 1
+    for k in jbs.storage:
+        np.testing.assert_array_equal(tbs.storage[k].numpy(), np.asarray(jbs.storage[k]), err_msg=k)
+    np.testing.assert_array_equal(tbs.cursor.numpy(), np.asarray(jbs.cursor))
+    np.testing.assert_array_equal(tbs.size.numpy(), np.asarray(jbs.size))
+    np.testing.assert_array_equal(tcs.obs.numpy(), np.asarray(jcs.obs))
+    for k in ("done", "ep_ret", "ep_len"):
+        np.testing.assert_array_equal(tout[k].numpy(), np.asarray(jout[k]))
+
+    # the same K * BATCH indices through each side's presample and K updates
+    env_idx = rng.integers(0, N_ENVS, K * BATCH)
+    pos = rng.integers(0, CAP, K * BATCH)
+    ones = np.ones(K * BATCH, np.float32)
+    jbuf.sample_with_weights = lambda st, key, b: (
+        jnp.asarray(env_idx, jnp.int32), jnp.asarray(pos, jnp.int32), jnp.asarray(ones))
+    tbuf.sample_with_weights = lambda st, g, b: (
+        torch.from_numpy(env_idx), torch.from_numpy(pos), torch.from_numpy(ones))
+    jts, _, jm = jax_build_update_scan(jalgo, jbuf, BATCH, K)(jts, jbs, jax.random.key(2))
+    tts, _, tm = build_update_scan(talgo, tbuf, BATCH, K)(tts, tbs, torch.Generator())
+    assert tts.step == int(jts.step) == K
+    for k in ("loss", "td_abs_mean"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, atol=1e-5)
+    for mod, flax_params in ((tts.online, jts.params), (tts.target, jts.target_params)):
+        ref = params_from_flax(jax.device_get(flax_params))
+        for name, val in mod.state_dict().items():
+            np.testing.assert_allclose(val.numpy(), ref[name].numpy(), rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def _tiny_trainer(device="cpu", **kw):
+    env = SyntheticPixelEnv(H, W, C, num_actions=A, episode_len=5)
+    buf = ReplayBuffer(CAP, N_ENVS)
+    algo = DQN(ConvQNet((H, W, C), A), env.action_space, n_step=N_STEP, target_update_freq=4, device=device)
+    train = Collector(algo, VectorEnv(env, N_ENVS, device=device), buf, device=device)
+    test = Collector(algo, VectorEnv(env, 2, device=device), device=device)
+    return OffPolicyTrainer(
+        algo, train, test, buf, max_epoch=2, step_per_epoch=20, step_per_collect=6,
+        update_per_step=0.5, batch_size=BATCH, episode_per_test=3, device=device,
+        train_param_fn=lambda epoch, step: 0.1, **kw,
+    )
+
+
+@pytest.mark.parametrize("warmup_steps", [0, 6])
+def test_trainer_run_completes(warmup_steps):
+    trainer = _tiny_trainer(warmup_steps=warmup_steps)
+    assert (trainer.segment_len, trainer.steps_per_segment, trainer.updates_per_segment) == (2, 6, 3)
+    info = trainer.run()
+    # 20 steps an epoch take ceil(20 / 6) = 4 supersteps of 6 env steps
+    assert info.epoch == 2
+    assert info.env_step == warmup_steps + 2 * 4 * 6
+    assert info.gradient_step == 2 * 4 * 3 == trainer.train_state.step
+    assert math.isfinite(info.last_metrics["loss"]) and math.isfinite(info.best_reward)
+    # the synthetic env pays 1 when (t + action) % 7 == 0: at most 1 per 5-step episode
+    assert 0.0 <= info.best_reward <= 1.0
+    assert int(trainer.buffer_state.size.min()) == min(CAP, info.env_step // N_ENVS)
+
+
+@pytest.mark.parametrize("test_in_train", [False, True])
+def test_trainer_stops_on_stop_fn(test_in_train):
+    saved = []
+    trainer = _tiny_trainer(stop_fn=lambda reward: True, test_in_train=test_in_train,
+                            save_best_fn=lambda ts: saved.append(ts.step))
+    info = trainer.run()
+    assert info.stop_triggered and info.epoch == 1
+    if test_in_train:
+        # the first episodes end (t = 5) in the third superstep of 2 steps
+        assert info.env_step == 3 * 6 and saved == []
+    else:
+        assert info.env_step == 4 * 6 and saved == [4 * 3]
+
+
+def _entry_points():
+    env = SyntheticPixelEnv(H, W, C, num_actions=A)
+    algo = DQN(ConvQNet((H, W, C), A), env.action_space, device="cpu")
+    venv = VectorEnv(env, N_ENVS, device="cpu")
+    col = Collector(algo, venv, device="cpu")
+    example = col.example_transition(algo.init(torch.Generator().manual_seed(0)),
+                                     col.reset(torch.Generator().manual_seed(0)))
+    return {
+        "VectorEnv": lambda: VectorEnv(env, N_ENVS),
+        "ReplayBuffer.init": lambda: ReplayBuffer(CAP, N_ENVS).init(example),
+        "DQN": lambda: DQN(ConvQNet((H, W, C), A), env.action_space),
+        "Collector": lambda: Collector(algo, venv),
+        "OffPolicyTrainer": lambda: OffPolicyTrainer(
+            algo, col, col, ReplayBuffer(CAP, N_ENVS), max_epoch=1, step_per_epoch=1, step_per_collect=1),
+    }
+
+
+@pytest.mark.parametrize("entry", ["VectorEnv", "ReplayBuffer.init", "DQN", "Collector", "OffPolicyTrainer"])
+def test_default_device_without_cuda_raises(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_points()[entry]()
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import tianshou_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'tianshou_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'tianshou_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('tianshou_tpu_torch.')]))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 20
+
+
+def test_port_sources_name_no_jax_import():
+    files = sorted((REPO / "tianshou_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "profile_superstep.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "optax", "tianshou_tpu"), (path, name)

@@ -1,0 +1,108 @@
+"""Algorithm base (port of ``tianshou_tpu/algos/base.py``).
+
+The JAX package keeps an algorithm's arrays in an immutable ``TrainState``
+pytree; here :class:`TrainState` holds the online and target modules, their
+optimizer and the host-side update count, and updates change them in place.
+An :class:`Algorithm` stays a configuration object whose methods take the
+state explicitly, so the collector and trainer read like the JAX package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
+from tianshou_tpu_torch.envs.spaces import Space
+
+__all__ = ["TrainState", "Algorithm"]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Learnable state.  ``target`` is ``online`` itself for algorithms that
+    keep no separate target network.  ``step`` counts updates on the host,
+    so the periodic target copy needs no device read."""
+
+    online: nn.Module
+    target: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+class Algorithm:
+    """Static algorithm configuration; subclasses implement :meth:`init`,
+    :meth:`act` and :meth:`update_sampled`."""
+
+    action_space: Space
+    device: torch.device
+    n_step: int = 1
+    #: the update factors into :meth:`presample` + :meth:`update_sampled`,
+    #: so the trainer gathers all of a superstep's samples in one call
+    supports_presampled = False
+
+    def init(self, generator: torch.Generator) -> TrainState:
+        raise NotImplementedError
+
+    @property
+    def obs_dtype(self) -> torch.dtype | None:
+        """The dtype the network wants observations in (``None``: as
+        stored); the presample gathers them straight into it."""
+        return None
+
+    def act(
+        self,
+        ts: TrainState,
+        obs: torch.Tensor,
+        generator: torch.Generator,
+        explore: bool,
+        explore_param: float = 0.0,
+    ) -> torch.Tensor:
+        """Batched action selection."""
+        raise NotImplementedError
+
+    # -- shared off-policy sampling ----------------------------------------
+    def _sample_nstep(
+        self,
+        buffer: ReplayBuffer,
+        bstate: ReplayBufferState,
+        generator: torch.Generator,
+        batch_size: int,
+        n_step: int,
+    ) -> tuple:
+        """Sample and gather the n-step structure of an off-policy update:
+        ``(env_idx, pos, weight, batch{obs, act}, rew_chain [B, n],
+        done_chain [B, n], term{obs_next, terminated})``."""
+        env_idx, pos, weight = buffer.sample_with_weights(bstate, generator, batch_size)
+        dt = self.obs_dtype
+        batch = buffer.get(bstate, env_idx, pos, keys=("obs", "act"), dtypes={"obs": dt})
+        rew_chain, done_chain, term_pos = buffer.nstep_chain(bstate, env_idx, pos, n_step)
+        term = buffer.get(
+            bstate, env_idx, term_pos, keys=("obs_next", "terminated"),
+            dtypes={"obs_next": dt},
+        )
+        return env_idx, pos, weight, batch, rew_chain, done_chain, term
+
+    def presample(
+        self,
+        buffer: ReplayBuffer,
+        bstate: ReplayBufferState,
+        generator: torch.Generator,
+        batch_size: int,
+    ) -> tuple:
+        """The gather stage of an update: ``[batch_size, ...]`` leaves that
+        :meth:`update_sampled` consumes."""
+        return self._sample_nstep(buffer, bstate, generator, batch_size, self.n_step)
+
+    def update_sampled(
+        self,
+        ts: TrainState,
+        buffer: ReplayBuffer,
+        bstate: ReplayBufferState,
+        sampled: tuple,
+    ) -> tuple[TrainState, ReplayBufferState, dict[str, torch.Tensor]]:
+        """One gradient step from a :meth:`presample` tuple; metrics stay on
+        the device."""
+        raise NotImplementedError

@@ -1,0 +1,222 @@
+"""Rollout engine (port of ``tianshou_tpu/collect/collector.py``).
+
+The JAX package's ``lax.scan`` over (act -> env step -> buffer write ->
+episode bookkeeping) is a Python loop here; everything it touches stays on
+the device, and the per-step episode outputs are stacked into ``[T, N]``
+tensors that :meth:`Collector.summarize` copies to the host once per
+segment.  ``collect_episodes`` runs fixed-size chunks under a host loop
+until per-env episode quotas are met; only the first ``quota_i`` episodes of
+env ``i`` count.
+
+Not ported yet: recorded trajectories (the on-policy path), recurrent
+policy state and MARL reward metrics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from tianshou_tpu_torch.algos.base import Algorithm, TrainState
+from tianshou_tpu_torch.data.batch import Batch
+from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
+from tianshou_tpu_torch.data.tree import tree_map
+from tianshou_tpu_torch.envs.base import VectorEnv
+from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
+
+__all__ = ["CollectState", "CollectStats", "Collector", "rollout_segment"]
+
+
+@dataclasses.dataclass
+class CollectState:
+    """Carried collector state."""
+
+    env_state: Any
+    obs: torch.Tensor
+    rng: torch.Generator
+    ep_ret: torch.Tensor  # [N] running episode return
+    ep_len: torch.Tensor  # [N] running episode length
+
+
+@dataclasses.dataclass
+class CollectStats:
+    """Host-side summary of a collection."""
+
+    n_collected_steps: int
+    n_collected_episodes: int
+    returns: np.ndarray
+    lens: np.ndarray
+
+    @property
+    def returns_mean(self) -> float:
+        return float(self.returns.mean()) if self.returns.size else 0.0
+
+    @property
+    def returns_std(self) -> float:
+        return float(self.returns.std()) if self.returns.size else 0.0
+
+    @property
+    def lens_mean(self) -> float:
+        return float(self.lens.mean()) if self.lens.size else 0.0
+
+
+def rollout_segment(
+    algo: Algorithm,
+    venv: VectorEnv,
+    buffer: ReplayBuffer | None,
+    num_steps: int,
+    explore: bool,
+):
+    """Build ``seg(ts, cstate, bstate, explore_param) -> (cstate, bstate,
+    outputs)``; ``outputs`` holds ``[T, N]`` tensors ``done``, ``ep_ret`` and
+    ``ep_len`` (the latter two non-zero only where an episode ended)."""
+
+    def seg(ts: TrainState, cstate: CollectState, bstate, explore_param: float):
+        obs, env_state = cstate.obs, cstate.env_state
+        ep_ret, ep_len = cstate.ep_ret, cstate.ep_len
+        dones, rets, lens = [], [], []
+        for _ in range(num_steps):
+            act = algo.act(ts, obs, cstate.rng, explore, explore_param)
+            env_state, res, carry_obs = venv.step(env_state, act, cstate.rng)
+            done = res.done
+            ep_ret = ep_ret + res.reward
+            ep_len = ep_len + 1
+            if buffer is not None:
+                bstate = buffer.add(bstate, Batch(
+                    obs=obs, act=act, rew=res.reward, terminated=res.terminated,
+                    truncated=res.truncated, obs_next=res.obs,
+                ))
+            dones.append(done)
+            rets.append(torch.where(done, ep_ret, 0.0))
+            lens.append(torch.where(done, ep_len, 0))
+            ep_ret = torch.where(done, 0.0, ep_ret)
+            ep_len = torch.where(done, 0, ep_len)
+            obs = carry_obs
+        outputs = {
+            "done": torch.stack(dones),
+            "ep_ret": torch.stack(rets),
+            "ep_len": torch.stack(lens),
+        }
+        new = CollectState(env_state=env_state, obs=obs, rng=cstate.rng, ep_ret=ep_ret, ep_len=ep_len)
+        return new, bstate, outputs
+
+    return seg
+
+
+class Collector:
+    """Collection over a :class:`VectorEnv`, optionally into a buffer."""
+
+    def __init__(
+        self,
+        algo: Algorithm,
+        venv: VectorEnv,
+        buffer: ReplayBuffer | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        if venv.device != self.device or algo.device != self.device:
+            raise ValueError(
+                f"collector on {self.device}, env on {venv.device}, algorithm on {algo.device}"
+            )
+        self.algo = algo
+        self.venv = venv
+        self.buffer = buffer
+
+    def reset(self, generator: torch.Generator) -> CollectState:
+        """Reset every env from ``generator``; the collector's own stream is
+        forked from it."""
+        env_state, obs = self.venv.reset(generator)
+        n = self.venv.num_envs
+        return CollectState(
+            env_state=env_state,
+            obs=obs,
+            rng=fork_generator(generator),
+            ep_ret=torch.zeros((n,), dtype=torch.float32, device=self.device),
+            ep_len=torch.zeros((n,), dtype=torch.int64, device=self.device),
+        )
+
+    def example_transition(self, ts: TrainState, cstate: CollectState) -> Batch:
+        """One eager env step to derive the buffer schema (one env's leaves,
+        no batch dimension)."""
+        g = make_generator(0, self.device)
+        act = self.algo.act(ts, cstate.obs, g, False)
+        _, res, _ = self.venv.step(cstate.env_state, act, g)
+        tr = Batch(
+            obs=cstate.obs, act=act, rew=res.reward, terminated=res.terminated,
+            truncated=res.truncated, obs_next=res.obs,
+        )
+        return tree_map(lambda x: x[0], tr)
+
+    def collect(
+        self,
+        ts: TrainState,
+        cstate: CollectState,
+        bstate: ReplayBufferState | None,
+        num_steps: int,
+        explore: bool = True,
+        explore_param: float = 0.0,
+    ) -> tuple[CollectState, ReplayBufferState | None, CollectStats]:
+        """Collect ``num_steps`` steps per env."""
+        seg = rollout_segment(self.algo, self.venv, self.buffer, num_steps, explore)
+        cstate, bstate, outputs = seg(ts, cstate, bstate, explore_param)
+        return cstate, bstate, self.summarize(outputs, self.venv.num_envs * num_steps)
+
+    @staticmethod
+    def summarize(outputs: dict, n_steps: int) -> CollectStats:
+        """Copy a segment's episode outputs to the host (one sync)."""
+        done = outputs["done"].cpu().numpy()
+        rets = outputs["ep_ret"].cpu().numpy()
+        lens = outputs["ep_len"].cpu().numpy()
+        return CollectStats(
+            n_collected_steps=n_steps,
+            n_collected_episodes=int(done.sum()),
+            returns=rets[done],
+            lens=lens[done],
+        )
+
+    def collect_episodes(
+        self,
+        ts: TrainState,
+        generator: torch.Generator,
+        n_episode: int,
+        chunk_size: int = 128,
+        explore: bool = False,
+        explore_param: float = 0.0,
+        max_chunks: int = 1000,
+    ) -> CollectStats:
+        """Collect exactly ``n_episode`` episodes from freshly reset envs.
+
+        Env ``i`` contributes ``n // N + (i < n % N)`` episodes; surplus
+        episodes are discarded, so fast envs do not bias the statistics.
+        """
+        n = self.venv.num_envs
+        quota = np.full(n, n_episode // n, np.int64)
+        quota[: n_episode % n] += 1
+        cstate = self.reset(generator)
+        seg = rollout_segment(self.algo, self.venv, None, chunk_size, explore)
+        per_env_returns: list[list[float]] = [[] for _ in range(n)]
+        per_env_lens: list[list[int]] = [[] for _ in range(n)]
+        counts = np.zeros(n, np.int64)
+        for _ in range(max_chunks):
+            cstate, _, outputs = seg(ts, cstate, None, explore_param)
+            done = outputs["done"].cpu().numpy()
+            rets = outputs["ep_ret"].cpu().numpy()
+            lens = outputs["ep_len"].cpu().numpy()
+            for t, i in zip(*np.nonzero(done)):
+                if counts[i] < quota[i]:
+                    per_env_returns[i].append(float(rets[t, i]))
+                    per_env_lens[i].append(int(lens[t, i]))
+                counts[i] += 1
+            if np.all(counts >= quota):
+                break
+        returns = np.asarray([r for lst in per_env_returns for r in lst], np.float64)
+        lens_arr = np.asarray([l for lst in per_env_lens for l in lst], np.int64)
+        return CollectStats(
+            n_collected_steps=int(lens_arr.sum()),
+            n_collected_episodes=int(returns.size),
+            returns=returns,
+            lens=lens_arr,
+        )

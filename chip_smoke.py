@@ -9,26 +9,39 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build: every kernel under ``tianshou_tpu_torch/csrc`` with ``nvcc``;
 3. kernels: each kernel against its plain PyTorch version on the card
-   (bitwise), then timed beside the plain version, the PyTorch library call
-   and the least time the card could take (its bound);
-4. reference: a small slice run on the card and on the CPU from the same
-   parameters and env phases: identical actions and replay storage, the
-   same bf16 presample, the same update losses;
-5. slice: the pixel DQN superstep at full width (SyntheticPixelEnv 84x84x4,
-   NatureCNN in bf16, 128 envs x 16 steps, batch 512, 26 updates a
-   superstep): 2 warm-up and 5 timed supersteps, 2 ``gather_rows_cast``
-   launches each, one more superstep in which a host synchronisation
-   raises, and where the time of a superstep goes;
-6. main path: ``OffPolicyTrainer.run()`` for one epoch of two supersteps
-   with a test phase, the launch counts taken over exactly that run.
+   (bitwise) at the shapes its paths give it, then timed beside the plain
+   version, the PyTorch library call and the least time the card could take
+   (its bound);
+4. reference: small slices run on the card and on the CPU from the same
+   parameters and env phases (the pixel path, and the pixel path with the
+   deduplicated frame-stack buffer): identical actions and replay storage,
+   the same bf16 presample (through the kernel on the card), the same
+   update losses;
+5. paths, each at full width: 2 warm-up and 5 timed supersteps, one more
+   superstep in which a host synchronisation raises, where the time of a
+   superstep goes, then ``OffPolicyTrainer.run()`` for one epoch of two
+   supersteps with a test phase, the launch counts read over exactly that
+   run.  The paths (``PATHS``):
+   - ``atari``: SyntheticPixelEnv 84x84x4, NatureCNN in bf16, 128 envs x
+     16 steps, batch 512, 26 updates a superstep, 2 ``gather_rows_cast``
+     launches each;
+   - ``atari_dedup``: the same with 4 frames a stack, channel-first, in a
+     ``ReplayBuffer(stack_num=4, save_only_last_obs=True,
+     ignore_obs_next=True)`` that stores each frame once; still exactly 2
+     launches a superstep (one per stacked key);
+   - ``cartpole``: the CartPole headline, QNet (128, 128, 128) in float32,
+     1024 envs x 64 steps, batch 1024, 410 updates a superstep;
+   - ``minatar``: MinAtar Breakout, the MinAtar CNN in bf16, 256 envs x 32
+     steps, batch 512, 102 updates a superstep.
 
-It then prints the ``kernels`` JSON line and, last, the ``ok`` JSON line.
-Without CUDA, or without the package beside it, it exits non-zero and
-prints no result.
+It then prints a ``paths`` JSON line, the ``kernels`` JSON line and, last,
+the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -41,7 +54,15 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3 of an H100 SXM
 H100_FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 
-NUM_ENVS, SEGMENT, BATCH, UPDATES, CAPACITY = 128, 16, 512, 26, 64
+# per path: envs, steps a segment, batch, updates a superstep, ring capacity
+PATHS = {
+    "atari": dict(num_envs=128, segment=16, batch=512, updates=26, capacity=64),
+    "atari_dedup": dict(num_envs=128, segment=16, batch=512, updates=26, capacity=64),
+    "cartpole": dict(num_envs=1024, segment=64, batch=1024, updates=410, capacity=64),
+    "minatar": dict(num_envs=256, segment=32, batch=512, updates=102, capacity=64),
+}
+# launches of gather_rows_cast a superstep: obs and obs_next of the presample
+KERNEL_LAUNCHES = {"atari": 2, "atari_dedup": 2, "cartpole": 0, "minatar": 0}
 
 
 def log(msg: str) -> None:
@@ -80,34 +101,12 @@ def phase_build() -> None:
     log(f"build: {_build.kernel_names()} in {secs:.2f} s into {_build.BUILD_DIR}")
 
 
-def phase_kernels() -> dict:
+def _time_gather(storage, idx, what: str) -> dict:
+    """The kernel, its plain version and the library call on one input, and
+    the bound from the rows these indices read."""
     from tianshou_tpu_torch.ops.gather import gather_rows_cast, gather_rows_cast_plain
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def inputs(rows, feat, batch, offset=0):
-        flat = torch.randint(0, 256, (rows * feat + offset,), generator=gen, device=dev, dtype=torch.uint8)
-        idx = torch.randint(0, rows, (batch,), generator=gen, device=dev)
-        return flat[offset:].view(rows, feat), idx
-
-    # (rows, features, batch, base offset): the slice's shape, an unaligned
-    # row width, a batch that fills no round number of blocks with rows
-    # wider than one block, and a storage base off the 16-byte alignment
-    cases = [(8192, 28224, 13312, 0), (16, 13, 9, 0), (300, 4100, 1001, 0), (64, 28224, 77, 3)]
-    max_err = 0.0
-    for rows, feat, batch, offset in cases:
-        storage, idx = inputs(rows, feat, batch, offset)
-        got = gather_rows_cast(storage, idx)
-        torch.cuda.synchronize()
-        ref = gather_rows_cast_plain(storage, idx)
-        if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
-            raise AssertionError(f"gather_rows_cast differs from its plain version at {rows, feat, batch, offset}")
-        max_err = max(max_err, float((got.float() - ref.float()).abs().max()))
-        log(f"kernel check gather_rows_cast R={rows} F={feat} B={batch} offset={offset}: bitwise equal")
-
-    rows, feat, batch = NUM_ENVS * CAPACITY, 84 * 84 * 4, UPDATES * BATCH
-    storage, idx = inputs(rows, feat, batch)
+    (rows, feat), batch = storage.shape, idx.shape[0]
     ms = time_ms(lambda: gather_rows_cast(storage, idx))
     plain_ms = time_ms(lambda: gather_rows_cast_plain(storage, idx))
     library_ms = time_ms(lambda: torch.index_select(storage, 0, idx).to(torch.bfloat16))
@@ -116,10 +115,63 @@ def phase_kernels() -> dict:
     bytes_ms = moved / H100_BYTES_PER_S * 1e3
     ops_ms = batch * feat / H100_FP32_OPS_PER_S * 1e3  # one conversion per byte
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"gather_rows_cast at R={rows} F={feat} B={batch} ({unique_rows} distinct rows): "
+    log(f"gather_rows_cast {what} at R={rows} F={feat} B={batch} ({unique_rows} distinct rows): "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select+to {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({moved / 1e9:.3f} GB at 3.35 TB/s); "
         f"{moved / (ms * 1e-3) / 1e12:.3f} TB/s achieved, {bound_ms / ms:.3f} of the bound")
+    return {"shape": [rows, feat, batch], "distinct_rows": unique_rows, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def phase_kernels() -> dict:
+    from tianshou_tpu_torch.ops.gather import gather_rows_cast, gather_rows_cast_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def storage_of(rows, feat, offset=0):
+        flat = torch.randint(0, 256, (rows * feat + offset,), generator=gen, device=dev, dtype=torch.uint8)
+        return flat[offset:].view(rows, feat)
+
+    def random_idx(rows, batch):
+        return torch.randint(0, rows, (batch,), generator=gen, device=dev)
+
+    def stacked_idx(num_envs, capacity, batch, stack):
+        """Rows of ``batch`` frame stacks: each a chain of ``stack``
+        consecutive slots of one env's ring, flattened oldest first."""
+        env = torch.randint(0, num_envs, (batch, 1), generator=gen, device=dev)
+        pos = torch.randint(0, capacity, (batch, 1), generator=gen, device=dev)
+        chain = torch.remainder(pos - torch.arange(stack - 1, -1, -1, device=dev), capacity)
+        return (env * capacity + chain).reshape(-1)
+
+    atari, dedup = PATHS["atari"], PATHS["atari_dedup"]
+    ring = atari["num_envs"] * atari["capacity"]
+    # (storage, idx): the slice's stored-stack shape; the deduplicated
+    # layout's stacked gather of single 84x84 frames; an unaligned row
+    # width; a batch that fills no round number of blocks with rows wider
+    # than one block; a storage base off the 16-byte alignment
+    cases = [
+        (storage_of(ring, 84 * 84 * 4), random_idx(ring, atari["updates"] * atari["batch"])),
+        (storage_of(ring, 84 * 84), stacked_idx(dedup["num_envs"], dedup["capacity"],
+                                                dedup["updates"] * dedup["batch"], 4)),
+        (storage_of(16, 13), random_idx(16, 9)),
+        (storage_of(300, 4100), random_idx(300, 1001)),
+        (storage_of(64, 28224, offset=3), random_idx(64, 77)),
+    ]
+    max_err = 0.0
+    for storage, idx in cases:
+        got = gather_rows_cast(storage, idx)
+        torch.cuda.synchronize()
+        ref = gather_rows_cast_plain(storage, idx)
+        what = f"R={storage.shape[0]} F={storage.shape[1]} B={idx.shape[0]} offset={storage.storage_offset()}"
+        if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError(f"gather_rows_cast differs from its plain version at {what}")
+        max_err = max(max_err, float((got.float() - ref.float()).abs().max()))
+        log(f"kernel check gather_rows_cast {what}: bitwise equal")
+
+    stored = _time_gather(*cases[0], "stored stacks (atari)")
+    stacked = _time_gather(*cases[1], "stacked single frames (atari_dedup)")
     return {
         "name": "gather_rows_cast",
         "route": "cuda",
@@ -127,31 +179,55 @@ def phase_kernels() -> dict:
         "replaces": "tianshou_tpu/ops/pallas_gather.py:38",
         "launches": None,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        **{k: stored[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shapes": {"atari": stored, "atari_dedup": stacked},
     }
 
 
-def build_slice(device, height=84, width=84, channels=4, num_actions=6, num_envs=NUM_ENVS,
-                segment=SEGMENT, batch=BATCH, updates=UPDATES, capacity=CAPACITY,
-                compute_dtype=torch.bfloat16, test_envs=8, episode_len=512):
-    """The atari-stage configuration through the port's entry points."""
+def build_path(path: str, device, test_envs: int = 8, **small):
+    """A path's configuration through the port's entry points; ``small``
+    overrides sizes (the card-vs-CPU reference runs a small slice)."""
     from tianshou_tpu_torch.algos.dqn import DQN
     from tianshou_tpu_torch.collect.collector import Collector
     from tianshou_tpu_torch.data.buffer import ReplayBuffer
     from tianshou_tpu_torch.envs.base import VectorEnv
-    from tianshou_tpu_torch.envs.synthetic import SyntheticPixelEnv
-    from tianshou_tpu_torch.networks.conv import ConvQNet
     from tianshou_tpu_torch.trainer.offpolicy import OffPolicyTrainer
 
-    env = SyntheticPixelEnv(height, width, channels, num_actions=num_actions, episode_len=episode_len)
-    buffer = ReplayBuffer(capacity, num_envs)
-    net = ConvQNet(env.observation_space.shape, num_actions, "nature",
-                   encoder_kwargs={"compute_dtype": compute_dtype})
-    algo = DQN(net, env.action_space, lr=1e-3, gamma=0.99, n_step=3, target_update_freq=1000, device=device)
+    cfg = {**PATHS[path], **small}
+    num_envs, segment, batch, updates, capacity = (
+        cfg[k] for k in ("num_envs", "segment", "batch", "updates", "capacity"))
+    buffer_options = {}
+    if path in ("atari", "atari_dedup"):
+        from tianshou_tpu_torch.envs.synthetic import SyntheticPixelEnv
+        from tianshou_tpu_torch.networks.conv import ConvQNet
+
+        channels, num_actions = cfg.get("channels", 4), cfg.get("num_actions", 6)
+        env = SyntheticPixelEnv(cfg.get("height", 84), cfg.get("width", 84), channels, num_actions=num_actions,
+                                episode_len=cfg.get("episode_len", 512), channel_first=path == "atari_dedup")
+        if path == "atari_dedup":
+            buffer_options = dict(stack_num=channels, save_only_last_obs=True, ignore_obs_next=True)
+        net = ConvQNet(env.observation_space.shape, num_actions, "nature",
+                       encoder_kwargs={"compute_dtype": cfg.get("compute_dtype", torch.bfloat16)})
+        dqn = dict(gamma=0.99, n_step=3, target_update_freq=1000)
+    elif path == "cartpole":
+        from tianshou_tpu_torch.envs.classic import CartPole
+        from tianshou_tpu_torch.networks.common import QNet
+
+        env = CartPole()
+        net = QNet(env.observation_space.shape, (128, 128, 128), env.action_space.n)
+        dqn = dict(gamma=0.9, n_step=3, target_update_freq=320)
+    elif path == "minatar":
+        from tianshou_tpu_torch.envs.minatar import make_minatar
+        from tianshou_tpu_torch.networks.conv import ConvQNet
+
+        env = make_minatar("breakout")
+        net = ConvQNet(env.observation_space.shape, env.action_space.n, "minatar",
+                       encoder_kwargs={"compute_dtype": torch.bfloat16})
+        dqn = dict(gamma=0.99, n_step=3, target_update_freq=1000)
+    else:
+        raise ValueError(f"unknown path {path!r}; have {sorted(PATHS)}")
+    buffer = ReplayBuffer(capacity, num_envs, **buffer_options)
+    algo = DQN(net, env.action_space, lr=1e-3, device=device, **dqn)
     train = Collector(algo, VectorEnv(env, num_envs, device=device), buffer, device=device)
     test = Collector(algo, VectorEnv(env, test_envs, device=device), device=device)
     steps = num_envs * segment
@@ -175,14 +251,16 @@ def init_states(algo, collector, buffer, seed=0):
     return gen, ts, cstate, bstate
 
 
-def phase_reference() -> None:
-    """Small slice on the card and on the CPU from the same start: the card
+def phase_reference(path: str) -> None:
+    """A small slice on the card and on the CPU from the same start: the card
     must take the same greedy actions (float32, TF32 off), store the same
-    ring bitwise, gather the same bf16 presample through the kernel, and
-    find the same update losses (rtol 1e-3: cuDNN and the CPU sum the
-    convolutions in different orders)."""
+    ring bitwise, gather the same bf16 presample (through the kernel, whole
+    stacks in one launch on the deduplicated layout), and find the same
+    update losses (rtol 1e-3: cuDNN and the CPU sum the convolutions in
+    different orders)."""
     from tianshou_tpu_torch.collect.collector import rollout_segment
     from tianshou_tpu_torch.envs.synthetic import SyntheticPixelState
+    from tianshou_tpu_torch.ops.gather import gather_rows_cast
     from tianshou_tpu_torch.trainer.offpolicy import build_update_scan
 
     small = dict(height=36, width=36, channels=2, num_actions=4, num_envs=4, segment=20,
@@ -191,7 +269,7 @@ def phase_reference() -> None:
     runs = {}
     state_dict = None
     for device in ("cuda", "cpu"):
-        env, algo, col, buffer, _ = build_slice(device, **small)
+        env, algo, col, buffer, _ = build_path(path, device, **small)
         _, ts, cstate, bstate = init_states(algo, col, buffer)
         if state_dict is None:
             state_dict = {k: v.cpu() for k, v in ts.online.state_dict().items()}
@@ -203,8 +281,11 @@ def phase_reference() -> None:
             ts, cstate, bstate, 0.0)
         env_idx = torch.arange(48, device=device) % 4
         pos = (torch.arange(48, device=device) * 7) % 16
+        gather_rows_cast.launches = 0
         bf16 = buffer.get(bstate, env_idx, pos, keys=("obs", "obs_next"),
                           dtypes={"obs": torch.bfloat16, "obs_next": torch.bfloat16})
+        if gather_rows_cast.launches != (2 if device == "cuda" else 0):
+            raise AssertionError(f"{device}: {gather_rows_cast.launches} gather_rows_cast launches for 2 keys")
         buffer.sample_with_weights = lambda st, g, b, e=env_idx, p=pos: (e, p, torch.ones(b, device=e.device))
         ts, bstate, metrics = build_update_scan(algo, buffer, small["batch"], small["updates"])(
             ts, bstate, None)
@@ -212,26 +293,31 @@ def phase_reference() -> None:
     (gb, gbf, gm), (cb, cbf, cm) = runs["cuda"], runs["cpu"]
     for k in cb.storage:
         if not torch.equal(gb.storage[k].cpu(), cb.storage[k]):
-            raise AssertionError(f"replay storage {k!r} differs between the card and the CPU")
+            raise AssertionError(f"{path}: replay storage {k!r} differs between the card and the CPU")
     for k in ("obs", "obs_next"):
         if not torch.equal(gbf[k].cpu().view(torch.int16), cbf[k].view(torch.int16)):
-            raise AssertionError(f"bf16 presample of {k!r} differs between the card and the CPU")
+            raise AssertionError(f"{path}: bf16 presample of {k!r} differs between the card and the CPU")
     for k in cm:
         if not math.isclose(gm[k], cm[k], rel_tol=1e-3):
-            raise AssertionError(f"{k}: card {gm[k]} vs CPU {cm[k]}")
-    log(f"reference: card equals CPU on actions, replay storage and bf16 presample; "
-        f"losses card {gm['loss']:.6f} CPU {cm['loss']:.6f}")
+            raise AssertionError(f"{path}: {k}: card {gm[k]} vs CPU {cm[k]}")
+    log(f"reference {path}: card equals CPU on actions, replay storage and bf16 presample "
+        f"{tuple(gbf['obs'].shape)}; losses card {gm['loss']:.6f} CPU {cm['loss']:.6f}")
 
 
-def phase_slice(gather) -> None:
+def phase_superstep(path: str, gather) -> dict:
+    """The path's superstep at full width: timed, under the sync guard, and
+    broken down."""
     from tianshou_tpu_torch.collect.collector import rollout_segment
     from tianshou_tpu_torch.trainer.offpolicy import build_update_scan
 
+    cfg = PATHS[path]
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    env, algo, col, buffer, trainer = build_slice("cuda")
+    env, algo, col, buffer, trainer = build_path(path, "cuda")
     gen, ts, cstate, bstate = init_states(algo, col, buffer)
     superstep = trainer._build_superstep()
-    steps = NUM_ENVS * SEGMENT
+    steps = cfg["num_envs"] * cfg["segment"]
     for _ in range(2):
         ts, cstate, bstate, outputs, metrics = superstep(ts, cstate, bstate, gen, 0.1)
     torch.cuda.synchronize()
@@ -243,10 +329,11 @@ def phase_slice(gather) -> None:
     loss = float(metrics["loss"])  # synchronises
     dt = time.perf_counter() - t0
     launches = gather.launches
-    if launches != 2 * n:
-        raise AssertionError(f"gather_rows_cast launched {launches} times in {n} supersteps, not {2 * n}")
+    if launches != KERNEL_LAUNCHES[path] * n:
+        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in {n} supersteps, "
+                             f"not {KERNEL_LAUNCHES[path] * n}")
     if not math.isfinite(loss):
-        raise AssertionError(f"non-finite loss {loss}")
+        raise AssertionError(f"{path}: non-finite loss {loss}")
     # the superstep keeps everything on the device: an operation in it that
     # PyTorch knows to synchronise the host with the card raises in this mode
     torch.cuda.set_sync_debug_mode("error")
@@ -254,19 +341,26 @@ def phase_slice(gather) -> None:
         ts, cstate, bstate, outputs, metrics = superstep(ts, cstate, bstate, gen, 0.1)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    log("slice: a superstep under torch.cuda.set_sync_debug_mode('error') raised no host sync")
     with torch.no_grad():
-        q = ts.online(cstate.obs)
-    if q.shape != (NUM_ENVS, env.action_space.n) or not bool(torch.isfinite(q).all()):
-        raise AssertionError(f"bad Q-values: {tuple(q.shape)}")
-    log(f"slice: {n} supersteps of {steps} env steps + {UPDATES} updates of batch {BATCH}: "
-        f"{n * steps / dt:.1f} env-steps/s, {dt / n * 1e3:.2f} ms per superstep, loss {loss:.5f}, "
-        f"gather_rows_cast launches {launches}, "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        q = algo.q_values(ts.online, cstate.obs)
+    if q.shape != (cfg["num_envs"], env.action_space.n) or not bool(torch.isfinite(q).all()):
+        raise AssertionError(f"{path}: bad Q-values: {tuple(q.shape)}")
+    from tianshou_tpu_torch.data.tree import tree_leaves
+
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ring_gb = sum(x.numel() * x.element_size() for x in tree_leaves(bstate.storage)) / 1e9
+    result = {"env_steps_per_s": n * steps / dt, "ms_per_superstep": dt / n * 1e3, "loss": loss,
+              "gather_rows_cast_per_superstep": launches / n, "max_memory_allocated_gib": peak,
+              "ring_gb": ring_gb}
+    log(f"{path}: {n} supersteps of {cfg['num_envs']} envs x {cfg['segment']} steps + {cfg['updates']} "
+        f"updates of batch {cfg['batch']}: {result['env_steps_per_s']:.1f} env-steps/s, "
+        f"{result['ms_per_superstep']:.2f} ms per superstep, loss {loss:.5f}, gather_rows_cast launches "
+        f"{launches}, replay ring {ring_gb:.4f} GB, max_memory_allocated {peak:.3f} GiB; a superstep under "
+        f"torch.cuda.set_sync_debug_mode('error') raised no host sync")
 
     # where a superstep's time goes: its three parts timed alone
-    seg = rollout_segment(algo, col.venv, buffer, SEGMENT, explore=True)
-    updates_fn = build_update_scan(algo, buffer, BATCH, UPDATES)
+    seg = rollout_segment(algo, col.venv, buffer, cfg["segment"], explore=True)
+    updates_fn = build_update_scan(algo, buffer, cfg["batch"], cfg["updates"])
     parts = {"rollout": [], "presample": [], "updates incl. presample": []}
     for _ in range(3):
         torch.cuda.synchronize()
@@ -274,7 +368,7 @@ def phase_slice(gather) -> None:
         cstate, bstate, _ = seg(ts, cstate, bstate, 0.1)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        algo.presample(buffer, bstate, gen, UPDATES * BATCH)
+        algo.presample(buffer, bstate, gen, cfg["updates"] * cfg["batch"])
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         ts, bstate, metrics = updates_fn(ts, bstate, gen)
@@ -283,22 +377,28 @@ def phase_slice(gather) -> None:
         parts["rollout"].append(t1 - t0)
         parts["presample"].append(t2 - t1)
         parts["updates incl. presample"].append(t3 - t2)
-    log("slice breakdown (median of 3, ms): " + ", ".join(
-        f"{k} {sorted(v)[1] * 1e3:.2f}" for k, v in parts.items()))
+    result["breakdown_ms"] = {k: sorted(v)[1] * 1e3 for k, v in parts.items()}
+    log(f"{path} breakdown (median of 3, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in result["breakdown_ms"].items()))
+    return result
 
 
-def phase_main_path(gather) -> int:
-    _, _, _, _, trainer = build_slice("cuda")
+def phase_main_path(path: str, gather) -> int:
+    """``OffPolicyTrainer.run()`` on the path; the launch count is read over
+    exactly that run."""
+    cfg = PATHS[path]
+    _, _, _, _, trainer = build_path(path, "cuda")
     gather.launches = 0
     info = trainer.run()
     launches = gather.launches
-    log(f"OffPolicyTrainer.run(): {info}")
-    if launches != 2 * 2:
-        raise AssertionError(f"gather_rows_cast launched {launches} times in run(), not 4")
-    if info.env_step != 2 * NUM_ENVS * SEGMENT or info.gradient_step != 2 * UPDATES:
-        raise AssertionError(f"counters env_step={info.env_step} gradient_step={info.gradient_step}")
+    log(f"{path} OffPolicyTrainer.run(): {info}")
+    if launches != KERNEL_LAUNCHES[path] * 2:
+        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in run(), "
+                             f"not {KERNEL_LAUNCHES[path] * 2}")
+    if info.env_step != 2 * cfg["num_envs"] * cfg["segment"] or info.gradient_step != 2 * cfg["updates"]:
+        raise AssertionError(f"{path}: counters env_step={info.env_step} gradient_step={info.gradient_step}")
     if not math.isfinite(info.last_metrics["loss"]) or not math.isfinite(info.best_reward):
-        raise AssertionError(f"non-finite result: {info}")
+        raise AssertionError(f"{path}: non-finite result: {info}")
     return launches
 
 
@@ -310,13 +410,22 @@ def main() -> int:
     from tianshou_tpu_torch.ops.gather import gather_rows_cast
 
     t0 = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     phase_build()
     kernel = phase_kernels()
-    phase_reference()
-    phase_slice(gather_rows_cast)
-    kernel["launches"] = phase_main_path(gather_rows_cast)
+    for path in ("atari", "atari_dedup"):
+        phase_reference(path)
+    results, launches = {}, 0
+    for path in PATHS:
+        results[path] = phase_superstep(path, gather_rows_cast)
+        launches += phase_main_path(path, gather_rows_cast)
+    kernel["launches"] = launches
+    stored, dedup = results["atari"], results["atari_dedup"]
+    log("atari memory regime: frames stored once (atari_dedup) beside stored stacks (atari): "
+        + ", ".join(f"{k} {dedup[k]:.4f} vs {stored[k]:.4f}" for k in (
+            "ring_gb", "max_memory_allocated_gib", "ms_per_superstep", "env_steps_per_s")))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"card": smi, "paths": results}))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -117,3 +117,112 @@ def test_eps_greedy_act():
     rand = talgo.act(tts, obs, g, explore=True, explore_param=1.0)
     assert rand.dtype == torch.int64 and int(rand.min()) >= 0 and int(rand.max()) < A
     assert len(torch.unique(rand)) > 1
+
+
+# -- the options of slice 2: is_double=False, huber=True, action masks -----
+MLP_OBS, MLP_A = 8, 5
+
+
+def make_mlp_pair(seed=0, **options):
+    from tianshou_tpu.networks.common import QNet as JaxQNet
+    from tianshou_tpu_torch.networks.common import QNet
+
+    kw = dict(lr=1e-3, gamma=0.9, n_step=N_STEP, target_update_freq=2, **options)
+    jalgo = JaxDQN(JaxQNet((32, 32), MLP_A), JaxDiscrete(MLP_A), **kw)
+    jts = jalgo.init(jax.random.key(seed), jnp.zeros((MLP_OBS,), jnp.float32))
+    talgo = DQN(QNet(MLP_OBS, (32, 32), MLP_A), Discrete(MLP_A), device="cpu", **kw)
+    tts = talgo.init(torch.Generator().manual_seed(seed))
+    sd = params_from_flax(jax.device_get(jts.params))
+    tts.online.load_state_dict(sd)
+    tts.target.load_state_dict(sd)
+    return jalgo, jts, talgo, tts
+
+
+def mlp_sampled_pair(seed, masked):
+    rng = np.random.default_rng(seed)
+    obs = rng.normal(size=(B, MLP_OBS)).astype(np.float32) * 3
+    obs_next = rng.normal(size=(B, MLP_OBS)).astype(np.float32) * 3
+    common = dict(
+        env_idx=rng.integers(0, 2, B).astype(np.int32), pos=rng.integers(0, 8, B).astype(np.int32),
+        weight=rng.uniform(0.5, 1.5, B).astype(np.float32), act=rng.integers(0, MLP_A, B).astype(np.int32),
+        rew_chain=(rng.normal(size=(B, N_STEP)) * 3).astype(np.float32),
+        done_chain=(rng.random((B, N_STEP)) < 0.2).astype(np.int32), terminated=rng.random(B) < 0.3,
+    )
+    if masked:
+        mask = rng.random((B, MLP_A)) < 0.6
+        mask[np.arange(B), common["act"]] = True
+        mask_next = rng.random((B, MLP_A)) < 0.6
+        mask_next[:, 0] = True
+        obs = {"obs": obs, "mask": mask}
+        obs_next = {"obs": obs_next, "mask": mask_next}
+
+    def side(asarray, batch):
+        c = {k: asarray(v) for k, v in common.items()}
+        tree = lambda o: batch({k: asarray(v) for k, v in o.items()}) if isinstance(o, dict) else asarray(o)
+        return (c["env_idx"], c["pos"], c["weight"], batch(obs=tree(obs), act=c["act"]), c["rew_chain"],
+                c["done_chain"], batch(obs_next=tree(obs_next), terminated=c["terminated"]))
+
+    return side(jnp.asarray, JaxBatch), side(torch.from_numpy, Batch)
+
+
+@pytest.mark.parametrize("options", [dict(is_double=False), dict(huber=True), dict(masked=True)],
+                         ids=["single-q", "huber", "action-mask"])
+def test_three_updates_with_options_match_jax(options):
+    masked = options.pop("masked", False)
+    jalgo, jts, talgo, tts = make_mlp_pair(**options)
+    jbuf = JaxReplayBuffer(8, 2)
+    update = jax.jit(lambda ts, s: jalgo.update_sampled(ts, jbuf, None, s, jax.random.key(0)))
+    for step in range(1, 4):
+        js, ts_ = mlp_sampled_pair(step, masked)
+        jts, _, jm = update(jts, js)
+        tts, _, tm = talgo.update_sampled(tts, None, None, ts_)
+        for k in ("loss", "td_abs_mean"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, atol=1e-5, err_msg=k)
+        assert_params_close(tts.online, jts.params)
+        assert_params_close(tts.target, jts.target_params)
+    if options.get("huber"):
+        assert float(tm["td_abs_mean"]) > 1.0  # the loss's linear branch was taken
+
+
+def test_masked_act_respects_the_mask():
+    jalgo, jts, talgo, tts = make_mlp_pair()
+    rng = np.random.default_rng(0)
+    n = 20_000
+    obs = torch.from_numpy(rng.normal(size=(n, MLP_OBS)).astype(np.float32))
+    mask = torch.zeros(n, MLP_A, dtype=torch.bool)
+    mask[:, [1, 3, 4]] = True
+    o = Batch(obs=obs, mask=mask)
+    greedy = talgo.act(tts, o, torch.Generator().manual_seed(0), explore=False)
+    ref = np.asarray(jalgo.act(jts, JaxBatch(obs=jnp.asarray(obs.numpy()), mask=jnp.asarray(mask.numpy())),
+                               jax.random.key(0), False)[0])
+    np.testing.assert_array_equal(greedy.numpy(), ref)
+    rand = talgo.act(tts, o, torch.Generator().manual_seed(1), explore=True, explore_param=1.0)
+    counts = np.bincount(rand.numpy(), minlength=MLP_A)
+    assert counts[[0, 2]].sum() == 0
+    expected = n / 3
+    chi2 = ((counts[[1, 3, 4]] - expected) ** 2 / expected).sum()
+    assert chi2 < 25.0, counts  # 2 degrees of freedom: 25 lies beyond the 1e-5 tail
+
+
+def test_random_policy_respects_mask_and_box():
+    from tianshou_tpu_torch.algos.base import RandomPolicy
+    from tianshou_tpu_torch.envs.spaces import Box
+
+    g = torch.Generator().manual_seed(0)
+    n = 6000
+    mask = torch.zeros(n, 4, dtype=torch.bool)
+    mask[: n // 2, :2] = True
+    mask[n // 2:, 3] = True
+    pol = RandomPolicy(Discrete(4), device="cpu")
+    ts = pol.init(g)
+    a = pol.act(ts, Batch(obs=torch.zeros(n, 2), mask=mask), g, True)
+    assert bool(mask[torch.arange(n), a].all())
+    assert abs(float((a[: n // 2] == 0).float().mean()) - 0.5) < 0.05
+    a = pol.act(ts, torch.zeros(n, 2), g, True)
+    assert set(a.tolist()) == {0, 1, 2, 3}
+    box = RandomPolicy(Box(low=(-2.0, 0.0), high=(2.0, 1.0), shape=(2,)), device="cpu")
+    a = box.act(ts, torch.zeros(n, 3), g, True)
+    assert a.shape == (n, 2) and float(a.min()) >= -1.0 and float(a.max()) <= 1.0
+    env_a = box.map_action(a)
+    assert float(env_a[:, 0].min()) >= -2.0 and float(env_a[:, 1].max()) <= 1.0
+    assert float(env_a[:, 0].min()) < -1.9 and float(env_a[:, 0].max()) > 1.9

@@ -10,6 +10,13 @@ NatureCNN in float32 (so that argmax ties and bf16 rounding cannot differ),
 (b) OffPolicyTrainer.run() completes with the right counters.
 (c) Without CUDA, every entry point's default device raises.
 (d) The port imports nothing of JAX or of tianshou_tpu.
+(e) The same comparison as (a) on the paths of slice 2: a greedy CartPole
+    segment (QNet, float32; storage within atol 1e-6), a MinAtar Breakout
+    segment (sticky actions off) and a deduplicated stacked pixel segment
+    (SyntheticPixelEnv(36, 36, 2, channel_first=True), stack_num=2,
+    save_only_last_obs, ignore_obs_next), both with bitwise-equal storage;
+    then the presample of the same indices and k updates.  Resets are fixed
+    on both sides, so an auto-reset inside the segment is injected too.
 """
 
 import ast
@@ -204,7 +211,23 @@ def test_port_imports_no_jax():
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    assert int(res.stdout.strip()) >= 25
+
+
+SLICE2_MODULES = ["envs.classic", "envs.wrappers", "envs.minatar", "networks.common"]
+
+
+def test_port_imports_slice2_modules_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE2_MODULES!r}:\n"
+        "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'tianshou_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def test_port_sources_name_no_jax_import():
@@ -220,3 +243,147 @@ def test_port_sources_name_no_jax_import():
                 continue
             for name in names:
                 assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "optax", "tianshou_tpu"), (path, name)
+
+
+# -- (e) the paths of slice 2 -------------------------------------------------
+from tianshou_tpu.envs.classic import CartPole as JaxCartPole  # noqa: E402
+from tianshou_tpu.envs.classic import CartPoleState as JaxCartPoleState  # noqa: E402
+from tianshou_tpu.envs.minatar import Breakout as JaxBreakout  # noqa: E402
+from tianshou_tpu.networks.common import QNet as JaxQNet  # noqa: E402
+from tianshou_tpu_torch.envs.classic import CartPole, CartPoleState  # noqa: E402
+from tianshou_tpu_torch.envs.minatar import Breakout  # noqa: E402
+from tianshou_tpu_torch.networks.common import QNet  # noqa: E402
+
+CART0 = np.array([0.03, -0.02, 0.04, 0.01], np.float32)
+
+
+class _JaxCart(JaxCartPole):
+    def reset(self, key):
+        s = JaxCartPoleState(*map(jnp.asarray, CART0), jnp.zeros((), jnp.int32))
+        return s, self._obs(s)
+
+
+class _Cart(CartPole):
+    def reset(self, generator, num_envs, device):
+        v = torch.from_numpy(CART0).to(device).repeat(num_envs, 1)
+        s = CartPoleState(*v.unbind(1), torch.zeros(num_envs, dtype=torch.int32, device=device))
+        return s, self._obs(s)
+
+
+class _JaxPixel(JaxPixelEnv):
+    def reset(self, key):
+        s = JaxPixelState(jnp.zeros((), jnp.int32), jnp.asarray(5, jnp.int32))
+        return s, self._frame(s.t, s.seed)
+
+
+class _Pixel(SyntheticPixelEnv):
+    def reset(self, generator, num_envs, device):
+        s = SyntheticPixelState(torch.zeros(num_envs, dtype=torch.int32, device=device),
+                                torch.full((num_envs,), 5, dtype=torch.int32, device=device))
+        return s, self.frame(s.t, s.seed)
+
+
+class _JaxBreakout(JaxBreakout):
+    def reset(self, key):
+        st, _ = super().reset(key)
+        st = st._replace(ball_x=jnp.asarray(0, jnp.int32), trail_x=jnp.asarray(0, jnp.int32),
+                         ball_dx=jnp.asarray(1, jnp.int32))
+        return st, self._obs(st)
+
+
+class _Breakout(Breakout):
+    def reset(self, generator, num_envs, device):
+        st = self.initial_state(torch.zeros(num_envs, dtype=torch.bool, device=device))
+        return st, self._obs(st)
+
+
+def _slice2_case(case):
+    """``(jax env, jax net, torch env, torch net, buffer options, injected
+    start states as (jax, torch) or None)``."""
+    if case == "cartpole":
+        rng = np.random.default_rng(5)
+        start = rng.uniform(-0.04, 0.04, (4, N_ENVS)).astype(np.float32)
+        t0 = np.array([0, 3, 6], np.int32)
+        jstart = JaxCartPoleState(*map(jnp.asarray, start), jnp.asarray(t0))
+        tstart = CartPoleState(*map(torch.from_numpy, start), torch.from_numpy(t0))
+        return (_JaxCart(), JaxQNet((32, 32), 2), _Cart(), QNet(4, (32, 32), 2), {}, (jstart, tstart))
+    if case == "minatar":
+        enc = ({"compute_dtype": jnp.float32}, {"compute_dtype": torch.float32})
+        return (_JaxBreakout(sticky_prob=0.0), JaxConvQNet(3, "minatar", enc[0]), _Breakout(sticky_prob=0.0),
+                ConvQNet((10, 10, 4), 3, "minatar", enc[1]), {}, None)
+    enc = ({"compute_dtype": jnp.float32}, {"compute_dtype": torch.float32})
+    start = (JaxPixelState(jnp.zeros(N_ENVS, jnp.int32), jnp.asarray([11, 222, 3333], jnp.int32)),
+             SyntheticPixelState(torch.zeros(N_ENVS, dtype=torch.int32), torch.tensor([11, 222, 3333], dtype=torch.int32)))
+    options = dict(stack_num=2, save_only_last_obs=True, ignore_obs_next=True)
+    return (_JaxPixel(H, W, 2, num_actions=A, episode_len=7, channel_first=True),
+            JaxConvQNet(A, "nature", enc[0]),
+            _Pixel(H, W, 2, num_actions=A, episode_len=7, channel_first=True),
+            ConvQNet((2, H, W), A, "nature", enc[1]), options, start)
+
+
+@pytest.mark.parametrize("case", ["cartpole", "minatar", "stacked-pixels"])
+def test_slice2_paths_match_jax(case):
+    jenv, jnet, tenv, tnet, options, start = _slice2_case(case)
+    jvenv, tvenv = JaxVectorEnv(jenv, N_ENVS), VectorEnv(tenv, N_ENVS, device="cpu")
+    jbuf, tbuf = JaxReplayBuffer(CAP, N_ENVS, **options), ReplayBuffer(CAP, N_ENVS, **options)
+    kw = dict(lr=1e-3, gamma=0.9, n_step=N_STEP, target_update_freq=2)
+    jalgo = JaxDQN(jnet, jenv.action_space, **kw)
+    talgo = DQN(tnet, tenv.action_space, device="cpu", **kw)
+    jcol, tcol = JaxCollector(jalgo, jvenv, jbuf), Collector(talgo, tvenv, tbuf, device="cpu")
+    jcs, tcs = jcol.reset(jax.random.key(0)), tcol.reset(torch.Generator().manual_seed(0))
+    if start is not None:
+        jcs = jcs.replace(env_state=start[0], obs=jax.vmap(jenv._frame if hasattr(jenv, "_frame") else jenv._obs)(
+            *((start[0].t, start[0].seed) if hasattr(jenv, "_frame") else (start[0],))))
+        tcs.env_state = start[1]
+        tcs.obs = tenv.frame(start[1].t, start[1].seed) if hasattr(tenv, "frame") else tenv._obs(start[1])
+    np.testing.assert_array_equal(tcs.obs.numpy(), np.asarray(jcs.obs))
+    jts = jalgo.init(jax.random.key(0 if case == "cartpole" else 1), jcs.obs[0])
+    if case == "minatar":
+        # a freshly drawn head ranks the actions alike on every Breakout
+        # screen (the brick wall dominates the features); centring the
+        # Q-values on the first screen makes the greedy actions vary
+        params = jax.device_get(jts.params)
+        head = params["params"]["Dense_0"]
+        head["bias"] = head["bias"] - np.asarray(jnet.apply(params, jcs.obs[:1]))[0]
+        jts = jts.replace(params=params, target_params=params, opt_state=jalgo.optimizer.init(params))
+    tts = talgo.init(torch.Generator().manual_seed(1))
+    sd = params_from_flax(jax.device_get(jts.params))
+    tts.online.load_state_dict(sd)
+    tts.target.load_state_dict(sd)
+    jbs = jbuf.init(jcol.example_transition(jts, jcs))
+    tbs = tbuf.init(tcol.example_transition(tts, tcs), device="cpu")
+
+    jseg = jax.jit(jax_rollout_segment(jalgo, jvenv, jbuf, SEG, explore=False, record_traj=False))
+    jcs, jbs, jout = jseg(jts, jcs, jbs, 0.0)
+    tcs, tbs, tout = rollout_segment(talgo, tvenv, tbuf, SEG, explore=False)(tts, tcs, tbs, 0.0)
+    np.testing.assert_array_equal(tbs.storage["act"].numpy(), np.asarray(jbs.storage["act"]))
+    print(case, "actions", np.bincount(np.asarray(jbs.storage["act"]).ravel()), "episode ends",
+          int(np.asarray(jout["done"]).sum()))
+    assert len(np.unique(np.asarray(jbs.storage["act"]))) > 1
+    assert int(np.asarray(jout["done"]).sum()) > 0  # the segment crosses an auto-reset
+    np.testing.assert_array_equal(tout["done"].numpy(), np.asarray(jout["done"]))
+    for k in jbs.storage:
+        ref, got = np.asarray(jbs.storage[k]), tbs.storage[k].numpy()
+        assert got.shape == ref.shape, k
+        if case == "cartpole" and got.dtype == np.float32:
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got, ref, err_msg=k)
+    if options:
+        assert tbs.storage["obs"].shape == (N_ENVS, CAP, H, W) and "obs_next" not in tbs.storage
+
+    rng = np.random.default_rng(7)
+    env_idx, pos = rng.integers(0, N_ENVS, K * BATCH), rng.integers(0, CAP, K * BATCH)
+    ones = np.ones(K * BATCH, np.float32)
+    jbuf.sample_with_weights = lambda st, key, b: (
+        jnp.asarray(env_idx, jnp.int32), jnp.asarray(pos, jnp.int32), jnp.asarray(ones))
+    tbuf.sample_with_weights = lambda st, g, b: (
+        torch.from_numpy(env_idx), torch.from_numpy(pos), torch.from_numpy(ones))
+    jts, _, jm = jax_build_update_scan(jalgo, jbuf, BATCH, K)(jts, jbs, jax.random.key(2))
+    tts, _, tm = build_update_scan(talgo, tbuf, BATCH, K)(tts, tbs, torch.Generator())
+    for k in ("loss", "td_abs_mean"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, atol=1e-5, err_msg=k)
+    for mod, flax_params in ((tts.online, jts.params), (tts.target, jts.target_params)):
+        ref = params_from_flax(jax.device_get(flax_params))
+        for name, val in mod.state_dict().items():
+            np.testing.assert_allclose(val.numpy(), ref[name].numpy(), rtol=1e-4, atol=1e-5, err_msg=name)

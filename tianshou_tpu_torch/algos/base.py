@@ -5,6 +5,7 @@ pytree; here :class:`TrainState` holds the online and target modules, their
 optimizer and the host-side update count, and updates change them in place.
 An :class:`Algorithm` stays a configuration object whose methods take the
 state explicitly, so the collector and trainer read like the JAX package's.
+:class:`RandomPolicy` acts uniformly at random, for warm-up collection.
 """
 
 from __future__ import annotations
@@ -15,9 +16,19 @@ import torch
 from torch import nn
 
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
-from tianshou_tpu_torch.envs.spaces import Space
+from tianshou_tpu_torch.data.tree import tree_leaves
+from tianshou_tpu_torch.envs.spaces import Box, Space
+from tianshou_tpu_torch.utils.device import resolve_device
 
-__all__ = ["TrainState", "Algorithm"]
+__all__ = ["TrainState", "Algorithm", "RandomPolicy", "uniform_legal_action"]
+
+
+def uniform_legal_action(mask: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One action per row of ``mask [B, A]``, uniform over its True entries:
+    the argmax of iid uniforms over the legal actions (the JAX package uses
+    Gumbel noise, which is uniform for the same reason)."""
+    u = torch.rand(mask.shape, generator=generator, device=mask.device)
+    return torch.where(mask, u, -1.0).argmax(dim=-1)
 
 
 @dataclasses.dataclass
@@ -28,7 +39,7 @@ class TrainState:
 
     online: nn.Module
     target: nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: torch.optim.Optimizer | None
     step: int = 0
 
 
@@ -62,6 +73,16 @@ class Algorithm:
     ) -> torch.Tensor:
         """Batched action selection."""
         raise NotImplementedError
+
+    def map_action(self, act: torch.Tensor) -> torch.Tensor:
+        """The env's action for the policy's: continuous policies act in
+        ``[-1, 1]``, rescaled here to the ``Box`` bounds; discrete actions
+        pass through."""
+        space = self.action_space
+        if not isinstance(space, Box):
+            return act
+        lo, hi = space.low_arr(act.device), space.high_arr(act.device)
+        return lo + (torch.clamp(act, -1.0, 1.0) + 1.0) * 0.5 * (hi - lo)
 
     # -- shared off-policy sampling ----------------------------------------
     def _sample_nstep(
@@ -106,3 +127,28 @@ class Algorithm:
         """One gradient step from a :meth:`presample` tuple; metrics stay on
         the device."""
         raise NotImplementedError
+
+
+class RandomPolicy(Algorithm):
+    """Uniform random actions, for warm-up collection before learning:
+    uniform over the legal actions under a dict observation's ``mask``,
+    uniform in ``[-1, 1]`` (the policy's scale) for a ``Box``, else
+    ``action_space.sample``."""
+
+    def __init__(self, action_space: Space, device: str | torch.device = "cuda"):
+        self.action_space = action_space
+        self.device = resolve_device(device)
+
+    def init(self, generator: torch.Generator) -> TrainState:
+        empty = nn.Module()
+        return TrainState(online=empty, target=empty, optimizer=None)
+
+    def act(self, ts, obs, generator, explore, explore_param=0.0):
+        bsz = tree_leaves(obs)[0].shape[0]
+        space = self.action_space
+        if isinstance(obs, dict) and "mask" in obs:
+            return uniform_legal_action(obs["mask"].to(torch.bool), generator)
+        if isinstance(space, Box):
+            u = torch.rand((bsz,) + space.shape, generator=generator, device=generator.device)
+            return u * 2.0 - 1.0
+        return space.sample(generator, (bsz,))

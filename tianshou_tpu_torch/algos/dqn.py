@@ -1,13 +1,16 @@
 """DQN with double-Q and n-step targets (port of ``tianshou_tpu/algos/dqn.py``).
 
 One :meth:`DQN.update_sampled` is the JAX package's fused update: the
-double-Q bootstrap at the n-step terminal states, :func:`nstep_return`, a
-weighted MSE loss, an Adam step, and the periodic target copy when
+bootstrap at the n-step terminal states (double-Q unless
+``is_double=False``), :func:`nstep_return`, a weighted MSE or Huber loss,
+an Adam step, and the periodic target copy when
 ``step % target_update_freq == 0`` (steps counted from 1).
 ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`` is the counterpart of
-``optax.adam(lr)``.
+``optax.adam(lr)``, and ``F.huber_loss(delta=1)`` of ``optax.huber_loss``.
 
-Not ported yet: the Huber loss, ``is_double=False`` and action masks.
+Observations may be dicts ``{"obs": ..., "mask": [B, A]}``: the network
+reads ``obs``, illegal actions get Q = -1e9, and exploration draws
+uniformly over the legal actions.
 """
 
 from __future__ import annotations
@@ -15,9 +18,10 @@ from __future__ import annotations
 import copy
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from tianshou_tpu_torch.algos.base import Algorithm, TrainState
+from tianshou_tpu_torch.algos.base import Algorithm, TrainState, uniform_legal_action
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.envs.spaces import Discrete
 from tianshou_tpu_torch.ops.returns import nstep_return
@@ -37,6 +41,8 @@ class DQN(Algorithm):
         gamma: float = 0.99,
         n_step: int = 1,
         target_update_freq: int = 0,
+        is_double: bool = True,
+        huber: bool = False,
         device: str | torch.device = "cuda",
     ):
         """``network`` is a template: :meth:`init` copies it onto
@@ -47,6 +53,8 @@ class DQN(Algorithm):
         self.gamma = gamma
         self.n_step = n_step
         self.target_update_freq = target_update_freq
+        self.is_double = is_double
+        self.huber = huber
         self.device = resolve_device(device)
 
     def init(self, generator: torch.Generator) -> TrainState:
@@ -66,24 +74,45 @@ class DQN(Algorithm):
     def obs_dtype(self) -> torch.dtype:
         return self.network.input_dtype
 
+    @staticmethod
+    def _action_mask(obs) -> torch.Tensor | None:
+        if isinstance(obs, dict) and "mask" in obs:
+            return obs["mask"].to(torch.bool)
+        return None
+
+    def q_values(self, net: nn.Module, obs) -> torch.Tensor:
+        """``net``'s Q-values, -1e9 on illegal actions under a mask."""
+        q = net(obs["obs"] if isinstance(obs, dict) and "obs" in obs else obs)
+        mask = self._action_mask(obs)
+        return q if mask is None else torch.where(mask, q, -1e9)
+
     @torch.no_grad()
     def act(self, ts, obs, generator, explore, explore_param=0.0):
-        greedy = ts.online(obs).argmax(dim=-1)
+        q = self.q_values(ts.online, obs)
+        greedy = q.argmax(dim=-1)
         if not explore:
             return greedy
-        rand = torch.randint(
-            0, self.action_space.n, greedy.shape, generator=generator, device=greedy.device
-        )
+        mask = self._action_mask(obs)
+        if mask is None:
+            rand = torch.randint(
+                0, self.action_space.n, greedy.shape, generator=generator, device=greedy.device
+            )
+        else:
+            rand = uniform_legal_action(mask, generator)
         take_rand = torch.rand(greedy.shape, generator=generator, device=greedy.device) < explore_param
         return torch.where(take_rand, rand, greedy)
 
     @torch.no_grad()
-    def _target_q(self, ts: TrainState, obs_next: torch.Tensor, value_mask: torch.Tensor) -> torch.Tensor:
-        """Masked bootstrap value at the n-step terminal states, with the
-        action chosen by the online network (double DQN)."""
-        q_t = ts.target(obs_next)
-        a_star = ts.online(obs_next).argmax(dim=-1, keepdim=True)
-        return q_t.gather(-1, a_star).squeeze(-1) * value_mask
+    def _target_q(self, ts: TrainState, obs_next, value_mask: torch.Tensor) -> torch.Tensor:
+        """Masked bootstrap value at the n-step terminal states; with
+        ``is_double`` the online network chooses the action."""
+        q_t = self.q_values(ts.target, obs_next)
+        if self.is_double:
+            a_star = self.q_values(ts.online, obs_next).argmax(dim=-1, keepdim=True)
+            q = q_t.gather(-1, a_star).squeeze(-1)
+        else:
+            q = q_t.max(dim=-1).values
+        return q * value_mask
 
     def update_sampled(
         self,
@@ -98,9 +127,13 @@ class DQN(Algorithm):
         q_term = self._target_q(ts, term["obs_next"], mask)
         target = nstep_return(rew_chain, done_chain, q_term, self.gamma)
 
-        q = ts.online(batch["obs"]).gather(-1, batch["act"].to(torch.int64)[:, None]).squeeze(-1)
+        q = self.q_values(ts.online, batch["obs"])
+        q = q.gather(-1, batch["act"].to(torch.int64)[:, None]).squeeze(-1)
         td = q - target
-        loss = (weight * td.pow(2)).mean()
+        if self.huber:
+            loss = (weight * F.huber_loss(q, target, reduction="none", delta=1.0)).mean()
+        else:
+            loss = (weight * td.pow(2)).mean()
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         ts.optimizer.step()

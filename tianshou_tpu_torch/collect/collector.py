@@ -8,6 +8,9 @@ segment.  ``collect_episodes`` runs fixed-size chunks under a host loop
 until per-env episode quotas are met; only the first ``quota_i`` episodes of
 env ``i`` count.
 
+Observations may be any shape, or dicts (an action ``mask`` beside
+``obs``); ``random=True`` acts through :class:`RandomPolicy` (warm-up).
+
 Not ported yet: recorded trajectories (the on-policy path), recurrent
 policy state and MARL reward metrics.
 """
@@ -20,7 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from tianshou_tpu_torch.algos.base import Algorithm, TrainState
+from tianshou_tpu_torch.algos.base import Algorithm, RandomPolicy, TrainState
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.tree import tree_map
@@ -69,18 +72,21 @@ def rollout_segment(
     buffer: ReplayBuffer | None,
     num_steps: int,
     explore: bool,
+    random: bool = False,
 ):
     """Build ``seg(ts, cstate, bstate, explore_param) -> (cstate, bstate,
     outputs)``; ``outputs`` holds ``[T, N]`` tensors ``done``, ``ep_ret`` and
-    ``ep_len`` (the latter two non-zero only where an episode ended)."""
+    ``ep_len`` (the latter two non-zero only where an episode ended).  With
+    ``random``, uniform random actions take the place of ``algo``'s."""
+    actor = RandomPolicy(algo.action_space, algo.device) if random else algo
 
     def seg(ts: TrainState, cstate: CollectState, bstate, explore_param: float):
         obs, env_state = cstate.obs, cstate.env_state
         ep_ret, ep_len = cstate.ep_ret, cstate.ep_len
         dones, rets, lens = [], [], []
         for _ in range(num_steps):
-            act = algo.act(ts, obs, cstate.rng, explore, explore_param)
-            env_state, res, carry_obs = venv.step(env_state, act, cstate.rng)
+            act = actor.act(ts, obs, cstate.rng, explore, explore_param)
+            env_state, res, carry_obs = venv.step(env_state, algo.map_action(act), cstate.rng)
             done = res.done
             ep_ret = ep_ret + res.reward
             ep_len = ep_len + 1
@@ -143,7 +149,7 @@ class Collector:
         no batch dimension)."""
         g = make_generator(0, self.device)
         act = self.algo.act(ts, cstate.obs, g, False)
-        _, res, _ = self.venv.step(cstate.env_state, act, g)
+        _, res, _ = self.venv.step(cstate.env_state, self.algo.map_action(act), g)
         tr = Batch(
             obs=cstate.obs, act=act, rew=res.reward, terminated=res.terminated,
             truncated=res.truncated, obs_next=res.obs,
@@ -158,9 +164,11 @@ class Collector:
         num_steps: int,
         explore: bool = True,
         explore_param: float = 0.0,
+        random: bool = False,
     ) -> tuple[CollectState, ReplayBufferState | None, CollectStats]:
-        """Collect ``num_steps`` steps per env."""
-        seg = rollout_segment(self.algo, self.venv, self.buffer, num_steps, explore)
+        """Collect ``num_steps`` steps per env; ``random`` acts uniformly at
+        random (warm-up)."""
+        seg = rollout_segment(self.algo, self.venv, self.buffer, num_steps, explore, random)
         cstate, bstate, outputs = seg(ts, cstate, bstate, explore_param)
         return cstate, bstate, self.summarize(outputs, self.venv.num_envs * num_steps)
 

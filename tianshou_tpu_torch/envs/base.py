@@ -6,8 +6,12 @@ a leading ``[num_envs]`` dimension.
 
 Contract:
 - ``reset(generator, num_envs, device) -> (state, obs)``;
-- ``step(state, action) -> (state, StepResult)`` with ``[num_envs, ...]``
-  leaves; truncation (time limits) lives in the env state.
+- ``step(state, action, generator=None) -> (state, StepResult)`` with
+  ``[num_envs, ...]`` leaves; truncation (time limits) lives in the env
+  state.  An env that draws while stepping (MinAtar's sticky actions) draws
+  from ``generator``, the collector's stream; the JAX package keeps a key in
+  the env state instead.  Observations and states may be nested (a dict
+  with an action ``mask``, a frame stack beside the inner state).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from tianshou_tpu_torch.data.tree import tree_map
 from tianshou_tpu_torch.envs.spaces import Space
 from tianshou_tpu_torch.utils.device import resolve_device
 
@@ -23,7 +28,7 @@ __all__ = ["StepResult", "TorchEnv", "VectorEnv"]
 
 
 class StepResult(NamedTuple):
-    obs: torch.Tensor
+    obs: Any
     reward: torch.Tensor
     terminated: torch.Tensor
     truncated: torch.Tensor
@@ -45,7 +50,9 @@ class TorchEnv:
     ) -> tuple[Any, torch.Tensor]:
         raise NotImplementedError
 
-    def step(self, state: Any, action: torch.Tensor) -> tuple[Any, StepResult]:
+    def step(
+        self, state: Any, action: torch.Tensor, generator: torch.Generator | None = None
+    ) -> tuple[Any, StepResult]:
         raise NotImplementedError
 
 
@@ -75,7 +82,7 @@ class VectorEnv:
 
     def step(
         self, state: Any, action: torch.Tensor, generator: torch.Generator
-    ) -> tuple[Any, StepResult, torch.Tensor]:
+    ) -> tuple[Any, StepResult, Any]:
         """Step all envs; auto-reset finished ones.
 
         Returns ``(new_state, result, carry_obs)``: ``result`` holds the true
@@ -84,11 +91,9 @@ class VectorEnv:
         step, as under the JAX package's ``vmap``, so the step never waits on
         the host to learn which envs finished.
         """
-        state, result = self.env.step(state, action)
+        state, result = self.env.step(state, action, generator)
         reset_state, reset_obs = self.env.reset(generator, self.num_envs, self.device)
         done = result.done
-        new_state = type(state)(
-            *(_select(done, r, s) for r, s in zip(reset_state, state))
-        )
-        carry_obs = _select(done, reset_obs, result.obs)
+        new_state = tree_map(lambda r, s: _select(done, r, s), reset_state, state)
+        carry_obs = tree_map(lambda r, o: _select(done, r, o), reset_obs, result.obs)
         return new_state, result, carry_obs

@@ -73,7 +73,7 @@ class SyntheticPixelEnv(TorchEnv):
         state = SyntheticPixelState(torch.zeros_like(seed), seed)
         return state, self.frame(state.t, state.seed)
 
-    def step(self, state: SyntheticPixelState, action: torch.Tensor):
+    def step(self, state: SyntheticPixelState, action: torch.Tensor, generator=None):
         t = state.t + 1
         obs = self.frame(t, state.seed)
         # reward depends on (t, action) so the Q-head sees non-constant

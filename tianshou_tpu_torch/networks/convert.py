@@ -1,10 +1,24 @@
 """Carry Flax parameters over to the port's modules.
 
 Flax keeps convolution kernels as HWIO and dense kernels as ``[in, out]``;
-PyTorch keeps OIHW and ``[out, in]``.  Because :class:`~.conv.NatureCNN`
-flattens in Flax's ``(h, w, c)`` order, the dense kernel needs only a
-transpose.  Arrays come in as numpy (``jax.device_get`` of the Flax tree),
-so this module imports nothing of JAX.
+PyTorch keeps OIHW and ``[out, in]``.  Because the port's encoders flatten
+in Flax's ``(h, w, c)`` order, a dense kernel needs only a transpose.
+Arrays come in as numpy (``jax.device_get`` of the Flax tree), so this
+module imports nothing of JAX.
+
+Flax names submodules by class and creation order; the port's names are:
+
+| Flax                                   | port                         |
+| -------------------------------------- | ---------------------------- |
+| ``NatureCNN_0`` / ``MinAtarCNN_0``     | ``encoder``                  |
+| encoder ``Conv_i``, ``Dense_0``        | ``convs.i``, ``dense``       |
+| ``MLP_0``                              | ``mlp``                      |
+| MLP ``Dense_i``                        | ``layers.i``                 |
+| one top-level ``Dense_0``              | ``head``                     |
+| top-level ``Dense_0``, ``Dense_1``     | ``v``, ``a`` (dueling heads) |
+
+which covers ``MLP``, ``QNet``, ``DuelingQNet``, ``MinAtarCNN``,
+``NatureCNN``, ``ConvQNet``, ``ConvValueNet`` and ``ConvDuelingQNet``.
 """
 
 from __future__ import annotations
@@ -16,6 +30,8 @@ import torch
 
 __all__ = ["params_from_flax"]
 
+_ENCODERS = ("NatureCNN_0", "MinAtarCNN_0")
+
 
 def _layer(prefix: str, flax_layer: Mapping, out: dict[str, torch.Tensor]) -> None:
     kernel = np.asarray(flax_layer["kernel"], np.float32)
@@ -25,20 +41,49 @@ def _layer(prefix: str, flax_layer: Mapping, out: dict[str, torch.Tensor]) -> No
         weight = kernel.T  # [in, out] -> [out, in]
     else:
         raise ValueError(f"{prefix}: unexpected kernel shape {kernel.shape}")
-    out[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(weight))
+    out[f"{prefix}.weight"] = torch.from_numpy(np.array(weight, order="C"))  # a writable, contiguous copy
     out[f"{prefix}.bias"] = torch.from_numpy(np.array(flax_layer["bias"], np.float32))
 
 
+def _numbered(tree: Mapping, kind: str) -> list[str]:
+    """``kind_0, kind_1, ...`` in numeric order."""
+    names = [k for k in tree if k.startswith(kind + "_")]
+    return sorted(names, key=lambda k: int(k.rsplit("_", 1)[1]))
+
+
+def _join(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+def _encoder(tree: Mapping, prefix: str, out: dict) -> None:
+    for i, name in enumerate(_numbered(tree, "Conv")):
+        _layer(_join(prefix, f"convs.{i}"), tree[name], out)
+    _layer(_join(prefix, "dense"), tree["Dense_0"], out)
+
+
+def _mlp(tree: Mapping, prefix: str, out: dict) -> None:
+    for i, name in enumerate(_numbered(tree, "Dense")):
+        _layer(_join(prefix, f"layers.{i}"), tree[name], out)
+
+
 def params_from_flax(flax_params: Mapping) -> dict[str, torch.Tensor]:
-    """State dict of :class:`~.conv.ConvQNet` (NatureCNN encoder) from the
-    Flax ``ConvQNet(encoder="nature")`` parameter tree, e.g.
+    """State dict of the port's counterpart of a Flax network, from its
+    parameter tree, e.g. for ``ConvQNet(encoder="nature")``
     ``{'params': {'NatureCNN_0': {'Conv_0': {'kernel': (8, 8, 4, 32), ...},
     ..., 'Dense_0': {'kernel': (3136, 512), ...}}, 'Dense_0': {...}}}``."""
     tree = flax_params.get("params", flax_params)
-    enc = tree["NatureCNN_0"]
     out: dict[str, torch.Tensor] = {}
-    for i in range(3):
-        _layer(f"encoder.convs.{i}", enc[f"Conv_{i}"], out)
-    _layer("encoder.dense", enc["Dense_0"], out)
-    _layer("head", tree["Dense_0"], out)
+    body = [k for k in (*_ENCODERS, "MLP_0") if k in tree]
+    if not body:
+        # a bare encoder or a bare MLP
+        (_encoder if "Conv_0" in tree else _mlp)(tree, "", out)
+        return out
+    if body[0] == "MLP_0":
+        _mlp(tree["MLP_0"], "mlp", out)
+    else:
+        _encoder(tree[body[0]], "encoder", out)
+    heads = _numbered(tree, "Dense")
+    names = {0: (), 1: ("head",), 2: ("v", "a")}[len(heads)]
+    for name, flax_name in zip(names, heads):
+        _layer(name, tree[flax_name], out)
     return out

@@ -152,8 +152,7 @@ class OffPolicyTrainer:
         if self.warmup_steps > 0:
             warm_len = max(1, self.warmup_steps // self.train_collector.venv.num_envs)
             cstate, bstate, stats = self.train_collector.collect(
-                ts, cstate, bstate, warm_len, explore=True,
-                explore_param=1.0 if self.warmup_random else 0.0,
+                ts, cstate, bstate, warm_len, explore=True, random=self.warmup_random,
             )
             env_step += stats.n_collected_steps
 

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Profile the port's pixel DQN superstep on one NVIDIA GPU.
+"""Profile one of the port's DQN supersteps on one NVIDIA GPU.
 
-    python3 tools/profile_superstep.py [--supersteps 2] [--out build/profile]
+    python3 tools/profile_superstep.py [--path atari] [--supersteps 2] [--out build/profile]
 
-Builds the configuration of ``chip_smoke.py`` (SyntheticPixelEnv 84x84x4,
-NatureCNN in bf16, 128 envs x 16 steps, batch 512, 26 updates), runs two
-warm-up supersteps, then traces ``--supersteps`` more with
-``torch.profiler``.  Prints the device's busy time a superstep (the union of
+Builds a path of ``chip_smoke.py`` at full width (``--path``: ``atari``,
+the pixel superstep; ``atari_dedup``, the same over the deduplicated
+frame-stack buffer; ``cartpole``, the CartPole headline; ``minatar``,
+MinAtar Breakout), runs two warm-up supersteps, then traces
+``--supersteps`` more with ``torch.profiler``.  Prints the device's busy time a superstep (the union of
 its kernels' intervals) and its share of the traced wall time, the number
 of kernels a superstep, the time of a few kernels named in PERF.md, and the
 device time by kernel (top 25); writes the full table and a Chrome trace
@@ -26,6 +27,7 @@ import torch
 
 def main() -> int:
     parser = argparse.ArgumentParser()
+    parser.add_argument("--path", default="atari", choices=["atari", "atari_dedup", "cartpole", "minatar"])
     parser.add_argument("--supersteps", type=int, default=2)
     parser.add_argument("--out", default="build/profile")
     args = parser.parse_args()
@@ -42,7 +44,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(smi, flush=True)
-    _, algo, col, buffer, trainer = chip_smoke.build_slice("cuda")
+    print(f"path {args.path}: {chip_smoke.PATHS[args.path]}", flush=True)
+    _, algo, col, buffer, trainer = chip_smoke.build_path(args.path, "cuda")
     gen, ts, cstate, bstate = chip_smoke.init_states(algo, col, buffer)
     superstep = trainer._build_superstep()
     for _ in range(2):
@@ -74,9 +77,10 @@ def main() -> int:
     table = prof.key_averages().table(sort_by="device_time_total", row_limit=25, max_name_column_width=70)
     print(table)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_superstep.txt"), "w") as f:
+    stem = os.path.join(args.out, f"profile_superstep_{args.path}")
+    with open(stem + ".txt", "w") as f:
         f.write(smi + "\n" + prof.key_averages().table(sort_by="device_time_total", row_limit=200))
-    prof.export_chrome_trace(os.path.join(args.out, "profile_superstep.json"))
+    prof.export_chrome_trace(stem + ".json")
     return 0
 
 

@@ -211,16 +211,18 @@ def test_port_imports_no_jax():
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 25
+    assert int(res.stdout.strip()) >= 33
 
 
 SLICE2_MODULES = ["envs.classic", "envs.wrappers", "envs.minatar", "networks.common"]
+SLICE3_MODULES = ["ops.dist", "networks.continuous", "networks.convert", "algos.base", "algos.ddpg", "algos.sac",
+                  "trainer.offpolicy", "utils.statistics", "envs.host", "utils.transfer", "collect.host_collector"]
 
 
 def test_port_imports_slice2_modules_without_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {SLICE2_MODULES!r}:\n"
+        f"for m in {SLICE2_MODULES + SLICE3_MODULES!r}:\n"
         "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tianshou_tpu'))\n"

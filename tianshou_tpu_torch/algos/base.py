@@ -6,6 +6,7 @@ optimizer and the host-side update count, and updates change them in place.
 An :class:`Algorithm` stays a configuration object whose methods take the
 state explicitly, so the collector and trainer read like the JAX package's.
 :class:`RandomPolicy` acts uniformly at random, for warm-up collection.
+:func:`polyak_update` is the soft target update.
 """
 
 from __future__ import annotations
@@ -20,7 +21,14 @@ from tianshou_tpu_torch.data.tree import tree_leaves
 from tianshou_tpu_torch.envs.spaces import Box, Space
 from tianshou_tpu_torch.utils.device import resolve_device
 
-__all__ = ["TrainState", "Algorithm", "RandomPolicy", "uniform_legal_action"]
+__all__ = ["TrainState", "Algorithm", "RandomPolicy", "polyak_update", "uniform_legal_action"]
+
+
+@torch.no_grad()
+def polyak_update(target: nn.Module, online: nn.Module, tau: float) -> None:
+    """``target <- (1 - tau) * target + tau * online`` in place, as one
+    ``torch._foreach_lerp_`` over all of ``target``'s parameters."""
+    torch._foreach_lerp_(list(target.parameters()), list(online.parameters()), tau)
 
 
 def uniform_legal_action(mask: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -74,6 +82,17 @@ class Algorithm:
         """Batched action selection."""
         raise NotImplementedError
 
+    def act_params(self, ts: TrainState) -> nn.Module:
+        """The module :meth:`act` reads (the host path snapshots it to act
+        with the parameters from before the updates in flight)."""
+        return ts.online
+
+    def with_act_params(self, ts: TrainState, module: nn.Module) -> TrainState:
+        """A shallow copy of ``ts`` that acts through ``module``; the other
+        fields are shared, which is sound because :meth:`act` reads nothing
+        else."""
+        return dataclasses.replace(ts, online=module)
+
     def map_action(self, act: torch.Tensor) -> torch.Tensor:
         """The env's action for the policy's: continuous policies act in
         ``[-1, 1]``, rescaled here to the ``Box`` bounds; discrete actions
@@ -123,9 +142,12 @@ class Algorithm:
         buffer: ReplayBuffer,
         bstate: ReplayBufferState,
         sampled: tuple,
+        generator: torch.Generator | None = None,
     ) -> tuple[TrainState, ReplayBufferState, dict[str, torch.Tensor]]:
         """One gradient step from a :meth:`presample` tuple; metrics stay on
-        the device."""
+        the device.  An update that samples (SAC's actions, TD3's target
+        smoothing) draws from ``generator``, the counterpart of the key the
+        JAX package splits off for each update."""
         raise NotImplementedError
 
 

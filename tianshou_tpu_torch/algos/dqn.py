@@ -120,7 +120,9 @@ class DQN(Algorithm):
         buffer: ReplayBuffer,
         bstate: ReplayBufferState,
         sampled: tuple,
+        generator: torch.Generator | None = None,
     ) -> tuple[TrainState, ReplayBufferState, dict[str, torch.Tensor]]:
+        """``generator`` is unused: the DQN update draws nothing."""
         env_idx, pos, weight, batch, rew_chain, done_chain, term = sampled
         # bootstrap unless terminated
         mask = 1.0 - term["terminated"].to(torch.float32)

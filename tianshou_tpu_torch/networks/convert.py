@@ -18,7 +18,17 @@ Flax names submodules by class and creation order; the port's names are:
 | top-level ``Dense_0``, ``Dense_1``     | ``v``, ``a`` (dueling heads) |
 
 which covers ``MLP``, ``QNet``, ``DuelingQNet``, ``MinAtarCNN``,
-``NatureCNN``, ``ConvQNet``, ``ConvValueNet`` and ``ConvDuelingQNet``.
+``NatureCNN``, ``ConvQNet``, ``ConvValueNet`` and ``ConvDuelingQNet``, and
+of the continuous nets ``DeterministicActor`` and ``Critic`` (an
+``MLP_0`` alone).  ``heads`` names the top-level ``Dense`` layers where
+the default above does not fit: ``GaussianActor`` passes
+``heads=("mu", "sigma")``; its state-independent ``log_sigma`` parameter
+keeps its name.
+
+``CriticEnsemble``'s Flax tree is ``nn.vmap``'s: ``VmapCritic_0`` ->
+``MLP_0`` -> ``Dense_i`` with a leading K axis on every leaf.  The port
+keeps the same ``[K, in, out]`` kernels (``weights.i``, no transpose, the
+layout ``baddbmm`` takes) and ``[K, out]`` biases (``biases.i``).
 """
 
 from __future__ import annotations
@@ -66,13 +76,33 @@ def _mlp(tree: Mapping, prefix: str, out: dict) -> None:
         _layer(_join(prefix, f"layers.{i}"), tree[name], out)
 
 
-def params_from_flax(flax_params: Mapping) -> dict[str, torch.Tensor]:
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))  # a writable copy
+
+
+def _ensemble(tree: Mapping) -> dict[str, torch.Tensor]:
+    (vmapped,) = [k for k in tree if k.startswith("Vmap")]
+    mlp = tree[vmapped]["MLP_0"]
+    out: dict[str, torch.Tensor] = {}
+    for i, name in enumerate(_numbered(mlp, "Dense")):
+        out[f"weights.{i}"] = _tensor(mlp[name]["kernel"])
+        out[f"biases.{i}"] = _tensor(mlp[name]["bias"])
+    return out
+
+
+def params_from_flax(flax_params: Mapping, heads: tuple[str, ...] | None = None) -> dict[str, torch.Tensor]:
     """State dict of the port's counterpart of a Flax network, from its
     parameter tree, e.g. for ``ConvQNet(encoder="nature")``
     ``{'params': {'NatureCNN_0': {'Conv_0': {'kernel': (8, 8, 4, 32), ...},
-    ..., 'Dense_0': {'kernel': (3136, 512), ...}}, 'Dense_0': {...}}}``."""
+    ..., 'Dense_0': {'kernel': (3136, 512), ...}}, 'Dense_0': {...}}}``.
+    ``heads``: the port's names of the top-level ``Dense`` layers, in Flax's
+    order."""
     tree = flax_params.get("params", flax_params)
+    if any(k.startswith("Vmap") for k in tree):
+        return _ensemble(tree)
     out: dict[str, torch.Tensor] = {}
+    if "log_sigma" in tree:
+        out["log_sigma"] = _tensor(tree["log_sigma"])
     body = [k for k in (*_ENCODERS, "MLP_0") if k in tree]
     if not body:
         # a bare encoder or a bare MLP
@@ -82,8 +112,10 @@ def params_from_flax(flax_params: Mapping) -> dict[str, torch.Tensor]:
         _mlp(tree["MLP_0"], "mlp", out)
     else:
         _encoder(tree[body[0]], "encoder", out)
-    heads = _numbered(tree, "Dense")
-    names = {0: (), 1: ("head",), 2: ("v", "a")}[len(heads)]
-    for name, flax_name in zip(names, heads):
+    flax_heads = _numbered(tree, "Dense")
+    names = heads if heads is not None else {0: (), 1: ("head",), 2: ("v", "a")}[len(flax_heads)]
+    if len(names) != len(flax_heads):
+        raise ValueError(f"{len(flax_heads)} top-level Dense layers but heads={names}")
+    for name, flax_name in zip(names, flax_heads):
         _layer(name, tree[flax_name], out)
     return out

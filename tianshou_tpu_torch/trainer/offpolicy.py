@@ -1,5 +1,5 @@
-"""Off-policy trainer: (collect -> k gradient steps) supersteps (port of the
-pure-env path of ``tianshou_tpu/trainer/offpolicy.py``).
+"""Off-policy trainer: (collect -> k gradient steps) supersteps (port of
+``tianshou_tpu/trainer/offpolicy.py``).
 
 A superstep is a rollout segment into the ring buffer, then ONE presample of
 ``k * batch`` indices, transitions and n-step chains, then k updates on
@@ -9,12 +9,20 @@ on the device; :meth:`OffPolicyTrainer.run` reads them once per superstep.
 Epochs, test episodes and early stopping stay on the host, as in the JAX
 package.
 
-Not ported yet: the host-env path, the fused fine cycle, PER and the
+With a :class:`~tianshou_tpu_torch.collect.host_collector.HostCollector`
+``run`` takes the host-env path (:meth:`OffPolicyTrainer._run_host`): a
+segment collected from host envs, then one host step (:class:`HostStep`):
+ONE packed host-to-device copy of the segment, ``add_trajectory`` and the k
+updates.  ``pipeline_host_updates`` (default off) acts with the actor from
+before the updates in flight, on a side CUDA stream, from a snapshot of it.
+
+Not ported yet: the fused fine cycle of the host path, PER and the
 per-update sampling branch, loggers, checkpoint hooks and device tracing.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from collections.abc import Callable
 
@@ -23,19 +31,22 @@ import torch
 
 from tianshou_tpu_torch.algos.base import Algorithm, TrainState
 from tianshou_tpu_torch.collect.collector import Collector, rollout_segment
+from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.stats import InfoStats
 from tianshou_tpu_torch.data.tree import tree_map
 from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 
-__all__ = ["OffPolicyTrainer", "build_update_scan"]
+__all__ = ["HostStep", "OffPolicyTrainer", "build_update_scan"]
 
 
 def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_updates: int):
     """Build ``(ts, bstate, generator) -> (ts, bstate, mean_metrics)``: one
     presample of ``n_updates * batch_size`` transitions, then ``n_updates``
-    updates on consecutive ``batch_size`` slices of it."""
+    updates on consecutive ``batch_size`` slices of it.  Each update draws
+    its own noise from ``generator`` (the JAX package splits a key per
+    update)."""
     if not algo.supports_presampled:
         raise NotImplementedError(
             f"{type(algo).__name__} has no presampled update; per-update sampling is not ported yet"
@@ -46,12 +57,89 @@ def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_
         views = tree_map(lambda x: x.reshape((n_updates, batch_size) + x.shape[1:]), sampled)
         history: dict[str, list[torch.Tensor]] = {}
         for i in range(n_updates):
-            ts, bstate, metrics = algo.update_sampled(ts, buffer, bstate, tree_map(lambda x: x[i], views))
+            ts, bstate, metrics = algo.update_sampled(
+                ts, buffer, bstate, tree_map(lambda x: x[i], views), generator)
             for k, v in metrics.items():
                 history.setdefault(k, []).append(v)
         return ts, bstate, {k: torch.stack(v).mean() for k, v in history.items()}
 
     return updates
+
+
+class HostStep:
+    """One segment of the host path on the card.  :meth:`upload` is the
+    host part: the segment's numpy leaves packed and sent in ONE copy.
+    :meth:`device` is the device part: unpack, ``add_trajectory`` and the k
+    updates, all queued without a host synchronisation."""
+
+    def __init__(self, collector, buffer: ReplayBuffer, updates_fn):
+        self.collector = collector
+        self.buffer = buffer
+        self.updates_fn = updates_fn
+
+    def upload(self, traj: Batch) -> tuple:
+        """The segment's numpy leaves packed and copied to the card:
+        ``(packer, flat buffer, actions)`` for :meth:`device`."""
+        packer = self.collector.packer(traj)
+        return packer, packer.to_device(traj), traj["act"]
+
+    def device(self, ts, bstate, uploaded: tuple, generator):
+        packer, flat, act = uploaded
+        bstate = self.buffer.add_trajectory(bstate, Batch(**packer.unpack(flat), act=act))
+        return self.updates_fn(ts, bstate, generator)
+
+    def __call__(self, ts, bstate, traj: Batch, generator):
+        return self.device(ts, bstate, self.upload(traj), generator)
+
+
+class HostLoop:
+    """The host path's carried state and its work a segment: :meth:`collect`
+    on the host envs, then :meth:`update` (one :class:`HostStep`).
+
+    With ``pipeline_host_updates`` the envs are stepped with a snapshot of
+    the actor taken before the updates in flight, and on CUDA the acting
+    runs on a side stream, so that it need not queue behind those updates.
+    """
+
+    def __init__(self, trainer: OffPolicyTrainer, ts, bstate, generator, collect_generator):
+        self.trainer = trainer
+        self.ts, self.bstate = ts, bstate
+        self.generator = generator
+        self.collect_generator = collect_generator
+        self.host_step = trainer._build_host_step()
+        self.metrics: dict[str, torch.Tensor] | None = None
+        self.pipelined = trainer.pipeline_host_updates
+        dev = trainer.device
+        self.side = torch.cuda.Stream(dev) if self.pipelined and dev.type == "cuda" else None
+        self.snapshot = copy.deepcopy(trainer.algo.act_params(ts)).requires_grad_(False) if self.pipelined else None
+        if self.side is not None:
+            self.side.wait_stream(torch.cuda.current_stream(dev))  # the initial parameters are written
+        self.ts_act = ts
+
+    def collect(self, explore_param: float):
+        """One segment from the host envs: ``(stats, trajectory)``."""
+        t = self.trainer
+        _, stats, traj = t.train_collector.collect(
+            self.ts_act, None, t.segment_len, self.collect_generator, explore=True,
+            explore_param=explore_param, record_traj=True, stream=self.side)
+        return stats, traj
+
+    def update(self, traj) -> None:
+        """The segment into the buffer and the k updates (queued, not
+        waited for)."""
+        algo = self.trainer.algo
+        if self.pipelined:
+            with torch.no_grad():
+                torch._foreach_copy_(list(self.snapshot.parameters()), list(algo.act_params(self.ts).parameters()))
+            if self.side is not None:
+                self.side.wait_stream(torch.cuda.current_stream(self.trainer.device))
+        self.ts, self.bstate, self.metrics = self.host_step(self.ts, self.bstate, traj, self.generator)
+        self.ts_act = algo.with_act_params(self.ts, self.snapshot) if self.pipelined else self.ts
+
+    def read_metrics(self) -> dict[str, float]:
+        """The last segment's mean metrics, in one device-to-host copy."""
+        values = torch.stack(list(self.metrics.values())).tolist()
+        return dict(zip(self.metrics.keys(), values))
 
 
 class OffPolicyTrainer:
@@ -78,6 +166,7 @@ class OffPolicyTrainer:
         test_in_train: bool = False,
         show_progress: bool = False,
         smooth_window: int = 1,
+        pipeline_host_updates: bool = False,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
@@ -95,7 +184,13 @@ class OffPolicyTrainer:
         self.update_per_step = update_per_step
         self.batch_size = batch_size
         self.episode_per_test = episode_per_test
-        self.train_param_fn = train_param_fn or (lambda epoch, step: 0.0)
+        # the default explore parameter is the algorithm's own exploration
+        # noise (DDPG/TD3's sigma; 0.0 for the others), as in the JAX
+        # package: a bare 0.0 would silently turn off Gaussian exploration
+        if train_param_fn is None:
+            default_param = float(getattr(algo, "exploration_noise", 0.0))
+            train_param_fn = lambda epoch, step: default_param  # noqa: E731
+        self.train_param_fn = train_param_fn
         self.test_param = test_param
         self.stop_fn = stop_fn
         self.warmup_steps = warmup_steps
@@ -105,6 +200,11 @@ class OffPolicyTrainer:
         self.test_in_train = test_in_train
         self.show_progress = show_progress
         self.smooth_window = smooth_window
+        # host path: collect segment s+1 with the actor from before segment
+        # s's updates.  Off by default (the reference's sequential order):
+        # the staleness destabilised TD3's delayed actor in the JAX
+        # package's HalfCheetah runs, while SAC and DDPG tolerate it
+        self.pipeline_host_updates = pipeline_host_updates
 
         num_envs = train_collector.venv.num_envs
         # steps per env per collect segment (the reference counts total env steps)
@@ -129,7 +229,104 @@ class OffPolicyTrainer:
 
         return superstep
 
+    def _build_host_step(self) -> HostStep:
+        updates_fn = build_update_scan(self.algo, self.buffer, self.batch_size, self.updates_per_segment)
+        return HostStep(self.train_collector, self.buffer, updates_fn)
+
+    def _host_setup(self) -> tuple[HostLoop, int]:
+        """The host path's start: reset the envs, draw the parameters, take
+        the buffer schema from one probe step (which advances the envs and
+        is not stored) and run the warm-up.  Returns the loop and the
+        warm-up's env steps."""
+        gen = make_generator(self.seed, self.device)
+        g_init, g_collect = fork_generator(gen), fork_generator(gen)
+        col = self.train_collector
+        col.reset(seed=self.seed)
+        ts = self.algo.init(g_init)
+        _, _, probe = col.collect(ts, None, 1, g_collect, explore=True, explore_param=1.0, record_traj=True)
+        bstate = self.buffer.init(tree_map(lambda x: x[0, 0], col.to_device(probe)), device=self.device)
+        env_step = 0
+        if self.warmup_steps > 0:
+            warm_len = max(1, self.warmup_steps // col.venv.num_envs)
+            bstate, stats, _ = col.collect(ts, bstate, warm_len, g_collect, explore=True, random=self.warmup_random)
+            env_step += stats.n_collected_steps
+        return HostLoop(self, ts, bstate, gen, g_collect), env_step
+
+    def _run_host(self) -> InfoStats:
+        """Training over host envs: per segment, the host steps the envs
+        (acting on the card), then one host step sends the segment and runs
+        the updates.  Metrics are read every ~4096 env steps and once at the
+        end."""
+        t_start = time.time()
+        smooth = MetricSmoother(self.smooth_window)
+        loop, env_step = self._host_setup()
+        grad_step = 0
+        best_reward, best_reward_std = -np.inf, 0.0
+        last_metrics: dict = {}
+        metrics_interval = max(1, 4096 // self.steps_per_segment)
+        seg_count = 0
+        stop_triggered = False
+        epoch = 0
+        with RunContext(self.max_epoch * self.step_per_epoch, self.show_progress, desc="offpolicy") as rc:
+            for epoch in range(1, self.max_epoch + 1):
+                steps_this_epoch = 0
+                while steps_this_epoch < self.step_per_epoch:
+                    stats, traj = loop.collect(float(self.train_param_fn(epoch, env_step)))
+                    # the previous segment's metrics, read after this
+                    # segment's collection so that it does not wait on them
+                    if loop.metrics is not None and seg_count % metrics_interval == 0:
+                        last_metrics = smooth(loop.read_metrics())
+                    seg_count += 1
+                    loop.update(traj)
+                    env_step += self.steps_per_segment
+                    steps_this_epoch += self.steps_per_segment
+                    grad_step += self.updates_per_segment
+                    rc.step(self.steps_per_segment, last_metrics)
+                    if (
+                        self.test_in_train
+                        and self.stop_fn is not None
+                        and stats.returns.size
+                        and self.stop_fn(stats.returns_mean)
+                    ):
+                        tt = self.test_collector.collect_episodes(
+                            loop.ts, loop.generator, self.episode_per_test, explore=False,
+                            explore_param=self.test_param)
+                        if self.stop_fn(tt.returns_mean):
+                            best_reward = max(best_reward, tt.returns_mean)
+                            best_reward_std = tt.returns_std
+                            stop_triggered = True
+                            break
+                if stop_triggered:
+                    break
+                test_stats = self.test_collector.collect_episodes(
+                    loop.ts, loop.generator, self.episode_per_test, explore=False, explore_param=self.test_param)
+                rew, rew_std = test_stats.returns_mean, test_stats.returns_std
+                if rew > best_reward:
+                    best_reward, best_reward_std = rew, rew_std
+                    if self.save_best_fn is not None:
+                        self.save_best_fn(loop.ts)
+                if self.stop_fn is not None and self.stop_fn(rew):
+                    stop_triggered = True
+                    break
+        if loop.metrics is not None:
+            last_metrics = smooth(loop.read_metrics())
+
+        self.train_state = loop.ts
+        self.buffer_state = loop.bstate
+        return InfoStats(
+            gradient_step=grad_step,
+            env_step=env_step,
+            epoch=epoch,
+            best_reward=float(best_reward),
+            best_reward_std=float(best_reward_std),
+            duration=time.time() - t_start,
+            stop_triggered=stop_triggered,
+            last_metrics=last_metrics,
+        )
+
     def run(self) -> InfoStats:
+        if getattr(self.train_collector, "is_host_collector", False):
+            return self._run_host()
         t_start = time.time()
         smooth = MetricSmoother(self.smooth_window)
         gen = make_generator(self.seed, self.device)

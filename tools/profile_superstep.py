@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Profile one of the port's DQN supersteps on one NVIDIA GPU.
+"""Profile one of the port's on-device supersteps on one NVIDIA GPU.
 
     python3 tools/profile_superstep.py [--path atari] [--supersteps 2] [--out build/profile]
 
 Builds a path of ``chip_smoke.py`` at full width (``--path``: ``atari``,
 the pixel superstep; ``atari_dedup``, the same over the deduplicated
 frame-stack buffer; ``cartpole``, the CartPole headline; ``minatar``,
-MinAtar Breakout), runs two warm-up supersteps, then traces
+MinAtar Breakout; ``sac_pendulum`` and ``td3_pendulum``, the continuous
+updates on the on-device Pendulum), runs two warm-up supersteps, then traces
 ``--supersteps`` more with ``torch.profiler``.  Prints the device's busy time a superstep (the union of
 its kernels' intervals) and its share of the traced wall time, the number
 of kernels a superstep, the time of a few kernels named in PERF.md, and the
@@ -27,7 +28,7 @@ import torch
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--path", default="atari", choices=["atari", "atari_dedup", "cartpole", "minatar"])
+    parser.add_argument("--path", default="atari", choices=["atari", "atari_dedup", "cartpole", "minatar", "sac_pendulum", "td3_pendulum"])
     parser.add_argument("--supersteps", type=int, default=2)
     parser.add_argument("--out", default="build/profile")
     args = parser.parse_args()

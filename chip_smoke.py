@@ -22,7 +22,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    segment (storage within atol 1e-5: the card's sin/cos may differ from
    the CPU's in the last bit), and the host path's packed transfer
    (``TreePacker``) bitwise, including three copies queued behind a busy
-   stream, which would show a pinned buffer overwritten under a copy;
+   stream, which would show a pinned buffer overwritten under a copy.
+   Then the on-policy slice, in float32 with TF32 off: GAE on a [256, 8]
+   rollout; a PPO rollout processed with ``ret_norm`` (critic values, GAE,
+   the running return statistics) and 3 minibatch updates of it with value
+   clipping; one TRPO learn (conjugate gradient, line search, 5 critic
+   steps); all within rtol 1e-4 / atol 1e-5 of the CPU's;
 5. paths, each at full width: 2 warm-up and 5 timed supersteps, one more
    superstep in which a host synchronisation raises, where the time of a
    superstep goes, then ``OffPolicyTrainer.run()`` for one epoch of two
@@ -55,7 +60,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
      sync guard covers the device part of a segment (unpack,
      ``add_trajectory`` and the updates); the profiler must see exactly one
      host-to-device copy a segment; segments are also timed with
-     ``pipeline_host_updates`` on, in turns with it off.
+     ``pipeline_host_updates`` on, in turns with it off;
+   - ``ppo_cartpole``: the JAX package's PPO CartPole test configuration on
+     the on-device CartPole: 16 envs x 128 steps, QNet and ValueNet
+     (64, 64), 10 passes of 8 minibatches of 256 (80 updates) a superstep,
+     lr 3e-4, GAE 0.95, grad norm 0.5, advantage normalisation;
+   - ``trpo_pendulum``: the JAX package's TRPO Pendulum test configuration:
+     16 envs x 128 steps, GaussianActor and ValueNet (64, 64), 2 learns of
+     batch 2048 a superstep, max KL 0.005, backtracking 0.8, 5 critic steps,
+     return and advantage normalisation;
+   - ``ppo_host``: the host-env path at the MuJoCo PPO widths
+     (``examples/mujoco_ppo.py``): 8 ``NormObsHostVectorEnv`` envs of
+     ``HalfCheetahStandIn`` x 256 steps, GaussianActor (sigma_init -0.5)
+     and ValueNet (64, 64), 10 passes of 32 minibatches of 64 (320 updates)
+     a segment, a linear learning-rate decay, value coefficient 0.25, return
+     normalisation and ``recompute_advantage``, 10 test envs.  Its sync
+     guard covers the device part of a segment (unpack and learning), in
+     which PyTorch must dispatch exactly one host-to-device copy, the packed
+     segment.
+   Each on-policy path also reports the device kernels and busy time of one
+   profiled superstep (segment) and ends with ``OnPolicyTrainer.run()``
+   for one epoch of two supersteps with a test phase.
 
 It then prints a ``paths`` JSON line, the ``kernels`` JSON line and, last,
 the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
@@ -74,6 +99,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 H100_BYTES_PER_S = 3.35e12  # HBM3 of an H100 SXM
 H100_FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -89,12 +115,23 @@ PATHS = {
     "td3_pendulum": dict(num_envs=10, segment=10, batch=256, updates=12, capacity=2000, warmup=1000,
                          update_per_step=0.125),
     "sac_host": dict(num_envs=8, segment=8, batch=256, updates=64, capacity=5000, warmup=2000),
+    # on-policy: envs, steps a segment, minibatch, passes over the rollout,
+    # minibatch updates (learn calls) a superstep
+    "ppo_cartpole": dict(num_envs=16, segment=128, batch=256, repeat=10, updates=80),
+    "trpo_pendulum": dict(num_envs=16, segment=128, batch=2048, repeat=2, updates=2),
+    "ppo_host": dict(num_envs=8, segment=256, batch=64, repeat=10, updates=320),
 }
 DQN_PATHS = ("atari", "atari_dedup", "cartpole", "minatar")
 HOST_PATHS = ("sac_host",)
-# launches of gather_rows_cast a superstep: obs and obs_next of the presample
-KERNEL_LAUNCHES = {"atari": 2, "atari_dedup": 2, "cartpole": 0, "minatar": 0,
-                   "sac_pendulum": 0, "td3_pendulum": 0, "sac_host": 0}
+ONPOLICY_PATHS = ("ppo_cartpole", "trpo_pendulum", "ppo_host")
+# launches of gather_rows_cast a superstep: obs and obs_next of the presample;
+# the on-policy paths use no replay buffer
+KERNEL_LAUNCHES = {"atari": 2, "atari_dedup": 2, "cartpole": 0, "minatar": 0, "sac_pendulum": 0,
+                   "td3_pendulum": 0, "sac_host": 0, "ppo_cartpole": 0, "trpo_pendulum": 0, "ppo_host": 0}
+# the MuJoCo PPO example's learning-rate decay runs to zero over every
+# minibatch update of its default run: 100 epochs x 5 segments x 10 passes x
+# 32 minibatches (examples/mujoco_ppo.py)
+PPO_HOST_DECAY_UPDATES = 100 * 5 * 10 * 32
 
 
 def log(msg: str) -> None:
@@ -425,7 +462,9 @@ def _assert_close(what: str, got, ref, rtol=1e-4, atol=1e-5) -> float:
     got = got.detach().cpu()
     ref = ref.detach().cpu()
     if got.shape != ref.shape or not torch.allclose(got, ref, rtol=rtol, atol=atol):
-        raise AssertionError(f"{what}: card and CPU differ beyond rtol {rtol} / atol {atol}")
+        diff = float((got.float() - ref.float()).abs().max()) if got.shape == ref.shape else math.nan
+        raise AssertionError(f"{what}: card and CPU differ beyond rtol {rtol} / atol {atol} (largest difference "
+                             f"{diff:.3e})")
     return float((got - ref).abs().max()) if got.numel() else 0.0
 
 
@@ -631,7 +670,6 @@ def phase_host(path: str, gather) -> dict:
     ``pipeline_host_updates`` on and off in turns."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tianshou_tpu_torch.data.batch import Batch
     from tianshou_tpu_torch.utils.transfer import TreePacker
 
     cfg = PATHS[path]
@@ -692,8 +730,7 @@ def phase_host(path: str, gather) -> dict:
         _, traj = loop.collect(0.0)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        packer, flat, act = loop.host_step.upload(traj)
-        bstate = buffer.add_trajectory(loop.bstate, Batch(**packer.unpack(flat), act=act))
+        bstate = buffer.add_trajectory(loop.bstate, col.unpack(loop.host_step.upload(traj)))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         loop.ts, loop.bstate, m = loop.host_step.updates_fn(loop.ts, bstate, loop.generator)
@@ -759,6 +796,417 @@ def phase_main_path(path: str, gather) -> int:
     return launches
 
 
+def build_onpolicy_path(path: str, device, **small):
+    """An on-policy path through the port's entry points: ``(env, algo,
+    train collector, trainer)``; ``small`` overrides sizes and widths (the
+    CPU rehearsal)."""
+    from tianshou_tpu_torch.algos.npg import TRPO
+    from tianshou_tpu_torch.algos.pg import linear_schedule
+    from tianshou_tpu_torch.algos.ppo import PPO
+    from tianshou_tpu_torch.collect.collector import Collector
+    from tianshou_tpu_torch.envs.base import VectorEnv
+    from tianshou_tpu_torch.networks.common import QNet
+    from tianshou_tpu_torch.networks.continuous import GaussianActor, ValueNet
+    from tianshou_tpu_torch.trainer.onpolicy import OnPolicyTrainer
+
+    cfg = {**PATHS[path], **small}
+    num_envs, segment, batch, repeat = (cfg[k] for k in ("num_envs", "segment", "batch", "repeat"))
+    hidden = cfg.get("hidden", (64, 64))
+    test_envs, episodes = cfg.get("test_envs", 16), cfg.get("episodes", 10)
+    if path == "ppo_cartpole":
+        from tianshou_tpu_torch.envs.classic import CartPole
+
+        env = CartPole()
+        algo = PPO(QNet(4, hidden, 2), ValueNet(4, hidden), env.action_space, lr=3e-4, gamma=0.99, gae_lambda=0.95,
+                   max_grad_norm=0.5, ent_coef=0.0, device=device)
+    elif path == "trpo_pendulum":
+        from tianshou_tpu_torch.envs.classic import Pendulum
+
+        env = Pendulum()
+        algo = TRPO(GaussianActor(3, hidden, 1), ValueNet(3, hidden), env.action_space, critic_lr=1e-3, gamma=0.95,
+                    gae_lambda=0.95, optim_critic_iters=5, max_kl=0.005, backtrack_coeff=0.8, device=device)
+    elif path == "ppo_host":
+        env = HalfCheetahStandIn()
+        algo = PPO(GaussianActor(env.OBS_DIM, hidden, env.ACT_DIM, sigma_init=-0.5), ValueNet(env.OBS_DIM, hidden),
+                   env.action_space, lr=linear_schedule(3e-4, 0.0, PPO_HOST_DECAY_UPDATES), gamma=0.99,
+                   gae_lambda=0.95, eps_clip=0.2, vf_coef=0.25, ent_coef=0.0, max_grad_norm=0.5, adv_norm=False,
+                   ret_norm=True, recompute_advantage=True, device=device)
+    else:
+        raise ValueError(f"unknown on-policy path {path!r}; have {ONPOLICY_PATHS}")
+    if path == "ppo_host":
+        from tianshou_tpu_torch.collect.host_collector import HostCollector
+        from tianshou_tpu_torch.envs.host import NormObsHostVectorEnv
+
+        train_venv = NormObsHostVectorEnv([HalfCheetahStandIn] * num_envs)
+        test_venv = NormObsHostVectorEnv([HalfCheetahStandIn] * cfg.get("test_envs", 10), update_rms=False)
+        test_venv.set_rms(train_venv.get_rms())  # the test envs read the live statistics
+        train = HostCollector(algo, train_venv, device=device)
+        test = HostCollector(algo, test_venv, device=device)
+    else:
+        train = Collector(algo, VectorEnv(env, num_envs, device=device), device=device)
+        test = Collector(algo, VectorEnv(env, test_envs, device=device), device=device)
+    steps = num_envs * segment
+    trainer = OnPolicyTrainer(algo, train, test, max_epoch=1, step_per_epoch=2 * steps, step_per_collect=steps,
+                              repeat_per_collect=repeat, batch_size=batch, episode_per_test=episodes, device=device)
+    if (trainer.segment_len, trainer.updates_per_segment) != (segment, cfg["updates"]):
+        raise AssertionError(f"trainer split {trainer.segment_len} steps / {trainer.updates_per_segment} updates")
+    return env, algo, train, trainer
+
+
+def _processing_passes(algo, repeat: int) -> int:
+    """Critic + GAE passes over the rollout a superstep: the first
+    processing, the return statistics' own, one a pass with
+    ``recompute_advantage``."""
+    return (1 + bool(getattr(algo, "ret_norm", False)) + repeat * bool(getattr(algo, "recompute_advantage", False))
+            if hasattr(algo, "gae_lambda") else 1)
+
+
+def check_onpolicy_policy(path: str, algo, ts, obs, gen, env) -> None:
+    """The trained policy's greedy actions on the last observations: finite,
+    of the action space's shape, legal for a discrete space."""
+    with torch.no_grad():
+        out = algo.act(ts, obs, gen, explore=False)
+    shape = (obs.shape[0],) + tuple(getattr(env.action_space, "shape", ()) or ())
+    if tuple(out.shape) != shape or not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError(f"{path}: bad policy output: {tuple(out.shape)}, expected {shape}")
+    if not out.is_floating_point() and not bool(((out >= 0) & (out < env.action_space.n)).all()):
+        raise AssertionError(f"{path}: illegal discrete actions")
+
+
+class _HostToDeviceCopies(TorchDispatchMode):
+    """While on, records the shape of every tensor copy from the host to the
+    card that PyTorch dispatches (``copy_`` into a CUDA tensor from a CPU
+    one, or a ``to``/``_to_copy`` of a CPU tensor onto the card)."""
+
+    def __init__(self):
+        super().__init__()
+        self.copies: list[tuple[int, ...]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.aten.copy_.default:
+            dst, src = args[0], args[1]
+        elif func is torch.ops.aten._to_copy.default:
+            dst, src = out, args[0]
+        else:
+            return out
+        if src.device.type == "cpu" and dst.device.type == "cuda":
+            self.copies.append(tuple(src.shape))
+        return out
+
+
+def _profile_counts(fn) -> tuple[int, float, list[str]]:
+    """``fn`` under ``torch.profiler``: device kernels, the device's busy
+    milliseconds (the union of their intervals) and the names of its
+    host-to-device copies.  The window opens with about a second of a busy
+    stream (``torch.cuda._sleep``'s spin kernel, left out of the counts)
+    before ``fn``'s work: the profiler drops device activity from the start
+    of a window, more of it the longer the process has run (a lone copy at a
+    window's start went missing a minute into a process, and with 10 ms of
+    lead four minutes in)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2_000_000_000)
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name]
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return len(events), busy_us / 1e3, [e.name for e in events if "HtoD" in e.name]
+
+
+def phase_onpolicy(path: str, gather) -> dict:
+    """An on-device on-policy path at full width: 2 warm-up and 5 timed
+    supersteps, one under the sync guard, one under the profiler (device
+    kernels and busy time), and the breakdown: rollout, one processing pass
+    (critic values + GAE), and the learning (every processing pass and the
+    minibatch updates)."""
+    from tianshou_tpu_torch.collect.collector import rollout_segment
+    from tianshou_tpu_torch.utils.device import fork_generator, make_generator
+
+    cfg = PATHS[path]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    env, algo, col, trainer = build_onpolicy_path(path, "cuda")
+    gen = make_generator(0, torch.device("cuda"))
+    cstate = col.reset(fork_generator(gen))
+    ts = algo.init(fork_generator(gen))
+    superstep = trainer._build_superstep()
+    steps = cfg["num_envs"] * cfg["segment"]
+    for _ in range(2):
+        ts, cstate, _, metrics = superstep(ts, cstate, gen)
+    torch.cuda.synchronize()
+    gather.launches = 0
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ts, cstate, outputs, metrics = superstep(ts, cstate, gen)
+    host_metrics = {k: float(v) for k, v in metrics.items()}  # synchronises
+    dt = time.perf_counter() - t0
+    if gather.launches != 0:
+        raise AssertionError(f"{path}: gather_rows_cast launched {gather.launches} times")
+    if not all(math.isfinite(v) for v in host_metrics.values()):
+        raise AssertionError(f"{path}: non-finite metrics {host_metrics}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts, cstate, outputs, metrics = superstep(ts, cstate, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check_onpolicy_policy(path, algo, ts, cstate.obs, gen, env)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def one():
+        nonlocal ts, cstate
+        ts, cstate, _, _ = superstep(ts, cstate, gen)
+
+    kernels, busy_ms, _ = _profile_counts(one)
+    result = {"env_steps_per_s": n * steps / dt, "ms_per_superstep": dt / n * 1e3, **host_metrics,
+              "updates_per_superstep": cfg["updates"], "device_kernels_per_superstep": kernels,
+              "device_busy_ms_per_superstep_profiled": busy_ms, "max_memory_allocated_gib": peak,
+              "gather_rows_cast_per_superstep": 0}
+    log(f"{path}: {n} supersteps of {cfg['num_envs']} envs x {cfg['segment']} steps + {cfg['repeat']} passes of "
+        f"batch {cfg['batch']} ({cfg['updates']} learn calls): {result['env_steps_per_s']:.1f} env-steps/s, "
+        f"{result['ms_per_superstep']:.2f} ms per superstep, metrics {host_metrics}, max_memory_allocated "
+        f"{peak:.3f} GiB; a superstep under torch.cuda.set_sync_debug_mode('error') raised no host sync; "
+        f"profiled superstep: {kernels} device kernels, device busy {busy_ms:.2f} ms")
+
+    seg = rollout_segment(algo, col.venv, None, cfg["segment"], explore=True, record_traj=True)
+    learn = trainer._build_learn()
+    parts = {"rollout": [], "processing pass": [], "learn incl. processing": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cstate, _, outputs = seg(ts, cstate, None, 0.0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        algo.process_rollout(ts, outputs["traj"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ts, metrics = learn(ts, outputs["traj"], gen)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[k].append(v)
+    result["breakdown_ms"] = {k: sorted(v)[1] * 1e3 for k, v in parts.items()}
+    result["processing_passes_per_superstep"] = _processing_passes(algo, cfg["repeat"])
+    log(f"{path} breakdown (median of 3, ms): " + ", ".join(f"{k} {v:.2f}" for k, v in result["breakdown_ms"].items())
+        + f"; {result['processing_passes_per_superstep']} processing passes a superstep")
+    return result
+
+
+def phase_onpolicy_host(path: str, gather) -> dict:
+    """The on-policy host path at full width: 2 warm-up and 5 timed segments
+    (collect on the host envs, one packed copy, the learning), the device
+    part of one more under the sync guard, one under the profiler (exactly
+    one host-to-device copy; device kernels and busy time) and the
+    breakdown."""
+    from tianshou_tpu_torch.utils.transfer import TreePacker
+
+    cfg = PATHS[path]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    env, algo, col, trainer = build_onpolicy_path(path, "cuda")
+    ts, gen, g_collect = trainer._host_setup()
+    learn = trainer._build_learn()
+    steps = cfg["num_envs"] * cfg["segment"]
+
+    def collect():
+        _, _, traj = col.collect(ts, None, cfg["segment"], g_collect, explore=True, record_traj=True)
+        return traj
+
+    def segments(k):
+        nonlocal ts
+        for _ in range(k):
+            ts, metrics = learn(ts, col.to_device(collect()), gen)
+        return {name: float(v) for name, v in metrics.items()}  # synchronises
+
+    segments(2)
+    gather.launches = 0
+    copies = TreePacker.copies
+    n = 5
+    t0 = time.perf_counter()
+    metrics = segments(n)
+    dt = time.perf_counter() - t0
+    copies = TreePacker.copies - copies
+    if gather.launches != 0 or copies != n:
+        raise AssertionError(f"{path}: {copies} packed copies and {gather.launches} gather launches in {n} segments")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{path}: non-finite metrics {metrics}")
+
+    # the device part of a segment (unpack and learn) makes no host sync
+    uploaded = col.upload(collect())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts, _ = learn(ts, col.unpack(uploaded), gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    # exactly one host-to-device copy in a segment's upload and learning:
+    # every tensor copy from the host that PyTorch dispatches is counted
+    # (the profiler's device trace lost this copy's record in 3 of 3 runs of
+    # this phase, while its runtime call was always traced)
+    traj = collect()
+    with _HostToDeviceCopies() as h2d:
+        ts, _ = learn(ts, col.to_device(traj), gen)
+    if h2d.copies != [((steps * (2 * env.OBS_DIM + 3)),)]:
+        raise AssertionError(f"{path}: host-to-device copies in a segment's device part: {h2d.copies}")
+    traj = collect()
+
+    def device_part():
+        nonlocal ts
+        ts, _ = learn(ts, col.to_device(traj), gen)
+
+    kernels, busy_ms, _ = _profile_counts(device_part)
+    check_onpolicy_policy(path, algo, ts, torch.as_tensor(col.obs, device=algo.device), gen, env)
+
+    parts = {"host collect": [], "pack + copy": [], "processing pass": [], "learn incl. processing": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj = collect()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dev = col.to_device(traj)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        algo.process_rollout(ts, dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ts, m = learn(ts, dev, gen)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[k].append(v)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    result = {"env_steps_per_s": n * steps / dt, "ms_per_segment": dt / n * 1e3, **metrics,
+              "updates_per_segment": cfg["updates"], "h2d_copies_per_segment": copies / n,
+              "device_kernels_per_segment": kernels, "device_busy_ms_per_segment_profiled": busy_ms,
+              "max_memory_allocated_gib": peak, "processing_passes_per_segment": _processing_passes(algo, cfg["repeat"]),
+              "breakdown_ms": {k: sorted(v)[1] * 1e3 for k, v in parts.items()}}
+    log(f"{path}: {n} segments of {cfg['num_envs']} host envs x {cfg['segment']} steps + {cfg['updates']} minibatch "
+        f"updates of batch {cfg['batch']}: {result['env_steps_per_s']:.1f} env-steps/s, {result['ms_per_segment']:.2f} "
+        f"ms per segment (stand-in env: env time understated), metrics {metrics}, {copies} packed host-to-device "
+        f"copies, max_memory_allocated {peak:.3f} GiB; the device part under torch.cuda.set_sync_debug_mode('error') "
+        f"raised no host sync; one host-to-device copy dispatched in a segment's device part ({h2d.copies[0][0]} "
+        f"floats); {kernels} device kernels and device busy {busy_ms:.2f} ms in it")
+    log(f"{path} breakdown (median of 3, ms): " + ", ".join(f"{k} {v:.2f}" for k, v in result["breakdown_ms"].items())
+        + f"; {result['processing_passes_per_segment']} processing passes a segment")
+    col.venv.close()
+    trainer.test_collector.venv.close()
+    return result
+
+
+def phase_onpolicy_main_path(path: str, gather) -> int:
+    """``OnPolicyTrainer.run()`` for one epoch of two supersteps (segments)
+    with a test phase; the launch count is read over exactly that run."""
+    cfg = PATHS[path]
+    _, _, train, trainer = build_onpolicy_path(path, "cuda")
+    gather.launches = 0
+    info = trainer.run()
+    launches = gather.launches
+    log(f"{path} OnPolicyTrainer.run(): {info}")
+    if launches != KERNEL_LAUNCHES[path]:
+        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in run()")
+    if info.env_step != 2 * cfg["num_envs"] * cfg["segment"] or info.gradient_step != 2 * cfg["updates"]:
+        raise AssertionError(f"{path}: counters env_step={info.env_step} gradient_step={info.gradient_step}")
+    if not info.last_metrics or not all(math.isfinite(v) for v in info.last_metrics.values()) \
+            or not math.isfinite(info.best_reward):
+        raise AssertionError(f"{path}: non-finite result: {info}")
+    if path == "ppo_host":
+        train.venv.close()
+        trainer.test_collector.venv.close()
+    return launches
+
+
+def phase_reference_onpolicy() -> None:
+    """The on-policy slice on the card against the CPU (float32, TF32 off),
+    from the same parameters and inputs: GAE on a [256, 8] rollout; a PPO
+    rollout processed with ret_norm (critic values, GAE, the return
+    statistics) and 3 minibatch updates of it with value clipping; one TRPO
+    learn.  Within rtol 1e-4 / atol 1e-5."""
+    from tianshou_tpu_torch.algos.npg import TRPO
+    from tianshou_tpu_torch.algos.ppo import PPO
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.envs.spaces import Box
+    from tianshou_tpu_torch.networks.continuous import GaussianActor, ValueNet
+    from tianshou_tpu_torch.ops.returns import gae_advantages
+
+    rng = np.random.default_rng(0)
+    T, N = 256, 8
+    arrays = dict(rew=rng.normal(size=(T, N)), val=rng.normal(size=(T, N)), val_next=rng.normal(size=(T, N)))
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    terminated = rng.random((T, N)) < 0.02
+    done = terminated | (rng.random((T, N)) < 0.02)
+    got, ref = (gae_advantages(*(torch.from_numpy(x).to(dev) for x in (*arrays.values(), terminated, done)),
+                               0.99, 0.95) for dev in ("cuda", "cpu"))
+    err = max(_assert_close(f"gae {name}", g, r) for name, g, r in zip(("adv", "ret"), got, ref))
+    log(f"reference gae_advantages [256, 8]: card equals CPU within rtol 1e-4 / atol 1e-5 (largest difference "
+        f"{err:.3e})")
+
+    obs_dim, act_dim, hidden, B = 5, 2, (32, 32), 64
+    box = Box(low=-1.0, high=1.0, shape=(act_dim,))
+    traj = dict(obs=rng.normal(size=(32, 8, obs_dim)).astype(np.float32),
+                act=rng.normal(size=(32, 8, act_dim)).astype(np.float32),
+                rew=rng.normal(size=(32, 8)).astype(np.float32), terminated=rng.random((32, 8)) < 0.05,
+                truncated=rng.random((32, 8)) < 0.05, obs_next=rng.normal(size=(32, 8, obs_dim)).astype(np.float32),
+                log_prob=(rng.normal(size=(32, 8)) - 2.0).astype(np.float32))
+    perm = rng.permutation(32 * 8)[: 3 * B].reshape(3, B)
+    # observations small enough that the Fisher matrix is well conditioned:
+    # 10 conjugate-gradient iterations amplify float32 rounding by its
+    # condition number (at half this scale a float32 learn on the CPU sits
+    # 1.6e-4 beyond rtol 1e-4 of a float64 one; at this scale within it)
+    mb_trpo = dict(obs=rng.normal(size=(B, obs_dim)).astype(np.float32) / 8,
+                   act=rng.normal(size=(B, act_dim)).astype(np.float32),
+                   adv=rng.normal(size=B).astype(np.float32), ret=rng.normal(size=B).astype(np.float32),
+                   logp_old=(rng.normal(size=B) - 2.0).astype(np.float32))
+    for kind in ("ppo", "trpo"):
+        runs, init = {}, None
+        for dev in ("cuda", "cpu"):
+            actor, critic = GaussianActor(obs_dim, hidden, act_dim, sigma_init=-0.5), ValueNet(obs_dim, hidden)
+            if kind == "ppo":
+                algo = PPO(actor, critic, box, lr=1e-3, ret_norm=True, value_clip=True, max_grad_norm=0.5, device=dev)
+            else:
+                algo = TRPO(actor, critic, box, critic_lr=1e-3, max_kl=0.01, device=dev)
+            ts = algo.init(torch.Generator(device=dev).manual_seed(0))
+            if init is None:
+                init = {k: {n: v.detach().cpu() for n, v in getattr(ts, k).state_dict().items()}
+                        for k in ("actor", "critic")}
+            ts.actor.load_state_dict(init["actor"])
+            ts.critic.load_state_dict(init["critic"])
+            out = []
+            if kind == "ppo":
+                t = {k: torch.from_numpy(v).to(dev) for k, v in traj.items()}
+                rollout = Batch(obs=t["obs"], act=t["act"], rew=t["rew"], terminated=t["terminated"],
+                                truncated=t["truncated"], obs_next=t["obs_next"], policy=Batch(log_prob=t["log_prob"]))
+                ts = algo.update_rollout_stats(ts, rollout)  # so that the return scale is not 1
+                processed = algo.process_rollout(ts, rollout)
+                out += [processed["adv"], processed["ret"], ts.ret_var]
+                idx = torch.from_numpy(perm).to(dev)
+                for i in range(3):
+                    ts, m = algo.learn(ts, Batch({k: v[idx[i]] for k, v in processed.items()}))
+                    out.append(torch.stack([m[k] for k in sorted(m)]))
+            else:
+                ts, m = algo.learn(ts, Batch({k: torch.from_numpy(v).to(dev) for k, v in mb_trpo.items()}))
+                out.append(torch.stack([m[k] for k in sorted(m)]))
+            runs[dev] = (ts, out)
+        (gts, gout), (cts, cout) = runs["cuda"], runs["cpu"]
+        err = max(_assert_close(f"{kind} output {i}", g, c) for i, (g, c) in enumerate(zip(gout, cout)))
+        for part in ("actor", "critic"):
+            for name, v in getattr(gts, part).state_dict().items():
+                err = max(err, _assert_close(f"{kind} {part}.{name}", v, getattr(cts, part).state_dict()[name]))
+        what = ("a rollout processed with ret_norm and 3 minibatch updates" if kind == "ppo"
+                else f"one learn (accepted {float(gout[-1][0]):.0f} on both)")
+        log(f"reference {kind}: {what} on the card equal the CPU's within rtol 1e-4 / atol 1e-5 (largest "
+            f"difference {err:.3e})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -773,8 +1221,13 @@ def main() -> int:
     for path in ("atari", "atari_dedup"):
         phase_reference(path)
     phase_reference_continuous()
+    phase_reference_onpolicy()
     results, launches = {}, 0
     for path in PATHS:
+        if path in ONPOLICY_PATHS:
+            results[path] = (phase_onpolicy_host if path == "ppo_host" else phase_onpolicy)(path, gather_rows_cast)
+            launches += phase_onpolicy_main_path(path, gather_rows_cast)
+            continue
         results[path] = (phase_host if path in HOST_PATHS else phase_superstep)(path, gather_rows_cast)
         launches += phase_main_path(path, gather_rows_cast)
     kernel["launches"] = launches

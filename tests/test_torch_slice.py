@@ -9,7 +9,8 @@ NatureCNN in float32 (so that argmax ties and bf16 rounding cannot differ),
     parameters (rtol 1e-4 / atol 1e-5).
 (b) OffPolicyTrainer.run() completes with the right counters.
 (c) Without CUDA, every entry point's default device raises.
-(d) The port imports nothing of JAX or of tianshou_tpu.
+(d) The port imports nothing of JAX or of tianshou_tpu, the modules of
+    each slice checked by name.
 (e) The same comparison as (a) on the paths of slice 2: a greedy CartPole
     segment (QNet, float32; storage within atol 1e-6), a MinAtar Breakout
     segment (sticky actions off) and a deduplicated stacked pixel segment
@@ -211,18 +212,20 @@ def test_port_imports_no_jax():
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 33
+    assert int(res.stdout.strip()) >= 39
 
 
 SLICE2_MODULES = ["envs.classic", "envs.wrappers", "envs.minatar", "networks.common"]
 SLICE3_MODULES = ["ops.dist", "networks.continuous", "networks.convert", "algos.base", "algos.ddpg", "algos.sac",
                   "trainer.offpolicy", "utils.statistics", "envs.host", "utils.transfer", "collect.host_collector"]
+SLICE4_MODULES = ["ops.returns", "utils.statistics", "envs.norm", "networks.continuous", "algos.pg", "algos.a2c",
+                  "algos.ppo", "algos.npg", "collect.collector", "collect.host_collector", "trainer.onpolicy"]
 
 
 def test_port_imports_slice2_modules_without_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {SLICE2_MODULES + SLICE3_MODULES!r}:\n"
+        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES!r}:\n"
         "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tianshou_tpu'))\n"

@@ -5,6 +5,13 @@ pytree; here :class:`TrainState` holds the online and target modules, their
 optimizer and the host-side update count, and updates change them in place.
 An :class:`Algorithm` stays a configuration object whose methods take the
 state explicitly, so the collector and trainer read like the JAX package's.
+
+The JAX package's ``act`` returns ``(action, extras)``; here :meth:`Algorithm.act`
+returns the action alone and :meth:`Algorithm.act_with_extras` both, the
+per-step policy outputs to store beside the transition (PPO's ``log_prob``).
+Its default wraps ``act`` with an empty ``Batch``.  On-policy algorithms
+implement :meth:`Algorithm.process_rollout`, :meth:`Algorithm.update_rollout_stats`
+and :meth:`Algorithm.learn`.
 :class:`RandomPolicy` acts uniformly at random, for warm-up collection.
 :func:`polyak_update` is the soft target update.
 """
@@ -16,6 +23,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.tree import tree_leaves
 from tianshou_tpu_torch.envs.spaces import Box, Space
@@ -81,6 +89,18 @@ class Algorithm:
     ) -> torch.Tensor:
         """Batched action selection."""
         raise NotImplementedError
+
+    def act_with_extras(
+        self,
+        ts: TrainState,
+        obs: torch.Tensor,
+        generator: torch.Generator,
+        explore: bool,
+        explore_param: float = 0.0,
+    ) -> tuple[torch.Tensor, Batch]:
+        """``(action, extras)``: the action and the per-step policy outputs
+        stored with the transition under ``policy`` (empty by default)."""
+        return self.act(ts, obs, generator, explore, explore_param), Batch()
 
     def act_params(self, ts: TrainState) -> nn.Module:
         """The module :meth:`act` reads (the host path snapshots it to act
@@ -148,6 +168,24 @@ class Algorithm:
         the device.  An update that samples (SAC's actions, TD3's target
         smoothing) draws from ``generator``, the counterpart of the key the
         JAX package splits off for each update."""
+        raise NotImplementedError
+
+    # -- on-policy learning ----------------------------------------------
+    def process_rollout(self, ts, traj: Batch) -> Batch:
+        """Targets over a time-major ``[T, N, ...]`` rollout (advantages,
+        returns, old log-probs), flattened to ``[T * N, ...]`` for minibatch
+        learning."""
+        raise NotImplementedError
+
+    def update_rollout_stats(self, ts, traj: Batch):
+        """Once-per-rollout state update (the running return statistics of
+        return normalisation), called right after the first
+        :meth:`process_rollout` of a rollout.  Default: none."""
+        return ts
+
+    def learn(self, ts, minibatch: Batch, generator: torch.Generator | None = None):
+        """One gradient step on a minibatch of :meth:`process_rollout`'s
+        output: ``(ts, metrics)``, the metrics on the device."""
         raise NotImplementedError
 
 

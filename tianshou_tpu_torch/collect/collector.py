@@ -10,9 +10,12 @@ env ``i`` count.
 
 Observations may be any shape, or dicts (an action ``mask`` beside
 ``obs``); ``random=True`` acts through :class:`RandomPolicy` (warm-up).
+The policy's per-step extras (:meth:`Algorithm.act_with_extras`, e.g. PPO's
+``log_prob``) are stored with each transition under ``policy``; with
+``record_traj`` the segment's transitions come back stacked ``[T, N, ...]``
+as ``outputs["traj"]``, the on-policy trainer's rollout.
 
-Not ported yet: recorded trajectories (the on-policy path), recurrent
-policy state and MARL reward metrics.
+Not ported yet: recurrent policy state and MARL reward metrics.
 """
 
 from __future__ import annotations
@@ -73,28 +76,35 @@ def rollout_segment(
     num_steps: int,
     explore: bool,
     random: bool = False,
+    record_traj: bool = False,
 ):
     """Build ``seg(ts, cstate, bstate, explore_param) -> (cstate, bstate,
     outputs)``; ``outputs`` holds ``[T, N]`` tensors ``done``, ``ep_ret`` and
-    ``ep_len`` (the latter two non-zero only where an episode ended).  With
+    ``ep_len`` (the latter two non-zero only where an episode ended), and
+    with ``record_traj`` the stacked transitions as ``traj``.  With
     ``random``, uniform random actions take the place of ``algo``'s."""
     actor = RandomPolicy(algo.action_space, algo.device) if random else algo
 
     def seg(ts: TrainState, cstate: CollectState, bstate, explore_param: float):
         obs, env_state = cstate.obs, cstate.env_state
         ep_ret, ep_len = cstate.ep_ret, cstate.ep_len
-        dones, rets, lens = [], [], []
+        dones, rets, lens, steps = [], [], [], []
         for _ in range(num_steps):
-            act = actor.act(ts, obs, cstate.rng, explore, explore_param)
+            act, extras = actor.act_with_extras(ts, obs, cstate.rng, explore, explore_param)
             env_state, res, carry_obs = venv.step(env_state, algo.map_action(act), cstate.rng)
             done = res.done
             ep_ret = ep_ret + res.reward
             ep_len = ep_len + 1
+            transition = Batch(
+                obs=obs, act=act, rew=res.reward, terminated=res.terminated,
+                truncated=res.truncated, obs_next=res.obs,
+            )
+            if extras:
+                transition["policy"] = extras
             if buffer is not None:
-                bstate = buffer.add(bstate, Batch(
-                    obs=obs, act=act, rew=res.reward, terminated=res.terminated,
-                    truncated=res.truncated, obs_next=res.obs,
-                ))
+                bstate = buffer.add(bstate, transition)
+            if record_traj:
+                steps.append(transition)
             dones.append(done)
             rets.append(torch.where(done, ep_ret, 0.0))
             lens.append(torch.where(done, ep_len, 0))
@@ -106,6 +116,8 @@ def rollout_segment(
             "ep_ret": torch.stack(rets),
             "ep_len": torch.stack(lens),
         }
+        if record_traj:
+            outputs["traj"] = tree_map(lambda *xs: torch.stack(xs), *steps)
         new = CollectState(env_state=env_state, obs=obs, rng=cstate.rng, ep_ret=ep_ret, ep_len=ep_len)
         return new, bstate, outputs
 
@@ -148,12 +160,14 @@ class Collector:
         """One eager env step to derive the buffer schema (one env's leaves,
         no batch dimension)."""
         g = make_generator(0, self.device)
-        act = self.algo.act(ts, cstate.obs, g, False)
+        act, extras = self.algo.act_with_extras(ts, cstate.obs, g, False)
         _, res, _ = self.venv.step(cstate.env_state, self.algo.map_action(act), g)
         tr = Batch(
             obs=cstate.obs, act=act, rew=res.reward, terminated=res.terminated,
             truncated=res.truncated, obs_next=res.obs,
         )
+        if extras:
+            tr["policy"] = extras
         return tree_map(lambda x: x[0], tr)
 
     def collect(

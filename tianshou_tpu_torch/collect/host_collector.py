@@ -5,9 +5,12 @@ Each step acts on the card over the batched observations and copies the
 mapped env action back to the host, where a :class:`HostVectorEnv` steps the
 envs: that one device-to-host copy a step is inherent, since the env runs on
 the host.  A segment's host leaves (``obs, rew, terminated, truncated,
-obs_next``) are stacked ``[T, N, ...]`` in numpy; the raw actions stay on
-the card, stacked.  Written to a buffer, the host leaves cross to the card
-as ONE packed copy (:class:`~tianshou_tpu_torch.utils.transfer.TreePacker`).
+obs_next``) are stacked ``[T, N, ...]`` in numpy; the raw actions and the
+policy's extras (``policy``, e.g. PPO's ``log_prob``) stay on the card,
+stacked.  Written to a buffer or handed to the on-policy learner, the host
+leaves cross to the card as ONE packed copy
+(:class:`~tianshou_tpu_torch.utils.transfer.TreePacker`); tensor leaves, at
+any depth of the trajectory, stay where they are.
 
 ``random=True`` takes uniform actions in ``[-1, 1]`` (a ``Box``; uniform
 indices for ``Discrete``) on the host instead of the policy's, mapped by
@@ -30,13 +33,39 @@ from tianshou_tpu_torch.algos.base import Algorithm, TrainState
 from tianshou_tpu_torch.collect.collector import CollectStats
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
-from tianshou_tpu_torch.data.tree import tree_map
+from tianshou_tpu_torch.data.tree import tree_leaves, tree_map
 from tianshou_tpu_torch.envs.host import HostVectorEnv
 from tianshou_tpu_torch.envs.spaces import Box
 from tianshou_tpu_torch.utils.device import resolve_device
 from tianshou_tpu_torch.utils.transfer import TreePacker
 
 __all__ = ["HostCollector"]
+
+
+def _split_tensors(tree: dict) -> tuple[dict, dict]:
+    """``(host part, tensor part)`` of a dict tree: its numpy leaves and its
+    tensor leaves, each in the tree's nesting, empty branches left out."""
+    host, dev = type(tree)(), type(tree)()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            h, d = _split_tensors(v)
+            if h:
+                host[k] = h
+            if d:
+                dev[k] = d
+        elif isinstance(v, torch.Tensor):
+            dev[k] = v
+        else:
+            host[k] = v
+    return host, dev
+
+
+def _merge(a: dict, b: dict) -> dict:
+    """The union of two dict trees with disjoint leaves."""
+    out = type(a)(a)
+    for k, v in b.items():
+        out[k] = _merge(out[k], v) if k in out else v
+    return out
 
 
 class HostCollector:
@@ -118,15 +147,18 @@ class HostCollector:
         if self.obs is None:
             raise RuntimeError("call reset() first")
         sample = self._random_sampler(generator) if random else None
-        host_steps, acts, returns, lens = [], [], [], []
+        host_steps, acts, extras, returns, lens = [], [], [], [], []
         ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
         with ctx:
             for _ in range(num_steps):
                 if random:
                     raw_act, env_act = sample(self.venv.num_envs)
                 else:
-                    raw_act = self.algo.act(ts, self._device_obs(self.obs), generator, explore, explore_param)
+                    raw_act, step_extras = self.algo.act_with_extras(
+                        ts, self._device_obs(self.obs), generator, explore, explore_param)
                     env_act = self.algo.map_action(raw_act).cpu().numpy()
+                    if step_extras:
+                        extras.append(step_extras)
                 res, carry = self.venv.step(env_act)
                 r, l_ = self._track(res)
                 returns += r
@@ -136,12 +168,16 @@ class HostCollector:
                 acts.append(raw_act)
                 self.obs = carry
             act = np.stack(acts) if random else torch.stack(acts)
+            policy = tree_map(lambda *xs: torch.stack(xs), *extras) if extras else None
         if stream is not None and not random:
             current = torch.cuda.current_stream(self.device)
             current.wait_stream(stream)
-            act.record_stream(current)
+            for x in [act, *tree_leaves(policy or {})]:
+                x.record_stream(current)
         traj = tree_map(lambda *xs: np.stack(xs), *host_steps)
         traj["act"] = act
+        if policy is not None:
+            traj["policy"] = policy
         if self.buffer is not None and bstate is not None:
             bstate = self.buffer.add_trajectory(bstate, self.to_device(traj))
         stats = CollectStats(
@@ -152,20 +188,32 @@ class HostCollector:
         )
         return bstate, stats, (traj if record_traj else None)
 
-    def packer(self, traj: Batch) -> TreePacker:
-        """The packer of ``traj``'s numpy leaves (one per schema)."""
-        host = Batch({k: v for k, v in traj.items() if not isinstance(v, torch.Tensor)})
+    def _packer(self, host: Batch) -> TreePacker:
+        """The packer of a tree of numpy leaves (one per schema)."""
         key = repr(tree_map(lambda x: (np.shape(x), np.asarray(x).dtype.str), host))
         if key not in self._packers:
             self._packers[key] = TreePacker(host, self.device)
         return self._packers[key]
 
+    def upload(self, traj: Batch) -> tuple[TreePacker, torch.Tensor, Batch]:
+        """``traj``'s numpy leaves packed and sent to the card in ONE copy:
+        ``(packer, flat buffer, tensor leaves)`` for :meth:`unpack`.  Tensor
+        leaves at any depth (the actions, the policy's extras) are not
+        copied."""
+        host, dev = _split_tensors(traj)
+        packer = self._packer(host)
+        return packer, packer.to_device(host), dev
+
+    @staticmethod
+    def unpack(uploaded: tuple[TreePacker, torch.Tensor, Batch]) -> Batch:
+        """The segment on the card from :meth:`upload`'s result."""
+        packer, flat, dev = uploaded
+        return _merge(packer.unpack(flat), dev)
+
     def to_device(self, traj: Batch) -> Batch:
         """The segment on the card: every numpy leaf through one packed copy,
-        tensor leaves (the actions) as they are."""
-        packer = self.packer(traj)
-        host = packer.unpack(packer.to_device(traj))
-        return Batch({**host, **{k: v for k, v in traj.items() if isinstance(v, torch.Tensor)}})
+        tensor leaves as they are."""
+        return self.unpack(self.upload(traj))
 
     def collect_episodes(
         self,

@@ -1,5 +1,5 @@
 """Continuous-control actors and critics (port of ``DeterministicActor``,
-``GaussianActor``, ``Critic`` and ``CriticEnsemble`` in
+``GaussianActor``, ``Critic``, ``CriticEnsemble`` and ``ValueNet`` in
 ``tianshou_tpu/networks/continuous.py``).
 
 Initialisation follows the JAX package: the MLP bodies are orthogonal (gain
@@ -13,7 +13,7 @@ batched product per layer (``baddbmm``), not K separate MLPs.  The first
 layer's input is shared by the K critics, so it broadcasts without a copy.
 Each critic draws its own init, as ``nn.vmap``'s ``split_rngs`` gives.
 
-``ValueNet``, ``Perturbation`` and ``VAE`` come with their algorithms.
+``Perturbation`` and ``VAE`` come with their algorithms.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from torch import nn
 from tianshou_tpu_torch.networks.common import MLP, _flat_dim
 from tianshou_tpu_torch.networks.conv import _lecun_normal_
 
-__all__ = ["DeterministicActor", "GaussianActor", "Critic", "CriticEnsemble", "LOG_SIG_MIN", "LOG_SIG_MAX"]
+__all__ = ["DeterministicActor", "GaussianActor", "Critic", "CriticEnsemble", "ValueNet", "LOG_SIG_MIN", "LOG_SIG_MAX"]
 
 LOG_SIG_MIN = -20.0
 LOG_SIG_MAX = 2.0
@@ -175,3 +175,27 @@ class CriticEnsemble(nn.Module):
             if i != last:
                 x = F.relu(x)
         return x.squeeze(-1).to(torch.float32)
+
+
+class ValueNet(nn.Module):
+    """obs -> scalar V ``[B]`` (the on-policy critic): an MLP with one
+    output."""
+
+    def __init__(
+        self,
+        obs_shape: int | Sequence[int],
+        hidden_sizes: Sequence[int],
+        compute_dtype: torch.dtype | None = None,
+    ):
+        super().__init__()
+        self.mlp = MLP(obs_shape, hidden_sizes, 1, compute_dtype=compute_dtype)
+
+    @property
+    def input_dtype(self) -> torch.dtype:
+        return self.mlp.input_dtype
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.mlp(obs).squeeze(-1)

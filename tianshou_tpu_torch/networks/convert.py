@@ -29,6 +29,11 @@ keeps its name.
 ``MLP_0`` -> ``Dense_i`` with a leading K axis on every leaf.  The port
 keeps the same ``[K, in, out]`` kernels (``weights.i``, no transpose, the
 layout ``baddbmm`` takes) and ``[K, out]`` biases (``biases.i``).
+
+:func:`onpolicy_state_from_flax` carries an on-policy train state: the
+``{"actor": ..., "critic": ...}`` parameters (a ``ValueNet`` critic is an
+``MLP_0`` alone) and the running return statistics ``ret_mean``,
+``ret_var`` and ``ret_count``.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax"]
+__all__ = ["params_from_flax", "onpolicy_state_from_flax"]
 
 _ENCODERS = ("NatureCNN_0", "MinAtarCNN_0")
 
@@ -118,4 +123,22 @@ def params_from_flax(flax_params: Mapping, heads: tuple[str, ...] | None = None)
         raise ValueError(f"{len(flax_heads)} top-level Dense layers but heads={names}")
     for name, flax_name in zip(names, flax_heads):
         _layer(name, tree[flax_name], out)
+    return out
+
+
+def onpolicy_state_from_flax(state, actor_heads: tuple[str, ...] | None = None) -> dict:
+    """``{"actor": state dict, "critic": state dict, "ret_mean": tensor,
+    ...}`` from the JAX package's on-policy ``TrainState`` with numpy
+    leaves (``jax.device_get``); ``critic`` and the return statistics only
+    where the state has them.  ``actor_heads`` as for
+    :func:`params_from_flax` (``("mu",)`` for a ``GaussianActor`` with a
+    state-independent sigma)."""
+    params = state.params
+    out: dict = {"actor": params_from_flax(params["actor"], heads=actor_heads)}
+    if "critic" in params:
+        out["critic"] = params_from_flax(params["critic"])
+    for name in ("ret_mean", "ret_var", "ret_count"):
+        value = getattr(state, name, None)
+        if value is not None:
+            out[name] = _tensor(value)
     return out

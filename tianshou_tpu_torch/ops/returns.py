@@ -1,15 +1,69 @@
-"""n-step return estimators (port of ``nstep_return`` and
-``nstep_return_components`` in ``tianshou_tpu/ops/returns.py``).
+"""Return and advantage estimators (port of ``tianshou_tpu/ops/returns.py``):
+``gae_advantages`` and ``discounted_returns`` over time-major ``[T, ...]``
+rollouts, ``nstep_return`` and ``nstep_return_components`` over pre-gathered
+``[B, n]`` chains.
 
 Semantics are the JAX package's: accumulation stops at ``done = terminated
-| truncated``; the caller value-masks the bootstrap with ``~terminated``.
+| truncated``; a state's value is bootstrapped unless the episode
+terminated there (truncated episodes do bootstrap).
+
+The JAX package's reversed ``lax.scan`` is a Python loop over T here: the
+per-step terms are computed for all T at once, and each step of the loop is
+one fused multiply-add (two launches for ``discounted_returns``) written
+into a preallocated ``[T, ...]`` output.  Every constant is a Python scalar
+argument, never a device tensor made inside the loop (which would be a
+host-to-device copy a step).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["nstep_return", "nstep_return_components"]
+__all__ = ["gae_advantages", "discounted_returns", "nstep_return", "nstep_return_components"]
+
+
+def gae_advantages(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    next_values: torch.Tensor,
+    terminated: torch.Tensor,
+    done: torch.Tensor,
+    gamma: float,
+    gae_lambda: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Generalized advantage estimation over the leading time axis of
+    ``[T, ...]`` inputs; ``next_values`` are V(s_{t+1}), masked here where
+    the step terminated.  Returns ``(advantages, returns)`` with ``returns =
+    advantages + values``."""
+    terminated = terminated.to(values.dtype)
+    deltas = rewards + gamma * next_values * (1.0 - terminated) - values
+    decay = (gamma * gae_lambda) * (1.0 - done.to(values.dtype))
+    adv = torch.empty_like(deltas)
+    carry = torch.zeros_like(deltas[0])
+    for t in range(deltas.shape[0] - 1, -1, -1):
+        carry = torch.addcmul(deltas[t], decay[t], carry, out=adv[t])
+    return adv, adv + values
+
+
+def discounted_returns(
+    rewards: torch.Tensor,
+    next_values: torch.Tensor,
+    terminated: torch.Tensor,
+    done: torch.Tensor,
+    gamma: float,
+) -> torch.Tensor:
+    """Monte-Carlo discounted returns over ``[T, ...]``, restarting from the
+    masked bootstrap ``next_values * ~terminated`` at every episode end and
+    from that of the last step for an unfinished tail (GAE with
+    ``gae_lambda=1``)."""
+    boot = next_values * (1.0 - terminated.to(rewards.dtype))
+    done = done.to(torch.bool)
+    ret = torch.empty_like(rewards)
+    carry = boot[-1]
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        future = torch.where(done[t], boot[t], carry)
+        carry = torch.add(rewards[t], future, alpha=gamma, out=ret[t])
+    return ret
 
 
 def nstep_return(

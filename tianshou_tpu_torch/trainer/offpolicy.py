@@ -78,14 +78,12 @@ class HostStep:
         self.updates_fn = updates_fn
 
     def upload(self, traj: Batch) -> tuple:
-        """The segment's numpy leaves packed and copied to the card:
-        ``(packer, flat buffer, actions)`` for :meth:`device`."""
-        packer = self.collector.packer(traj)
-        return packer, packer.to_device(traj), traj["act"]
+        """The segment's numpy leaves packed and copied to the card
+        (:meth:`HostCollector.upload`), for :meth:`device`."""
+        return self.collector.upload(traj)
 
     def device(self, ts, bstate, uploaded: tuple, generator):
-        packer, flat, act = uploaded
-        bstate = self.buffer.add_trajectory(bstate, Batch(**packer.unpack(flat), act=act))
+        bstate = self.buffer.add_trajectory(bstate, self.collector.unpack(uploaded))
         return self.updates_fn(ts, bstate, generator)
 
     def __call__(self, ts, bstate, traj: Batch, generator):

@@ -1,11 +1,20 @@
-"""Host-side running statistics (the port's copies of ``MovAvg`` and
-``RunningMeanStd`` from ``tianshou_tpu/utils/statistics.py``)."""
+"""Running statistics (port of ``tianshou_tpu/utils/statistics.py``).
+
+``MovAvg`` and ``RunningMeanStd`` live on the host (float64 numpy).
+``RunningMeanStdState`` with ``rms_init``/``rms_update``/``rms_normalize``
+is the device-side counterpart, carried in an env's state
+(:class:`~tianshou_tpu_torch.envs.norm.NormObsVectorEnv`): its count starts
+at 1e-4, and a batch's variance is the population variance.
+"""
 
 from __future__ import annotations
 
-import numpy as np
+from typing import NamedTuple
 
-__all__ = ["MovAvg", "RunningMeanStd"]
+import numpy as np
+import torch
+
+__all__ = ["MovAvg", "RunningMeanStd", "RunningMeanStdState", "rms_init", "rms_update", "rms_normalize"]
 
 
 class MovAvg:
@@ -53,3 +62,42 @@ class RunningMeanStd:
         if self.clip_max is not None:
             out = np.clip(out, -self.clip_max, self.clip_max)
         return out
+
+
+class RunningMeanStdState(NamedTuple):
+    """Running statistics as device tensors: ``mean`` and ``var`` of the
+    statistic's shape, a 0-d float32 ``count``."""
+
+    mean: torch.Tensor
+    var: torch.Tensor
+    count: torch.Tensor
+
+
+def rms_init(shape: tuple[int, ...], device: str | torch.device) -> RunningMeanStdState:
+    """Zero mean, unit variance, count 1e-4, filled on ``device``."""
+    return RunningMeanStdState(
+        mean=torch.zeros(shape, device=device),
+        var=torch.ones(shape, device=device),
+        count=torch.full((), 1e-4, device=device),
+    )
+
+
+def rms_update(state: RunningMeanStdState, batch: torch.Tensor) -> RunningMeanStdState:
+    """Merge a ``[B, ...]`` batch with Chan et al.'s parallel formula."""
+    batch_mean = batch.mean(dim=0)
+    batch_var = batch.var(dim=0, correction=0)
+    batch_count = batch.shape[0]
+    delta = batch_mean - state.mean
+    total = state.count + batch_count
+    new_mean = state.mean + delta * batch_count / total
+    m2 = state.var * state.count + batch_var * batch_count + delta**2 * state.count * batch_count / total
+    return RunningMeanStdState(new_mean, m2 / total, total)
+
+
+def rms_normalize(
+    state: RunningMeanStdState, x: torch.Tensor, clip: float | None = 10.0, eps: float = 1e-8
+) -> torch.Tensor:
+    out = (x - state.mean) / torch.sqrt(state.var + eps)
+    if clip is not None:
+        out = torch.clamp(out, -clip, clip)
+    return out

@@ -7,7 +7,8 @@ Builds a path of ``chip_smoke.py`` at full width (``--path``: ``atari``,
 the pixel superstep; ``atari_dedup``, the same over the deduplicated
 frame-stack buffer; ``cartpole``, the CartPole headline; ``minatar``,
 MinAtar Breakout; ``sac_pendulum`` and ``td3_pendulum``, the continuous
-updates on the on-device Pendulum), runs two warm-up supersteps, then traces
+updates on the on-device Pendulum; ``ppo_cartpole`` and ``trpo_pendulum``,
+the on-policy supersteps), runs two warm-up supersteps, then traces
 ``--supersteps`` more with ``torch.profiler``.  Prints the device's busy time a superstep (the union of
 its kernels' intervals) and its share of the traced wall time, the number
 of kernels a superstep, the time of a few kernels named in PERF.md, and the
@@ -28,7 +29,8 @@ import torch
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--path", default="atari", choices=["atari", "atari_dedup", "cartpole", "minatar", "sac_pendulum", "td3_pendulum"])
+    parser.add_argument("--path", default="atari", choices=["atari", "atari_dedup", "cartpole", "minatar", "sac_pendulum",
+                                                             "td3_pendulum", "ppo_cartpole", "trpo_pendulum"])
     parser.add_argument("--supersteps", type=int, default=2)
     parser.add_argument("--out", default="build/profile")
     args = parser.parse_args()
@@ -46,17 +48,32 @@ def main() -> int:
     ).stdout.strip()
     print(smi, flush=True)
     print(f"path {args.path}: {chip_smoke.PATHS[args.path]}", flush=True)
-    _, algo, col, buffer, trainer = chip_smoke.build_path(args.path, "cuda")
-    gen, ts, cstate, bstate = chip_smoke.init_states(algo, col, buffer)
-    superstep = trainer._build_superstep()
+    if args.path in chip_smoke.ONPOLICY_PATHS:
+        from tianshou_tpu_torch.utils.device import fork_generator, make_generator
+
+        _, algo, col, trainer = chip_smoke.build_onpolicy_path(args.path, "cuda")
+        gen = make_generator(0, torch.device("cuda"))
+        state = [algo.init(fork_generator(gen)), col.reset(fork_generator(gen))]
+        onpolicy_step = trainer._build_superstep()
+
+        def superstep():
+            state[0], state[1], _, _ = onpolicy_step(state[0], state[1], gen)
+    else:
+        _, algo, col, buffer, trainer = chip_smoke.build_path(args.path, "cuda")
+        gen, ts, cstate, bstate = chip_smoke.init_states(algo, col, buffer)
+        state = [ts, cstate, bstate]
+        offpolicy_step = trainer._build_superstep()
+
+        def superstep():
+            state[0], state[1], state[2], _, _ = offpolicy_step(*state, gen, 0.1)
     for _ in range(2):
-        ts, cstate, bstate, _, metrics = superstep(ts, cstate, bstate, gen, 0.1)
+        superstep()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.supersteps):
-            ts, cstate, bstate, _, metrics = superstep(ts, cstate, bstate, gen, 0.1)
+            superstep()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -70,7 +87,7 @@ def main() -> int:
     print(f"{n} supersteps traced (profiler on): wall {wall * 1e3 / n:.2f} ms a superstep, device busy "
           f"{busy_us / 1e3 / n:.2f} ms a superstep (share {busy_us / 1e6 / wall:.3f}), "
           f"{len(kernels) / n:.0f} device kernels a superstep")
-    for name in ("gather_rows_cast", "nhwcToNchwKernel", "f32f32_f32f32"):
+    for name in ("gather_rows_cast", "nhwcToNchwKernel", "f32f32_f32f32", "addcmul", "Memcpy"):
         hits = [e.time_range.elapsed_us() for e in kernels if name in e.name]
         if hits:
             print(f"  kernels matching {name!r}: {len(hits) / n:.0f} a superstep, "

@@ -14,7 +14,9 @@ package, on the CPU in float32 at a small size (hidden (32, 32)).
   continuous, and an optimizer override), A2C, PPO (dual clip, value
   clip, grad clipping, a linear learning-rate schedule), NPG and TRPO:
   metrics and parameters within
-  rtol 1e-4 / atol 1e-5; TRPO's ``accepted`` equal.
+  rtol 1e-4 / atol 1e-5; TRPO's ``accepted`` equal.  NPG and TRPO on
+  unshrunk observations: the float32 steps of both packages within a limit
+  set from readings of the port's float64 step.
 - A recorded on-device segment (CartPole with auto-resets; Pendulum behind
   NormObsVectorEnv) with the JAX package's own noise injected: equal
   actions, log_prob and trajectory.
@@ -340,19 +342,20 @@ def test_process_rollout_and_rollout_stats_match_jax(name, ret_norm):
         assert float(tts.ret_count) == pytest.approx(2 * 36 + 1e-4) and abs(float(tts.ret_var) - 1.0) > 0.1
 
 
-def _minibatch(name, kind, jalgo, jts, seed, B=16):
+def _minibatch(name, kind, jalgo, jts, seed, B=16, shrink=True):
     """A minibatch of process_rollout's keys; ``logp_old`` is the actor's
     own log-prob plus noise, so that PPO's clip and TRPO's ratio act.
 
-    NPG and TRPO take observations 4x smaller, a better-conditioned Fisher
-    matrix: 10 conjugate-gradient iterations amplify float32 rounding by
-    its condition number, and at the scale of the others both packages'
-    float32 steps sit about 1e-4 from a float64 solve of the same system
-    (the port's about 1e-5), beyond the comparison's tolerance."""
+    NPG and TRPO take observations 4x smaller (unless not ``shrink``), a
+    better-conditioned Fisher matrix: 10 conjugate-gradient iterations
+    amplify float32 rounding by its condition number, and at the scale of
+    the others both packages' float32 steps sit up to 5e-3 from a float64
+    solve of the same system (see ``test_natural_gradient_at_full_scale``),
+    beyond the comparison's tolerance."""
     rng = np.random.default_rng(seed)
     arrays = _trajectory(kind, T=B, N=1, seed=seed)
     flat = {k: v.reshape((B,) + v.shape[2:]) for k, v in arrays.items()}
-    if name in ("npg", "trpo"):
+    if name in ("npg", "trpo") and shrink:
         flat["obs"] = flat["obs"] / 4
     dist = jalgo.actor.apply(jts.params["actor"], jnp.asarray(flat["obs"]))
     logp, _ = jalgo._log_prob_entropy(dist, jnp.asarray(flat["act"]))
@@ -413,6 +416,58 @@ def test_learn_matches_jax(case):
     assert moved == (case != "trpo-rejects")
     if case == "trpo":
         assert float(tm["accepted"]) == 1.0
+
+
+# How far a float32 natural-gradient step at the unscaled inputs may sit
+# from the port's float64 step, relative to its length.  Readings (CPU, the
+# minibatch of seed 11): the port's float32 step 4.1e-5 (NPG) and 1.7e-5
+# (TRPO) continuous, 4.1e-3 and 4.8e-3 discrete; the JAX package's 4.6e-4,
+# 9.0e-4, 4.1e-3 and 4.8e-3.  Each limit is about 5x its kind's largest.
+NATURAL_STEP_LIMIT = {"continuous": 5e-3, "discrete": 2.5e-2}
+
+
+def _float64_twin(name, kind, kw):
+    """The port's ``name`` with its nets computing in float64."""
+    f64 = torch.float64
+    if kind == "discrete":
+        actor, critic = QNet(OBS_D, HID, A_D, compute_dtype=f64), tcont.ValueNet(OBS_D, HID, compute_dtype=f64)
+        space = Discrete(A_D)
+    else:
+        actor = tcont.GaussianActor(OBS_C, HID, A_C, sigma_init=-0.3, compute_dtype=f64)
+        critic, space = tcont.ValueNet(OBS_C, HID, compute_dtype=f64), Box(low=-1.0, high=1.0, shape=(A_C,))
+    return {"npg": NPG, "trpo": TRPO}[name](actor.double(), critic.double(), space, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("case", ["npg", "npg-discrete", "trpo", "trpo-discrete"])
+def test_natural_gradient_at_full_scale(case):
+    """One NPG/TRPO learn on observations at the other learn tests' scale,
+    not shrunk: the JAX package's float32 step and the port's float32 step
+    each within ``NATURAL_STEP_LIMIT`` of the port's float64 step (which
+    reaches the Fisher matrix by a double backward, the JAX package by
+    forward-over-reverse), TRPO accepting on all three."""
+    name, kind, kw = LEARN_CASES[case]
+    jalgo, jts, talgo, tts, heads = _algo_pair(name, kind, **kw)
+    talgo64 = _float64_twin(name, kind, kw)
+    tts64 = talgo64.init(torch.Generator().manual_seed(0))
+    tts64.actor.load_state_dict(tts.actor.state_dict())
+    tts64.critic.load_state_dict(tts.critic.state_dict())
+    before = {k: v.double().clone() for k, v in tts.actor.state_dict().items()}
+    jmb, tmb = _minibatch(name, kind, jalgo, jts, seed=11, shrink=False)
+    jts, jm = jax.jit(jalgo.learn)(jts, jmb, jax.random.key(1))
+    tts, tm = talgo.learn(tts, tmb)
+    tts64, m64 = talgo64.learn(tts64, Batch(**{k: v.double() if v.is_floating_point() else v for k, v in tmb.items()}))
+    jax_actor = onpolicy_state_from_flax(jax.device_get(jts), actor_heads=heads)["actor"]
+
+    def step(state):
+        return torch.cat([(torch.as_tensor(np.asarray(state[k])).double() - before[k]).ravel() for k in before])
+
+    ref = step(tts64.actor.state_dict())
+    assert float(ref.norm()) > 1e-2
+    for who, state in (("jax float32", jax_actor), ("port float32", tts.actor.state_dict())):
+        rel = float((step(state) - ref).norm() / ref.norm())
+        assert rel < NATURAL_STEP_LIMIT[kind], f"{case}: {who} step {rel:.3e} from the float64 step"
+    if name == "trpo":
+        assert float(jm["accepted"]) == float(tm["accepted"]) == float(m64["accepted"]) == 1.0
 
 
 def test_grad_clip_is_optax_form():

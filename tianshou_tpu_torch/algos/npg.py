@@ -162,7 +162,7 @@ class TRPO(NPG):
         params, flat0, d, d_f_d, dist_old = self._natural_gradient(ts, mb, adv)
         # the full step, where the quadratic model of the KL reaches max_kl
         full_step = torch.sqrt(2.0 * self.max_kl / (d_f_d + 1e-12))
-        fracs = self.backtrack_coeff ** torch.arange(self.max_backtracks, dtype=torch.float32, device=flat0.device)
+        fracs = self.backtrack_coeff ** torch.arange(self.max_backtracks, dtype=flat0.dtype, device=flat0.device)
         names = [n for n, _ in ts.actor.named_parameters()]
         sizes = [p.numel() for p in params]
 

@@ -7,7 +7,9 @@ heads keep Flax's default lecun-normal.  Flax draws an orthogonal kernel on
 ``[in, out]`` and PyTorch on ``[out, in]``, so the two inits agree in law,
 not in value: weights carried over by :mod:`.convert` give the same
 function.  With ``compute_dtype`` (e.g. ``torch.bfloat16``) parameters stay
-float32 and are cast for each layer, and the output is float32.
+float32 and are cast for each layer, and the output is float32; with
+``torch.float64`` (and the parameters cast by ``.double()``) the whole
+forward, output included, stays in float64.
 
 The ensemble, recurrent and branching nets come with their algorithms.
 """
@@ -71,7 +73,7 @@ class MLP(nn.Module):
             x = F.linear(x, layer.weight.to(dt), layer.bias.to(dt))
             if not (self.has_output and i == len(self.layers) - 1):
                 x = self.activation(x)
-        return x.to(torch.float32)
+        return x.to(torch.promote_types(dt, torch.float32))
 
 
 class QNet(nn.Module):

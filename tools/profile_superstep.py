@@ -48,24 +48,9 @@ def main() -> int:
     ).stdout.strip()
     print(smi, flush=True)
     print(f"path {args.path}: {chip_smoke.PATHS[args.path]}", flush=True)
-    if args.path in chip_smoke.ONPOLICY_PATHS:
-        from tianshou_tpu_torch.utils.device import fork_generator, make_generator
-
-        _, algo, col, trainer = chip_smoke.build_onpolicy_path(args.path, "cuda")
-        gen = make_generator(0, torch.device("cuda"))
-        state = [algo.init(fork_generator(gen)), col.reset(fork_generator(gen))]
-        onpolicy_step = trainer._build_superstep()
-
-        def superstep():
-            state[0], state[1], _, _ = onpolicy_step(state[0], state[1], gen)
-    else:
-        _, algo, col, buffer, trainer = chip_smoke.build_path(args.path, "cuda")
-        gen, ts, cstate, bstate = chip_smoke.init_states(algo, col, buffer)
-        state = [ts, cstate, bstate]
-        offpolicy_step = trainer._build_superstep()
-
-        def superstep():
-            state[0], state[1], state[2], _, _ = offpolicy_step(*state, gen, 0.1)
+    _, algo, col, buffer, trainer = chip_smoke.build(args.path)
+    gen, *state = chip_smoke.init_states(algo, col, buffer)
+    superstep = chip_smoke.superstep_of(trainer, state, gen)
     for _ in range(2):
         superstep()
     torch.cuda.synchronize()

@@ -31,7 +31,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    learn at the ``trpo_pendulum`` widths on observations at Pendulum's own
    scale, unscaled: in float64 the card's within rtol 1e-7 / atol 1e-9 of
    the CPU's, and in float32 the card's and the CPU's actor steps each
-   within ``TRPO_FLOAT32_STEP_LIMIT`` (relative) of the CPU's float64 step;
+   within ``TRPO_FLOAT32_STEP_LIMIT`` (relative) of the CPU's float64 step.
+   Then prioritized replay and the distributional family, in float32 with
+   TF32 off, within rtol 1e-4 / atol 1e-5 of the CPU (indices exact): the
+   sum tree at ``rainbow_per``'s 20,000 slots (update, and the descent on
+   the same draws), PER weights in both modes, and one update each of DQN
+   on a PER buffer (the tree after the write-back included), C51, Rainbow
+   (the same noise), QRDQN, IQN (the same fractions) and FQF (both of its
+   parameter sets);
 5. paths, each at full width: 2 warm-up and 5 timed supersteps, one more
    superstep in which a host synchronisation raises, one under the profiler
    (device kernels and busy time), where the time of a superstep goes,
@@ -82,7 +89,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
      a segment, a linear learning-rate decay, value coefficient 0.25, return
      normalisation and ``recompute_advantage``, 10 test envs.  Its sync
      guard and its one copy are checked as ``sac_host``'s, with the
-     learning as the device part.
+     learning as the device part;
+   - ``rainbow_per``: the JAX package's Rainbow CartPole test configuration
+     on a ``PrioritizedReplayBuffer`` (alpha 0.6, beta 0.4): 10 envs x 10
+     steps, 10 updates of batch 64, each sampling its own batch from the sum
+     tree and writing its cross-entropy back, ``C51Net((128, 128), 51
+     atoms, noisy)``, 1000 warm-up steps; its breakdown times the tree's
+     descent, the sample with its gathers, one write-back and one PER add
+     on their own;
+   - ``qrdqn_minatar``: ``examples/dqn_minatar.py --algo qrdqn`` at its
+     defaults: MinAtar Breakout, ``ConvQRDQNNet`` (200 quantiles, the MinAtar
+     CNN in bf16), 32 envs x 4 steps, 32 presampled updates of batch 64, a
+     3125-slot ring per env, 5000 warm-up steps.
 
 It then prints a ``paths`` JSON line, the ``kernels`` JSON line and, last,
 the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
@@ -122,8 +140,15 @@ PATHS = {
     "ppo_cartpole": dict(num_envs=16, segment=128, batch=256, repeat=10, updates=80, test_envs=16, episodes=10),
     "trpo_pendulum": dict(num_envs=16, segment=128, batch=2048, repeat=2, updates=2, test_envs=16, episodes=10),
     "ppo_host": dict(num_envs=8, segment=256, batch=64, repeat=10, updates=320, test_envs=10, episodes=10),
+    # the distributional family: Rainbow on a prioritized ring (each update
+    # samples its own batch), QRDQN at MinAtar conv width (presampled)
+    "rainbow_per": dict(num_envs=10, segment=10, batch=64, updates=10, capacity=2000, warmup=1000,
+                        update_per_step=0.1),
+    "qrdqn_minatar": dict(num_envs=32, segment=4, batch=64, updates=32, capacity=100_000 // 32, warmup=5000,
+                          update_per_step=0.25),
 }
-DQN_PATHS = ("atari", "atari_dedup", "cartpole", "minatar")
+DQN_PATHS = ("atari", "atari_dedup", "cartpole", "minatar", "rainbow_per", "qrdqn_minatar")
+PER_PATHS = ("rainbow_per",)
 HOST_PATHS = ("sac_host", "ppo_host")
 ONPOLICY_PATHS = ("ppo_cartpole", "trpo_pendulum", "ppo_host")
 # the metrics each family's superstep (segment) and run() must report, finite
@@ -132,7 +157,8 @@ FAMILY_METRICS = {"dqn": ("loss",), "continuous": ("critic_loss", "actor_loss"),
 # launches of gather_rows_cast a superstep: obs and obs_next of the presample;
 # the on-policy paths use no replay buffer
 KERNEL_LAUNCHES = {"atari": 2, "atari_dedup": 2, "cartpole": 0, "minatar": 0, "sac_pendulum": 0,
-                   "td3_pendulum": 0, "sac_host": 0, "ppo_cartpole": 0, "trpo_pendulum": 0, "ppo_host": 0}
+                   "td3_pendulum": 0, "sac_host": 0, "ppo_cartpole": 0, "trpo_pendulum": 0, "ppo_host": 0,
+                   "rainbow_per": 0, "qrdqn_minatar": 0}
 # the MuJoCo PPO example's learning-rate decay runs to zero over every
 # minibatch update of its default run: 100 epochs x 5 segments x 10 passes x
 # 32 minibatches (examples/mujoco_ppo.py)
@@ -373,6 +399,29 @@ def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, **
         net = ConvQNet(env.observation_space.shape, env.action_space.n, "minatar",
                        encoder_kwargs={"compute_dtype": torch.bfloat16})
         dqn = dict(gamma=0.99, n_step=3, target_update_freq=1000)
+    elif path == "rainbow_per":
+        # tests/test_distributional_e2e.py:109-121, the PER of tests/test_prio.py:151
+        from tianshou_tpu_torch.algos.c51 import Rainbow
+        from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
+        from tianshou_tpu_torch.envs.classic import CartPole
+        from tianshou_tpu_torch.networks.discrete import C51Net
+
+        env = CartPole()
+        algo = Rainbow(C51Net(4, (128, 128), 2, num_atoms=51, noisy=True), env.action_space,
+                       num_atoms=51, v_min=0.0, v_max=200.0, gamma=0.95, n_step=3, target_update_freq=320,
+                       device=device)
+        buffer = PrioritizedReplayBuffer(capacity, num_envs, alpha=0.6, beta=0.4)
+        test_envs = 10
+    elif path == "qrdqn_minatar":
+        # examples/dqn_minatar.py --algo qrdqn, its defaults
+        from tianshou_tpu_torch.algos.qrdqn import QRDQN
+        from tianshou_tpu_torch.envs.minatar import make_minatar
+        from tianshou_tpu_torch.networks.conv import ConvQRDQNNet
+
+        env = make_minatar("breakout")
+        net = ConvQRDQNNet(env.observation_space.shape, env.action_space.n, 200, "minatar")
+        algo = QRDQN(net, env.action_space, num_quantiles=200, lr=3e-4, gamma=0.99, n_step=3,
+                     target_update_freq=1000, device=device)
     elif path in ("sac_pendulum", "td3_pendulum"):
         from tianshou_tpu_torch.envs.classic import Pendulum
 
@@ -385,7 +434,8 @@ def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, **
                                auto_alpha=False)
     else:
         raise ValueError(f"unknown path {path!r}; have {sorted(PATHS)}")
-    buffer = ReplayBuffer(capacity, num_envs, **buffer_options)
+    if path not in PER_PATHS:
+        buffer = ReplayBuffer(capacity, num_envs, **buffer_options)
     if dqn is not None:
         algo = DQN(net, env.action_space, lr=1e-3, device=device, **dqn)
     if path in HOST_PATHS:
@@ -403,9 +453,10 @@ def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, **
     trainer = OffPolicyTrainer(
         algo, train, test, buffer, max_epoch=1, step_per_epoch=2 * steps, step_per_collect=steps,
         update_per_step=cfg.get("update_per_step", updates / steps), batch_size=batch, episode_per_test=episodes, device=device,
-        # DQN explores with epsilon 0.1; TD3 takes its default, its own
+        # the DQN family explores with epsilon 0.1 (Rainbow through its
+        # weight noise, ignoring it); TD3 takes its default, its own
         # exploration noise (SAC samples and ignores it)
-        train_param_fn=(lambda epoch, step: 0.1) if dqn is not None else None,
+        train_param_fn=(lambda epoch, step: 0.1) if path in DQN_PATHS else None,
         warmup_steps=cfg.get("warmup", 0), pipeline_host_updates=pipeline,
     )
     if (trainer.segment_len, trainer.updates_per_segment) != (segment, updates):
@@ -666,7 +717,7 @@ def phase_superstep(path: str, gather) -> dict:
     updates (off-policy) or one processing pass and the learning (on-policy:
     every processing pass and the minibatch updates)."""
     from tianshou_tpu_torch.collect.collector import rollout_segment
-    from tianshou_tpu_torch.data.tree import tree_leaves
+    from tianshou_tpu_torch.data.tree import tree_leaves, tree_map
     from tianshou_tpu_torch.trainer.offpolicy import build_update_scan
 
     cfg = PATHS[path]
@@ -726,11 +777,34 @@ def phase_superstep(path: str, gather) -> dict:
         def updates():
             state[0], state[2], _ = updates_fn(state[0], state[2], gen)
 
-        parts = {"rollout": rollout,
-                 "presample": lambda: algo.presample(buffer, state[2], gen, cfg["updates"] * cfg["batch"]),
-                 "updates incl. presample": updates}
+        if path in PER_PATHS:
+            # each update samples its own batch: the sum-tree descent and
+            # weights alone, with the gathers, the write-back of one update
+            # and the PER add of one rollout step, each on its own
+            held = {"sampled": algo.presample(buffer, state[2], gen, cfg["batch"]),
+                    "step": tree_map(lambda x: x[:, 0], state[2].storage)}
+
+            def write_back():
+                env_idx, pos, weight = held["sampled"][:3]
+                state[2] = buffer.update_priorities(state[2], env_idx, pos, weight)
+
+            parts = {"rollout": rollout,
+                     "per sample_with_weights": lambda: buffer.sample_with_weights(state[2], gen, cfg["batch"]),
+                     "per sample incl. gathers": lambda: algo.presample(buffer, state[2], gen, cfg["batch"]),
+                     "per write-back": write_back,
+                     "per add (one rollout step)": lambda: buffer.add(state[2], held["step"]),
+                     "updates incl. sampling": updates}
+        else:
+            parts = {"rollout": rollout,
+                     "presample": lambda: algo.presample(buffer, state[2], gen, cfg["updates"] * cfg["batch"]),
+                     "updates incl. presample": updates}
     result["breakdown_ms"] = breakdown(parts)
     log(f"{path} breakdown (median of 3, ms): " + ", ".join(f"{k} {v:.2f}" for k, v in result["breakdown_ms"].items()))
+    if path in PER_PATHS:
+        # device kernels and busy time of each PER operation, profiled alone
+        result["per_kernels_busy_ms"] = {k: _profile_counts(parts[k]) for k in parts if k.startswith("per ")}
+        log(f"{path} PER operations profiled alone (device kernels, busy ms): " + ", ".join(
+            f"{k} {n} / {b:.3f}" for k, (n, b) in result["per_kernels_busy_ms"].items()))
     return result
 
 
@@ -920,7 +994,8 @@ def phase_main_path(path: str, gather) -> int:
     if launches != KERNEL_LAUNCHES[path] * 2:
         raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in run(), "
                              f"not {KERNEL_LAUNCHES[path] * 2}")
-    env_steps = cfg.get("warmup", 0) + 2 * cfg["num_envs"] * cfg["segment"]
+    warmup = cfg.get("warmup", 0) // cfg["num_envs"] * cfg["num_envs"]  # whole steps of every env
+    env_steps = warmup + 2 * cfg["num_envs"] * cfg["segment"]
     if info.env_step != env_steps or info.gradient_step != 2 * cfg["updates"]:
         raise AssertionError(f"{path}: counters env_step={info.env_step} gradient_step={info.gradient_step}")
     _check_metrics(path, info.last_metrics)
@@ -1177,6 +1252,155 @@ def phase_reference_onpolicy() -> None:
         + ", ".join(f"{k} {v:.3e}" for k, v in errors.items()) + f" (limit {TRPO_FLOAT32_STEP_LIMIT} for float32)")
 
 
+def phase_reference_distributional() -> None:
+    """Prioritized replay and the distributional family on the card against
+    the CPU (float32, TF32 off, rtol 1e-4 / atol 1e-5, indices exact): the
+    sum tree at 20,000 slots (update and descent on the same ``u``); PER
+    weights in both modes; one update each of DQN on a PER buffer (with the
+    tree after the write-back), C51, Rainbow (the same noise), QRDQN, IQN
+    (the same fractions) and FQF (the quantile net and the fraction
+    proposal after the step), from the same parameters and batch."""
+    from tianshou_tpu_torch.algos.c51 import C51, Rainbow
+    from tianshou_tpu_torch.algos.dqn import DQN
+    from tianshou_tpu_torch.algos.qrdqn import FQF, IQN, QRDQN
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
+    from tianshou_tpu_torch.data.tree import tree_map
+    from tianshou_tpu_torch.envs.spaces import Discrete
+    from tianshou_tpu_torch.networks.common import QNet
+    from tianshou_tpu_torch.networks.discrete import (
+        C51Net, FractionProposalNetwork, FullQuantileFunction, ImplicitQuantileNetwork, QRDQNNet, draw_noise)
+    from tianshou_tpu_torch.ops.segtree import segtree_init, segtree_sample, segtree_total, segtree_update
+
+    rng = np.random.default_rng(0)
+    # the sum tree at the rainbow_per ring's 20,000 slots
+    slots = PATHS["rainbow_per"]["num_envs"] * PATHS["rainbow_per"]["capacity"]
+    n = min(4096, slots // 2)
+    idx = rng.choice(slots, n, replace=False)
+    vals = rng.random(n).astype(np.float32)
+    u01 = rng.random(n).astype(np.float32)
+    trees, leaves = {}, {}
+    for dev in ("cuda", "cpu"):
+        tree = segtree_init(slots, dev)
+        segtree_update(tree, torch.from_numpy(idx).to(dev), torch.from_numpy(vals).to(dev))
+        trees[dev] = tree
+        leaves[dev] = segtree_sample(tree, torch.from_numpy(u01).to(dev) * segtree_total(tree))
+    err = _assert_close("segtree_update tree", trees["cuda"], trees["cpu"])
+    if not torch.equal(leaves["cuda"].cpu(), leaves["cpu"]):
+        raise AssertionError("segtree_sample: the card and the CPU descend to different leaves")
+    log(f"reference segtree at {slots} slots: {n} updated leaves give the same tree (largest difference "
+        f"{err:.3e}) and {n} draws the same leaves on the card and the CPU")
+
+    obs_dim, n_act, hidden, batch = 4, 3, (32, 32), 16
+    steps = [dict(obs=rng.normal(size=(2, obs_dim)).astype(np.float32), act=rng.integers(0, n_act, 2),
+                  rew=rng.normal(size=2).astype(np.float32), terminated=rng.random(2) < 0.15,
+                  truncated=rng.random(2) < 0.05, obs_next=rng.normal(size=(2, obs_dim)).astype(np.float32))
+             for _ in range(40)]
+    td = (rng.normal(size=24) * 3).astype(np.float32)
+    written = rng.choice(64, 24, replace=False)
+
+    def per_state(dev, weight_norm=True):
+        buf = PrioritizedReplayBuffer(32, 2, alpha=0.6, beta=0.4, weight_norm=weight_norm)
+        bs = buf.init(Batch({k: torch.as_tensor(v[0]) for k, v in steps[0].items()}), device=dev)
+        for tr in steps:
+            bs = buf.add(bs, Batch({k: torch.from_numpy(v).to(dev) for k, v in tr.items()}))
+        w = torch.from_numpy(written).to(dev)
+        return buf, buf.update_priorities(bs, w // 32, w % 32, torch.from_numpy(td).to(dev))
+
+    # a u whose sample names no slot twice: a duplicated slot's write-back
+    # keeps one of its values, in no fixed order on the card
+    buf, bs = per_state("cpu")
+    for _ in range(100):
+        u = torch.from_numpy(rng.random(batch).astype(np.float32))
+        env_idx, pos, _ = buf.sample_at(bs, u)
+        if len(set((env_idx * 32 + pos).tolist())) == batch:
+            break
+    for weight_norm in (True, False):
+        out = {dev: per_state(dev, weight_norm) for dev in ("cuda", "cpu")}
+        got = {dev: b.sample_at(st, u.to(dev)) for dev, (b, st) in out.items()}
+        for name, g, c in zip(("env_idx", "pos"), got["cuda"][:2], got["cpu"][:2]):
+            if not torch.equal(g.cpu(), c):
+                raise AssertionError(f"PER sample: {name} differs between the card and the CPU")
+        err = _assert_close(f"PER weights (weight_norm={weight_norm})", got["cuda"][2], got["cpu"][2])
+        log(f"reference PER (weight_norm={weight_norm}): the same slots and weights on the card and the CPU "
+            f"(largest difference {err:.3e})")
+
+    def quantile_sample(dev):
+        r = np.random.default_rng(1)
+        a = dict(env_idx=r.integers(0, 2, batch), pos=r.permutation(batch), weight=r.uniform(0.5, 1.5, batch),
+                 obs=r.normal(size=(batch, obs_dim)), act=r.integers(0, n_act, batch),
+                 obs_next=r.normal(size=(batch, obs_dim)), terminated=r.random(batch) < 0.3,
+                 returns=r.normal(size=batch) * 2, discount=r.choice([0.9, 0.81], batch))
+        t = {k: torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v).to(dev) for k, v in a.items()}
+        mask = 1.0 - t["terminated"].to(torch.float32)
+        return (t["env_idx"], t["pos"], t["weight"], Batch(obs=t["obs"], act=t["act"]),
+                Batch(obs_next=t["obs_next"], terminated=t["terminated"]), mask, t["returns"], t["discount"])
+
+    def c51_sample(dev):
+        r = np.random.default_rng(2)
+        a = dict(env_idx=r.integers(0, 2, batch), pos=r.permutation(batch),
+                 weight=r.uniform(0.5, 1.5, batch).astype(np.float32),
+                 obs=r.normal(size=(batch, obs_dim)).astype(np.float32), act=r.integers(0, n_act, batch),
+                 rew=(r.normal(size=(batch, 3)) * 2).astype(np.float32),
+                 done=(r.random((batch, 3)) < 0.2).astype(np.int32),
+                 obs_next=r.normal(size=(batch, obs_dim)).astype(np.float32), terminated=r.random(batch) < 0.3)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+        return (t["env_idx"], t["pos"], t["weight"], Batch(obs=t["obs"], act=t["act"]), t["rew"], t["done"],
+                Batch(obs_next=t["obs_next"], terminated=t["terminated"]))
+
+    kw = dict(gamma=0.9, n_step=3, lr=1e-3, target_update_freq=1)
+    space = Discrete(n_act)
+    makers = {
+        "dqn-per": lambda dev: DQN(QNet(obs_dim, hidden, n_act), space, device=dev, **kw),
+        "c51": lambda dev: C51(C51Net(obs_dim, hidden, n_act, num_atoms=11), space, num_atoms=11, v_min=-5.0,
+                               v_max=5.0, device=dev, **kw),
+        "rainbow": lambda dev: Rainbow(C51Net(obs_dim, hidden, n_act, num_atoms=11, noisy=True), space,
+                                       num_atoms=11, v_min=-5.0, v_max=5.0, device=dev, **kw),
+        "qrdqn": lambda dev: QRDQN(QRDQNNet(obs_dim, hidden, n_act, num_quantiles=16), space, num_quantiles=16,
+                                   device=dev, **kw),
+        "iqn": lambda dev: IQN(ImplicitQuantileNetwork(obs_dim, hidden, n_act), space, sample_size=8,
+                               online_sample_size=6, target_sample_size=5, device=dev, **kw),
+        "fqf": lambda dev: FQF(FullQuantileFunction(obs_dim, hidden, n_act),
+                               FractionProposalNetwork(hidden[-1], 8), space, num_fractions=8, fraction_lr=1e-3,
+                               device=dev, **kw),
+    }
+    for kind, make in makers.items():
+        runs, init, extra = {}, None, {}
+        for dev in ("cuda", "cpu"):
+            algo = make(dev)
+            ts = algo.init(torch.Generator(device=dev).manual_seed(0))
+            parts = ("online", "fraction") if kind == "fqf" else ("online",)
+            if init is None:
+                init = {p: {n: v.detach().cpu() for n, v in getattr(ts, p).state_dict().items()} for p in parts}
+                g = torch.Generator(device=dev).manual_seed(1)
+                if kind == "rainbow":
+                    extra = dict(noise=(draw_noise(ts.target, g), draw_noise(ts.online, g)))
+                elif kind == "iqn":
+                    extra = dict(taus=tuple(torch.rand((batch, k), generator=g, device=dev) for k in (5, 6, 5)))
+            for p in parts:
+                getattr(ts, p).load_state_dict(init[p])
+            ts.target.load_state_dict(init["online"])
+            dev_extra = {k: tree_map(lambda x: x.to(dev), v) for k, v in extra.items()}
+            if kind == "dqn-per":
+                buf, bs = per_state(dev)
+                buf.sample_with_weights = lambda st, gen, b, buf=buf, dev=dev: buf.sample_at(st, u.to(dev))
+                sampled = algo.presample(buf, bs, None, batch)
+                ts, bs, m = algo.update_sampled(ts, buf, bs, sampled)
+                out = [m["loss"], bs.tree, bs.max_prio, bs.min_prio]
+            else:
+                sampled = (quantile_sample if kind in ("qrdqn", "iqn", "fqf") else c51_sample)(dev)
+                ts, _, m = algo.update_sampled(ts, None, None, sampled, **dev_extra)
+                out = [torch.stack([m[k] for k in sorted(m)])]
+            runs[dev] = (ts, out, parts)
+        (gts, gout, parts), (cts, cout, _) = runs["cuda"], runs["cpu"]
+        err = max(_assert_close(f"{kind} output {i}", g, c) for i, (g, c) in enumerate(zip(gout, cout)))
+        for p in (*parts, "target"):
+            for name, v in getattr(gts, p).state_dict().items():
+                err = max(err, _assert_close(f"{kind} {p}.{name}", v, getattr(cts, p).state_dict()[name]))
+        log(f"reference {kind}: one update on the card equals the CPU's within rtol 1e-4 / atol 1e-5 (largest "
+            f"difference {err:.3e}" + (", the tree after the write-back included)" if kind == "dqn-per" else ")"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1192,6 +1416,7 @@ def main() -> int:
         phase_reference(path)
     phase_reference_continuous()
     phase_reference_onpolicy()
+    phase_reference_distributional()
     results, launches = {}, 0
     for path in PATHS:
         results[path] = (phase_host if path in HOST_PATHS else phase_superstep)(path, gather_rows_cast)

@@ -10,7 +10,8 @@ NatureCNN in float32 (so that argmax ties and bf16 rounding cannot differ),
 (b) OffPolicyTrainer.run() completes with the right counters.
 (c) Without CUDA, every entry point's default device raises.
 (d) The port imports nothing of JAX or of tianshou_tpu, the modules of
-    each slice checked by name.
+    each slice checked by name (slice 5: segtree, PER and the
+    distributional family).
 (e) The same comparison as (a) on the paths of slice 2: a greedy CartPole
     segment (QNet, float32; storage within atol 1e-6), a MinAtar Breakout
     segment (sticky actions off) and a deduplicated stacked pixel segment
@@ -175,6 +176,12 @@ def test_trainer_stops_on_stop_fn(test_in_train):
 
 
 def _entry_points():
+    from tianshou_tpu_torch.algos.c51 import C51
+    from tianshou_tpu_torch.algos.qrdqn import QRDQN
+    from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
+    from tianshou_tpu_torch.networks.conv import ConvQRDQNNet
+    from tianshou_tpu_torch.networks.discrete import C51Net
+
     env = SyntheticPixelEnv(H, W, C, num_actions=A)
     algo = DQN(ConvQNet((H, W, C), A), env.action_space, device="cpu")
     venv = VectorEnv(env, N_ENVS, device="cpu")
@@ -188,10 +195,14 @@ def _entry_points():
         "Collector": lambda: Collector(algo, venv),
         "OffPolicyTrainer": lambda: OffPolicyTrainer(
             algo, col, col, ReplayBuffer(CAP, N_ENVS), max_epoch=1, step_per_epoch=1, step_per_collect=1),
+        "PrioritizedReplayBuffer.init": lambda: PrioritizedReplayBuffer(CAP, N_ENVS).init(example),
+        "C51": lambda: C51(C51Net((H, W, C), (8,), A, num_atoms=5, noisy=True), env.action_space),
+        "QRDQN": lambda: QRDQN(ConvQRDQNNet((H, W, C), A, 8, "nature"), env.action_space),
     }
 
 
-@pytest.mark.parametrize("entry", ["VectorEnv", "ReplayBuffer.init", "DQN", "Collector", "OffPolicyTrainer"])
+@pytest.mark.parametrize("entry", ["VectorEnv", "ReplayBuffer.init", "DQN", "Collector", "OffPolicyTrainer",
+                                   "PrioritizedReplayBuffer.init", "C51", "QRDQN"])
 def test_default_device_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -212,7 +223,7 @@ def test_port_imports_no_jax():
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 39
+    assert int(res.stdout.strip()) >= 49
 
 
 SLICE2_MODULES = ["envs.classic", "envs.wrappers", "envs.minatar", "networks.common"]
@@ -220,12 +231,13 @@ SLICE3_MODULES = ["ops.dist", "networks.continuous", "networks.convert", "algos.
                   "trainer.offpolicy", "utils.statistics", "envs.host", "utils.transfer", "collect.host_collector"]
 SLICE4_MODULES = ["ops.returns", "utils.statistics", "envs.norm", "networks.continuous", "algos.pg", "algos.a2c",
                   "algos.ppo", "algos.npg", "collect.collector", "collect.host_collector", "trainer.onpolicy"]
+SLICE5_MODULES = ["ops.segtree", "data.prio", "networks.discrete", "algos.c51", "algos.qrdqn"]
 
 
 def test_port_imports_slice2_modules_without_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES!r}:\n"
+        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES!r}:\n"
         "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tianshou_tpu'))\n"

@@ -29,7 +29,7 @@ from tianshou_tpu_torch.data.tree import tree_leaves
 from tianshou_tpu_torch.envs.spaces import Box, Space
 from tianshou_tpu_torch.utils.device import resolve_device
 
-__all__ = ["TrainState", "Algorithm", "RandomPolicy", "polyak_update", "uniform_legal_action"]
+__all__ = ["TrainState", "Algorithm", "RandomPolicy", "polyak_update", "uniform_legal_action", "write_back"]
 
 
 @torch.no_grad()
@@ -45,6 +45,21 @@ def uniform_legal_action(mask: torch.Tensor, generator: torch.Generator) -> torc
     Gumbel noise, which is uniform for the same reason)."""
     u = torch.rand(mask.shape, generator=generator, device=mask.device)
     return torch.where(mask, u, -1.0).argmax(dim=-1)
+
+
+def write_back(
+    buffer: ReplayBuffer | None,
+    bstate: ReplayBufferState,
+    env_idx: torch.Tensor,
+    pos: torch.Tensor,
+    td_abs: torch.Tensor,
+) -> ReplayBufferState:
+    """An update's per-sample priorities written back to ``buffer`` (a
+    no-op for uniform replay).  ``buffer`` is ``None`` for an update run
+    on a batch that comes from no buffer."""
+    if buffer is None:
+        return bstate
+    return buffer.update_priorities(bstate, env_idx, pos, td_abs.detach())
 
 
 @dataclasses.dataclass
@@ -169,6 +184,24 @@ class Algorithm:
         smoothing) draws from ``generator``, the counterpart of the key the
         JAX package splits off for each update."""
         raise NotImplementedError
+
+    def update(
+        self,
+        ts: TrainState,
+        buffer: ReplayBuffer,
+        bstate: ReplayBufferState,
+        generator: torch.Generator,
+        batch_size: int,
+    ) -> tuple[TrainState, ReplayBufferState, dict[str, torch.Tensor]]:
+        """One gradient step that samples its own batch: :meth:`presample`
+        of ``batch_size`` transitions, then :meth:`update_sampled`, both
+        drawing from ``generator``.  The trainer calls this once per update
+        when sampling depends on the updates before it (prioritized
+        replay) or when a subclass overrides it."""
+        if not self.supports_presampled:
+            raise NotImplementedError(f"{type(self).__name__} has no presample + update_sampled update")
+        sampled = self.presample(buffer, bstate, generator, batch_size)
+        return self.update_sampled(ts, buffer, bstate, sampled, generator)
 
     # -- on-policy learning ----------------------------------------------
     def process_rollout(self, ts, traj: Batch) -> Batch:

@@ -19,8 +19,8 @@ the host, so the schedule needs no device read.  Exploration adds
 Noise comes from the ``generator`` the trainer passes to each update, or,
 for the parity tests, is injected through ``noise`` (the JAX package's own
 draws).  ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`` is the
-counterpart of ``optax.adam(lr)``.  Prioritised replay is not ported, so
-the TD errors are not written back.
+counterpart of ``optax.adam(lr)``.  The update writes the ``|td|`` averaged
+over the critics back to a prioritized buffer.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from tianshou_tpu_torch.algos.base import Algorithm, polyak_update
+from tianshou_tpu_torch.algos.base import Algorithm, polyak_update, write_back
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.envs.spaces import Box
 from tianshou_tpu_torch.ops.dist import standard_normal
@@ -179,6 +179,7 @@ class DDPG(Algorithm):
             target = nstep_return(rew_chain, done_chain, q_term, self.gamma)
         td = ts.critic(batch["obs"], batch["act"]) - target[None, :]
         critic_loss = (weight[None, :] * td.pow(2)).mean()
+        bstate = write_back(buffer, bstate, env_idx, pos, td.detach().abs().mean(dim=0))
         apply_loss(ts.critic_optimizer, critic_loss)
         ts.step += 1
         actor_loss = self._maybe_update_actor(ts, batch)

@@ -7,6 +7,7 @@ an Adam step, and the periodic target copy when
 ``step % target_update_freq == 0`` (steps counted from 1).
 ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`` is the counterpart of
 ``optax.adam(lr)``, and ``F.huber_loss(delta=1)`` of ``optax.huber_loss``.
+The update writes ``|td|`` back to a prioritized buffer.
 
 Observations may be dicts ``{"obs": ..., "mask": [B, A]}``: the network
 reads ``obs``, illegal actions get Q = -1e9, and exploration draws
@@ -21,13 +22,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tianshou_tpu_torch.algos.base import Algorithm, TrainState, uniform_legal_action
+from tianshou_tpu_torch.algos.base import Algorithm, TrainState, uniform_legal_action, write_back
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.envs.spaces import Discrete
 from tianshou_tpu_torch.ops.returns import nstep_return
 from tianshou_tpu_torch.utils.device import resolve_device
 
-__all__ = ["DQN"]
+__all__ = ["DQN", "take_action"]
+
+
+def take_action(values: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+    """``values [B, A, ...]`` at each row's action: ``[B, ...]``."""
+    return values[torch.arange(values.shape[0], device=values.device), act.to(torch.int64)]
 
 
 class DQN(Algorithm):
@@ -92,7 +98,12 @@ class DQN(Algorithm):
         greedy = q.argmax(dim=-1)
         if not explore:
             return greedy
-        mask = self._action_mask(obs)
+        return self._epsilon_greedy(greedy, generator, explore_param, self._action_mask(obs))
+
+    def _epsilon_greedy(self, greedy, generator, explore_param, mask=None) -> torch.Tensor:
+        """``greedy`` with each action replaced, with probability
+        ``explore_param``, by a uniform one (over the legal actions under
+        ``mask``)."""
         if mask is None:
             rand = torch.randint(
                 0, self.action_space.n, greedy.shape, generator=generator, device=greedy.device
@@ -136,10 +147,17 @@ class DQN(Algorithm):
             loss = (weight * F.huber_loss(q, target, reduction="none", delta=1.0)).mean()
         else:
             loss = (weight * td.pow(2)).mean()
+        td_abs = td.detach().abs()
+        bstate = write_back(buffer, bstate, env_idx, pos, td_abs)
+        self._finish_update(ts, loss)
+        return ts, bstate, {"loss": loss.detach(), "td_abs_mean": td_abs.mean()}
+
+    def _finish_update(self, ts: TrainState, loss: torch.Tensor) -> None:
+        """The Adam step on ``loss``, ``step += 1``, and the target copy
+        when ``step % target_update_freq == 0``."""
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         ts.optimizer.step()
         ts.step += 1
         if self.target_update_freq > 0 and ts.step % self.target_update_freq == 0:
             ts.target.load_state_dict(ts.online.state_dict())
-        return ts, bstate, {"loss": loss.detach(), "td_abs_mean": td.detach().abs().mean()}

@@ -5,7 +5,8 @@ One :meth:`SAC.update_sampled` keeps the JAX package's order:
 
 1. the target from the *current* actor's sampled next action and the
    minimum of the target critics, minus ``alpha * logp``;
-2. the critic's Adam step;
+2. the critic's Adam step (the ``|td|`` averaged over the critics is
+   written back to a prioritized buffer);
 3. the actor loss ``alpha * logp - min_k Q_k`` against the *updated* critic,
    with the alpha from before this update;
 4. with ``auto_alpha``, the loss ``-log_alpha * (logp + target_entropy)`` on
@@ -28,7 +29,7 @@ import math
 import torch
 from torch import nn
 
-from tianshou_tpu_torch.algos.base import Algorithm, polyak_update
+from tianshou_tpu_torch.algos.base import Algorithm, polyak_update, write_back
 from tianshou_tpu_torch.algos.ddpg import ACTrainState, adam, apply_loss, fresh_copy, frozen_copy
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.envs.spaces import Box
@@ -135,6 +136,7 @@ class SAC(Algorithm):
             target = nstep_return(rew_chain, done_chain, (q_next - alpha * logp_next) * mask, self.gamma)
         td = ts.critic(batch["obs"], batch["act"]) - target[None, :]
         critic_loss = (weight[None, :] * td.pow(2)).mean()
+        bstate = write_back(buffer, bstate, env_idx, pos, td.detach().abs().mean(dim=0))
         apply_loss(ts.critic_optimizer, critic_loss)
 
         obs = batch["obs"]

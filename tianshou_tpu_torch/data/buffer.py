@@ -133,8 +133,9 @@ class ReplayBuffer:
         transition = self._to_storage_layout(transition, batched=True)
         env_ids = torch.arange(self.num_envs, device=state.cursor.device)
         _write(state.storage, transition, env_ids, state.cursor, None)
-        return ReplayBufferState(
-            storage=state.storage,
+        # ``replace`` keeps a subclass state's own fields (the PER tree)
+        return dataclasses.replace(
+            state,
             cursor=torch.remainder(state.cursor + 1, self.capacity),
             size=torch.clamp(state.size + 1, max=self.capacity),
         )
@@ -156,8 +157,8 @@ class ReplayBuffer:
         env_ids = torch.arange(self.num_envs, device=state.cursor.device)
         _write(state.storage, transition, env_ids, state.cursor, mask)
         inc = mask.to(torch.int64)
-        return ReplayBufferState(
-            storage=state.storage,
+        return dataclasses.replace(
+            state,
             cursor=torch.remainder(state.cursor + inc, self.capacity),
             size=torch.clamp(state.size + inc, max=self.capacity),
         )
@@ -255,6 +256,17 @@ class ReplayBuffer:
         """Uniform sampling: importance weights are all ones."""
         env_idx, pos = self.sample_indices(state, generator, batch_size)
         return env_idx, pos, torch.ones((batch_size,), device=pos.device)
+
+    def update_priorities(
+        self,
+        state: ReplayBufferState,
+        env_idx: torch.Tensor,
+        pos: torch.Tensor,
+        td_abs: torch.Tensor,
+    ) -> ReplayBufferState:
+        """No-op for uniform replay; :class:`PrioritizedReplayBuffer`
+        writes the priorities into its sum tree."""
+        return state
 
     def get(
         self,

@@ -14,8 +14,8 @@ the JAX package.  Initialisation follows Flax's defaults: lecun-normal
 kernels (truncated normal, variance ``1 / fan_in``) and zero biases.
 
 ``MinAtarCNN``'s 3x3 convolution keeps Flax's default ``"SAME"`` padding
-(one cell on each side, so a 10x10 grid stays 10x10).  The quantile head
-(``ConvQRDQNNet``) comes with QRDQN.
+(one cell on each side, so a 10x10 grid stays 10x10).  ``ConvQRDQNNet`` is
+the QRDQN head over either encoder.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["MinAtarCNN", "NatureCNN", "ConvQNet", "ConvValueNet", "ConvDuelingQNet"]
+__all__ = ["MinAtarCNN", "NatureCNN", "ConvQNet", "ConvValueNet", "ConvDuelingQNet", "ConvQRDQNNet"]
 
 # stddev of a standard normal truncated to [-2, 2] (Flax's variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -221,3 +221,18 @@ class ConvDuelingQNet(_ConvHeads):
         feat = self.encoder(obs)
         v, a = self.v(feat), self.a(feat)
         return v + a - a.mean(dim=-1, keepdim=True)
+
+
+class ConvQRDQNNet(_ConvHeads):
+    """Pixel obs -> per-action quantile values ``[B, A, num_quantiles]``:
+    an encoder and one linear head (the Atari QRDQN net)."""
+
+    heads = ("head",)
+
+    def __init__(self, obs_shape, num_actions: int, num_quantiles: int = 200, encoder: str = "minatar",
+                 encoder_kwargs: dict | None = None):
+        self.num_actions, self.num_quantiles = num_actions, num_quantiles
+        super().__init__(obs_shape, (num_actions * num_quantiles,), encoder, encoder_kwargs)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.head(self.encoder(obs)).reshape(obs.shape[0], self.num_actions, self.num_quantiles)

@@ -25,6 +25,16 @@ the default above does not fit: ``GaussianActor`` passes
 ``heads=("mu", "sigma")``; its state-independent ``log_sigma`` parameter
 keeps its name.
 
+The distributional nets: ``QRDQNNet`` and a plain ``C51Net`` are an
+``MLP_0`` alone; ``ImplicitQuantileNetwork`` is ``MLP_0`` and three top-level
+``Dense`` layers, ``heads=("phi", "head1", "head2")``;
+``FullQuantileFunction`` names its modules ``trunk`` (-> ``mlp``), ``phi``,
+``head1`` and ``head2``; ``FractionProposalNetwork`` is one ``Dense_0``,
+``heads=("head",)``; ``ConvQRDQNNet`` is an encoder and one head.  A noisy
+``C51Net`` keeps its dense layers as ``trunk.i`` and its ``NoisyMLP_0`` /
+``NoisyMLP_1`` as ``a`` / ``v``, whose ``NoisyLinear`` kernels ``w_mu`` and
+``w_sigma`` are transposed like any dense kernel.
+
 ``CriticEnsemble``'s Flax tree is ``nn.vmap``'s: ``VmapCritic_0`` ->
 ``MLP_0`` -> ``Dense_i`` with a leading K axis on every leaf.  The port
 keeps the same ``[K, in, out]`` kernels (``weights.i``, no transpose, the
@@ -95,6 +105,33 @@ def _ensemble(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def _noisy(tree: Mapping, prefix: str, out: dict) -> None:
+    """A ``NoisyMLP``'s ``NoisyLinear_i`` layers.  Flax stores ``w_mu`` and
+    ``b_mu`` as draws from ``[0, 2 / sqrt(in))`` and shifts them by
+    ``-1 / sqrt(in)`` in every forward; the port stores the shifted
+    means."""
+    for i, name in enumerate(_numbered(tree, "NoisyLinear")):
+        layer, p = tree[name], f"{prefix}.layers.{i}"
+        w_mu = np.asarray(layer["w_mu"], np.float32)
+        bound = np.float32(1.0 / np.sqrt(w_mu.shape[0]))
+        out[f"{p}.w_mu"] = _tensor((w_mu - bound).T)
+        out[f"{p}.b_mu"] = _tensor(np.asarray(layer["b_mu"], np.float32) - bound)
+        out[f"{p}.w_sigma"] = _tensor(np.asarray(layer["w_sigma"], np.float32).T)
+        out[f"{p}.b_sigma"] = _tensor(layer["b_sigma"])
+
+
+def _noisy_c51(tree: Mapping) -> dict[str, torch.Tensor]:
+    """``C51Net(noisy=True)``: dense ``Dense_i`` -> ``trunk.i``, then the
+    advantage head ``NoisyMLP_0`` -> ``a`` and the value head
+    ``NoisyMLP_1`` -> ``v``."""
+    out: dict[str, torch.Tensor] = {}
+    for i, name in enumerate(_numbered(tree, "Dense")):
+        _layer(f"trunk.{i}", tree[name], out)
+    for port_name, name in zip(("a", "v"), _numbered(tree, "NoisyMLP")):
+        _noisy(tree[name], port_name, out)
+    return out
+
+
 def params_from_flax(flax_params: Mapping, heads: tuple[str, ...] | None = None) -> dict[str, torch.Tensor]:
     """State dict of the port's counterpart of a Flax network, from its
     parameter tree, e.g. for ``ConvQNet(encoder="nature")``
@@ -105,10 +142,23 @@ def params_from_flax(flax_params: Mapping, heads: tuple[str, ...] | None = None)
     tree = flax_params.get("params", flax_params)
     if any(k.startswith("Vmap") for k in tree):
         return _ensemble(tree)
+    if any(k.startswith("NoisyMLP") for k in tree):
+        return _noisy_c51(tree)
     out: dict[str, torch.Tensor] = {}
+    if "trunk" in tree:
+        # FullQuantileFunction names its modules in ``setup``
+        _mlp(tree["trunk"], "mlp", out)
+        for name in ("phi", "head1", "head2"):
+            _layer(name, tree[name], out)
+        return out
     if "log_sigma" in tree:
         out["log_sigma"] = _tensor(tree["log_sigma"])
     body = [k for k in (*_ENCODERS, "MLP_0") if k in tree]
+    if not body and heads is not None:
+        # top-level Dense layers alone (FractionProposalNetwork)
+        for name, flax_name in zip(heads, _numbered(tree, "Dense"), strict=True):
+            _layer(name, tree[flax_name], out)
+        return out
     if not body:
         # a bare encoder or a bare MLP
         (_encoder if "Conv_0" in tree else _mlp)(tree, "", out)

@@ -4,8 +4,10 @@
 A superstep is a rollout segment into the ring buffer, then ONE presample of
 ``k * batch`` indices, transitions and n-step chains, then k updates on
 slices of it (exact for uniform replay, whose sampling does not depend on
-the updates in between).  The superstep runs eagerly and keeps its metrics
-on the device; :meth:`OffPolicyTrainer.run` reads them once per superstep.
+the updates in between); with prioritized replay, or an algorithm that
+overrides ``update``, each of the k updates samples its own batch.  The
+superstep runs eagerly and keeps its metrics on the device;
+:meth:`OffPolicyTrainer.run` reads them once per superstep.
 Epochs, test episodes and early stopping stay on the host, as in the JAX
 package.
 
@@ -16,8 +18,8 @@ ONE packed host-to-device copy of the segment, ``add_trajectory`` and the k
 updates.  ``pipeline_host_updates`` (default off) acts with the actor from
 before the updates in flight, on a side CUDA stream, from a snapshot of it.
 
-Not ported yet: the fused fine cycle of the host path, PER and the
-per-update sampling branch, loggers, checkpoint hooks and device tracing.
+Not ported yet: the fused fine cycle of the host path, loggers, checkpoint
+hooks and device tracing.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from tianshou_tpu_torch.algos.base import Algorithm, TrainState
 from tianshou_tpu_torch.collect.collector import Collector, rollout_segment
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
+from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
 from tianshou_tpu_torch.data.stats import InfoStats
 from tianshou_tpu_torch.data.tree import tree_map
 from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext
@@ -42,23 +45,37 @@ __all__ = ["HostStep", "OffPolicyTrainer", "build_update_scan"]
 
 
 def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_updates: int):
-    """Build ``(ts, bstate, generator) -> (ts, bstate, mean_metrics)``: one
-    presample of ``n_updates * batch_size`` transitions, then ``n_updates``
-    updates on consecutive ``batch_size`` slices of it.  Each update draws
-    its own noise from ``generator`` (the JAX package splits a key per
-    update)."""
-    if not algo.supports_presampled:
-        raise NotImplementedError(
-            f"{type(algo).__name__} has no presampled update; per-update sampling is not ported yet"
-        )
+    """Build ``(ts, bstate, generator) -> (ts, bstate, mean_metrics)``: the
+    ``n_updates`` updates of a superstep, each drawing its own noise from
+    ``generator`` (the JAX package splits a key per update).
+
+    When the algorithm factors its update into ``presample`` +
+    ``update_sampled``, does not override ``update``, and sampling does not
+    depend on the updates in between (uniform replay), ONE presample of
+    ``n_updates * batch_size`` transitions feeds the updates on consecutive
+    ``batch_size`` slices of it.  Otherwise (a
+    :class:`PrioritizedReplayBuffer`, whose priorities change with every
+    update, or an overridden ``update``) each update samples its own batch
+    through ``algo.update``."""
+    presampled = (
+        algo.supports_presampled
+        # a subclass that overrides update() while inheriting
+        # supports_presampled must not be bypassed for its update_sampled
+        and type(algo).update is Algorithm.update
+        and not isinstance(buffer, PrioritizedReplayBuffer)
+    )
 
     def updates(ts: TrainState, bstate: ReplayBufferState, generator: torch.Generator):
-        sampled = algo.presample(buffer, bstate, generator, n_updates * batch_size)
-        views = tree_map(lambda x: x.reshape((n_updates, batch_size) + x.shape[1:]), sampled)
+        if presampled:
+            sampled = algo.presample(buffer, bstate, generator, n_updates * batch_size)
+            views = tree_map(lambda x: x.reshape((n_updates, batch_size) + x.shape[1:]), sampled)
         history: dict[str, list[torch.Tensor]] = {}
         for i in range(n_updates):
-            ts, bstate, metrics = algo.update_sampled(
-                ts, buffer, bstate, tree_map(lambda x: x[i], views), generator)
+            if presampled:
+                ts, bstate, metrics = algo.update_sampled(
+                    ts, buffer, bstate, tree_map(lambda x: x[i], views), generator)
+            else:
+                ts, bstate, metrics = algo.update(ts, buffer, bstate, generator, batch_size)
             for k, v in metrics.items():
                 history.setdefault(k, []).append(v)
         return ts, bstate, {k: torch.stack(v).mean() for k, v in history.items()}

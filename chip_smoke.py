@@ -38,7 +38,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the same draws), PER weights in both modes, and one update each of DQN
    on a PER buffer (the tree after the write-back included), C51, Rainbow
    (the same noise), QRDQN, IQN (the same fractions) and FQF (both of its
-   parameter sets);
+   parameter sets).  Then the rest of the off-policy families, in float32
+   with TF32 off, within rtol 1e-4 / atol 1e-5 of the CPU: one update each
+   of REDQ (the critic subset and the normals injected), DiscreteSAC, BDQ
+   and DRQN (the same sampled slots of the same ring), and a greedy DRQN
+   CartPole segment, one step at a time, whose carries cross episode ends
+   (the same actions, the carries reset to zeros at each end);
 5. paths, each at full width: 2 warm-up and 5 timed supersteps, one more
    superstep in which a host synchronisation raises, one under the profiler
    (device kernels and busy time), where the time of a superstep goes,
@@ -100,7 +105,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    - ``qrdqn_minatar``: ``examples/dqn_minatar.py --algo qrdqn`` at its
      defaults: MinAtar Breakout, ``ConvQRDQNNet`` (200 quantiles, the MinAtar
      CNN in bf16), 32 envs x 4 steps, 32 presampled updates of batch 64, a
-     3125-slot ring per env, 5000 warm-up steps.
+     3125-slot ring per env, 5000 warm-up steps;
+   - ``redq_pendulum``: REDQ on the on-device Pendulum at the JAX package's
+     REDQ widths (``highlevel/experiment.py``): GaussianActor and a
+     10-critic ensemble (256, 256), a target subset of 2, the actor and
+     alpha stepped every 20th update, automatic alpha; 10 envs x 10 steps,
+     25 presampled updates of batch 256, 1000 warm-up steps;
+   - ``discrete_sac_cartpole``: DiscreteSAC on the on-device CartPole at its
+     ``highlevel`` defaults: QNet actor and a 2-critic QNetEnsemble
+     (128, 128), alpha 0.05 tuned automatically; 10 envs x 10 steps, 10
+     presampled updates of batch 64;
+   - ``bdq_pendulum``: BDQ on ``ContinuousToDiscrete(Pendulum, 11,
+     force_multidiscrete=True)``, ``BranchingQNet((128, 128), 1 branch, 11
+     actions)``; 10 envs x 10 steps, 10 presampled updates of batch 128;
+   - ``drqn_cartpole``: DRQN on the on-device CartPole, ``RecurrentQNet``
+     (hidden 128) with its LSTM carries threaded through the collector,
+     histories of 4 rebuilt for each update; 10 envs x 10 steps, 10 updates
+     of batch 64, each sampling its own batch (the per-update branch).
 
 It then prints a ``paths`` JSON line, the ``kernels`` JSON line and, last,
 the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
@@ -146,19 +167,31 @@ PATHS = {
                         update_per_step=0.1),
     "qrdqn_minatar": dict(num_envs=32, segment=4, batch=64, updates=32, capacity=100_000 // 32, warmup=5000,
                           update_per_step=0.25),
+    # the rest of the off-policy families
+    "redq_pendulum": dict(num_envs=10, segment=10, batch=256, updates=25, capacity=2000, warmup=1000,
+                          update_per_step=0.25),
+    "discrete_sac_cartpole": dict(num_envs=10, segment=10, batch=64, updates=10, capacity=2000, warmup=1000,
+                                  update_per_step=0.1),
+    "bdq_pendulum": dict(num_envs=10, segment=10, batch=128, updates=10, capacity=2000, warmup=1000,
+                         update_per_step=0.1),
+    "drqn_cartpole": dict(num_envs=10, segment=10, batch=64, updates=10, capacity=2000, warmup=1000,
+                          update_per_step=0.1),
 }
-DQN_PATHS = ("atari", "atari_dedup", "cartpole", "minatar", "rainbow_per", "qrdqn_minatar")
+DQN_PATHS = ("atari", "atari_dedup", "cartpole", "minatar", "rainbow_per", "qrdqn_minatar", "bdq_pendulum",
+             "drqn_cartpole")
 PER_PATHS = ("rainbow_per",)
 HOST_PATHS = ("sac_host", "ppo_host")
 ONPOLICY_PATHS = ("ppo_cartpole", "trpo_pendulum", "ppo_host")
 # the metrics each family's superstep (segment) and run() must report, finite
 FAMILY_METRICS = {"dqn": ("loss",), "continuous": ("critic_loss", "actor_loss"),
-                  "ppo": ("loss", "policy_loss", "value_loss"), "trpo": ("value_loss", "accepted", "kl")}
+                  "ppo": ("loss", "policy_loss", "value_loss"), "trpo": ("value_loss", "accepted", "kl"),
+                  "redq": ("critic_loss", "alpha")}
 # launches of gather_rows_cast a superstep: obs and obs_next of the presample;
 # the on-policy paths use no replay buffer
 KERNEL_LAUNCHES = {"atari": 2, "atari_dedup": 2, "cartpole": 0, "minatar": 0, "sac_pendulum": 0,
                    "td3_pendulum": 0, "sac_host": 0, "ppo_cartpole": 0, "trpo_pendulum": 0, "ppo_host": 0,
-                   "rainbow_per": 0, "qrdqn_minatar": 0}
+                   "rainbow_per": 0, "qrdqn_minatar": 0, "redq_pendulum": 0, "discrete_sac_cartpole": 0,
+                   "bdq_pendulum": 0, "drqn_cartpole": 0}
 # the MuJoCo PPO example's learning-rate decay runs to zero over every
 # minibatch update of its default run: 100 epochs x 5 segments x 10 passes x
 # 32 minibatches (examples/mujoco_ppo.py)
@@ -177,7 +210,9 @@ TRPO_FLOAT32_STEP_LIMIT = 5e-3
 def family(path: str) -> str:
     if path in DQN_PATHS:
         return "dqn"
-    return path.split("_")[0] if path in ONPOLICY_PATHS else "continuous"
+    if path in ONPOLICY_PATHS or path == "redq_pendulum":
+        return path.split("_")[0]
+    return "continuous"
 
 
 def log(msg: str) -> None:
@@ -432,6 +467,48 @@ def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, **
         env = HalfCheetahStandIn()
         algo = continuous_algo("sac", env.OBS_DIM, env.ACT_DIM, env.action_space, (256, 256), device,
                                auto_alpha=False)
+    elif path == "redq_pendulum":
+        # highlevel/experiment.py:860-883; the rest tests/test_utils_misc.py:127-160
+        from tianshou_tpu_torch.algos.redq import REDQ
+        from tianshou_tpu_torch.envs.classic import Pendulum
+        from tianshou_tpu_torch.networks.continuous import CriticEnsemble, GaussianActor
+
+        env, hidden = Pendulum(), cfg.get("hidden", (256, 256))
+        algo = REDQ(GaussianActor(3, hidden, 1, conditioned_sigma=True), CriticEnsemble(3, 1, hidden, num_critics=10),
+                    env.action_space, ensemble_size=10, subset_size=2, actor_delay=20, auto_alpha=True, device=device)
+        test_envs = 10
+    elif path == "discrete_sac_cartpole":
+        # highlevel/experiment.py:653-682
+        from tianshou_tpu_torch.algos.sac import DiscreteSAC
+        from tianshou_tpu_torch.envs.classic import CartPole
+        from tianshou_tpu_torch.networks.common import QNet, QNetEnsemble
+
+        env, hidden = CartPole(), cfg.get("hidden", (128, 128))
+        algo = DiscreteSAC(QNet(4, hidden, 2), QNetEnsemble(4, hidden, 2, num_critics=2), env.action_space,
+                           actor_lr=1e-3, critic_lr=1e-3, alpha=0.05, auto_alpha=True, alpha_lr=3e-4, gamma=0.99,
+                           tau=0.005, n_step=1, device=device)
+        test_envs = 10
+    elif path == "bdq_pendulum":
+        # tests/test_distributional_e2e.py:168-192
+        from tianshou_tpu_torch.algos.bdq import BDQ
+        from tianshou_tpu_torch.envs.classic import Pendulum
+        from tianshou_tpu_torch.envs.wrappers import ContinuousToDiscrete
+        from tianshou_tpu_torch.networks.common import BranchingQNet
+
+        env = ContinuousToDiscrete(Pendulum(), action_per_dim=11, force_multidiscrete=True)
+        algo = BDQ(BranchingQNet(3, (128, 128), num_branches=1, actions_per_branch=11), env.action_space,
+                   gamma=0.99, target_update_freq=320, device=device)
+        test_envs = 10
+    elif path == "drqn_cartpole":
+        # tests/test_distributional_e2e.py:195-207 with its _train
+        from tianshou_tpu_torch.algos.drqn import DRQN
+        from tianshou_tpu_torch.envs.classic import CartPole
+        from tianshou_tpu_torch.networks.common import RecurrentQNet
+
+        env = CartPole()
+        algo = DRQN(RecurrentQNet(4, cfg.get("hidden", 128), 2), env.action_space, stack_num=4, gamma=0.95,
+                    target_update_freq=320, device=device)
+        test_envs = 10
     else:
         raise ValueError(f"unknown path {path!r}; have {sorted(PATHS)}")
     if path not in PER_PATHS:
@@ -736,7 +813,7 @@ def phase_superstep(path: str, gather) -> dict:
     # the superstep keeps everything on the device: an operation in it that
     # PyTorch knows to synchronise the host with the card raises
     sync_guarded(step)
-    check_policy(path, algo, state[0], state[1].obs, gen, env)
+    check_policy(path, algo, state[0], state[1].obs, gen, env, state[1].policy_state)
     peak = torch.cuda.max_memory_allocated() / 2**30
     kernels, busy_ms = _profile_counts(step)
     result = {"env_steps_per_s": n * steps / dt, "ms_per_superstep": dt / n * 1e3, **metrics,
@@ -777,7 +854,16 @@ def phase_superstep(path: str, gather) -> dict:
         def updates():
             state[0], state[2], _ = updates_fn(state[0], state[2], gen)
 
-        if path in PER_PATHS:
+        if path == "drqn_cartpole":
+            # each update samples its own batch and rebuilds its histories
+            def history_sample():
+                env_idx, pos = buffer.sample_indices(state[2], gen, cfg["batch"])
+                buffer.stacked_obs(state[2], env_idx, pos, algo.stack_num)
+                buffer.stacked_obs(state[2], env_idx, pos, algo.stack_num, obs_key="obs_next")
+
+            parts = {"rollout": rollout, "history sample (one update)": history_sample,
+                     "updates incl. sampling": updates}
+        elif path in PER_PATHS:
             # each update samples its own batch: the sum-tree descent and
             # weights alone, with the gathers, the write-back of one update
             # and the PER add of one rollout step, each on its own
@@ -808,20 +894,28 @@ def phase_superstep(path: str, gather) -> dict:
     return result
 
 
-def check_policy(path: str, algo, ts, obs, gen, env) -> None:
+def check_policy(path: str, algo, ts, obs, gen, env, policy_state=()) -> None:
     """The trained policy's outputs on the last observations: finite
-    Q-values of the right shape (DQN); finite greedy actions of the action
-    space's shape, in [-1, 1] for the off-policy continuous actors and legal
-    for a discrete space."""
+    Q-values of the right shape (the DQN family over ``Discrete`` actions);
+    else finite greedy actions of the action space's shape, in [-1, 1] for
+    the off-policy continuous actors and legal for a discrete space, acting
+    from ``policy_state`` (a recurrent policy's carries, which must come out
+    finite)."""
     space = env.action_space
+    q_values = path in DQN_PATHS and path not in ("bdq_pendulum", "drqn_cartpole")
     with torch.no_grad():
-        out = algo.q_values(ts.online, obs) if path in DQN_PATHS else algo.act(ts, obs, gen, explore=False)
-    shape = (obs.shape[0],) + ((space.n,) if path in DQN_PATHS else tuple(getattr(space, "shape", ()) or ()))
+        if q_values:
+            out, state = algo.q_values(ts.online, obs), ()
+        else:
+            out, _, state = algo.act_with_state(ts, obs, policy_state, gen, explore=False)
+    shape = (obs.shape[0],) + ((space.n,) if q_values else tuple(space.shape))
     if tuple(out.shape) != shape or not bool(torch.isfinite(out.float()).all()):
         raise AssertionError(f"{path}: bad policy output: {tuple(out.shape)}, expected {shape}")
-    if family(path) == "continuous" and float(out.abs().max()) > 1.0:
+    if not all(bool(torch.isfinite(x).all()) for x in state):
+        raise AssertionError(f"{path}: non-finite policy state")
+    if family(path) in ("continuous", "redq") and out.is_floating_point() and float(out.abs().max()) > 1.0:
         raise AssertionError(f"{path}: actions outside [-1, 1]")
-    if not out.is_floating_point() and not bool(((out >= 0) & (out < space.n)).all()):
+    if not out.is_floating_point() and not space.contains(out):
         raise AssertionError(f"{path}: illegal discrete actions")
 
 
@@ -1401,6 +1495,153 @@ def phase_reference_distributional() -> None:
             f"difference {err:.3e}" + (", the tree after the write-back included)" if kind == "dqn-per" else ")"))
 
 
+def fixed_reset_cartpole(start=(0.03, -0.02, 0.04, 0.01)):
+    """A CartPole whose resets put every env in ``start`` (the card's and
+    the CPU's reset draws differ), so that a segment on each crosses its
+    episode ends alike."""
+    from tianshou_tpu_torch.envs.classic import CartPole, CartPoleState
+
+    class FixedResetCartPole(CartPole):
+        def reset(self, generator, num_envs, device):
+            v = torch.tensor(start, device=device).repeat(num_envs, 1)
+            s = CartPoleState(*v.unbind(1), torch.zeros(num_envs, dtype=torch.int32, device=device))
+            return s, self._obs(s)
+
+    return FixedResetCartPole()
+
+
+def phase_reference_offpolicy_rest() -> None:
+    """The rest of the off-policy families on the card against the CPU
+    (float32, TF32 off, rtol 1e-4 / atol 1e-5), from the same parameters
+    and inputs: one update each of REDQ (subset and normals injected),
+    DiscreteSAC, BDQ and DRQN (the same slots of the same ring); a greedy
+    DRQN CartPole segment, one step at a time, whose carries cross episode
+    ends: the same actions at every step, the carries within the
+    tolerance, and each ended env's carry reset to zeros."""
+    from tianshou_tpu_torch.algos.bdq import BDQ
+    from tianshou_tpu_torch.algos.drqn import DRQN
+    from tianshou_tpu_torch.algos.redq import REDQ
+    from tianshou_tpu_torch.algos.sac import DiscreteSAC
+    from tianshou_tpu_torch.collect.collector import Collector, rollout_segment
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer import ReplayBuffer
+    from tianshou_tpu_torch.envs.base import VectorEnv
+    from tianshou_tpu_torch.envs.classic import CartPoleState
+    from tianshou_tpu_torch.envs.spaces import Box, Discrete, MultiDiscrete
+    from tianshou_tpu_torch.networks.common import BranchingQNet, QNet, QNetEnsemble, RecurrentQNet
+    from tianshou_tpu_torch.networks.continuous import CriticEnsemble, GaussianActor
+
+    rng = np.random.default_rng(6)
+    obs_dim, hidden, batch = 4, (32, 32), 16
+
+    def sampled(dev, kind):
+        """The same batch on ``dev``, with box, discrete or 2-branch actions."""
+        r = np.random.default_rng(7)
+        act = {"box": r.uniform(-1, 1, (batch, 1)).astype(np.float32), "discrete": r.integers(0, 3, batch),
+               "multi": r.integers(0, 4, (batch, 2))}[kind]
+        a = dict(env_idx=r.integers(0, 2, batch), pos=r.permutation(batch),
+                 weight=r.uniform(0.5, 1.5, batch).astype(np.float32),
+                 obs=r.normal(size=(batch, obs_dim)).astype(np.float32), act=act,
+                 rew=r.normal(size=(batch, 2)).astype(np.float32), done=(r.random((batch, 2)) < 0.2).astype(np.int32),
+                 obs_next=r.normal(size=(batch, obs_dim)).astype(np.float32), terminated=r.random(batch) < 0.3)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+        return (t["env_idx"], t["pos"], t["weight"], Batch(obs=t["obs"], act=t["act"]), t["rew"], t["done"],
+                Batch(obs_next=t["obs_next"], terminated=t["terminated"]))
+
+    steps = [dict(obs=rng.normal(size=(2, obs_dim)).astype(np.float32), act=rng.integers(0, 2, 2),
+                  rew=rng.normal(size=2).astype(np.float32), terminated=rng.random(2) < 0.15,
+                  truncated=rng.random(2) < 0.05, obs_next=rng.normal(size=(2, obs_dim)).astype(np.float32))
+             for _ in range(40)]
+    slots = torch.from_numpy(rng.choice(64, batch, replace=False))
+
+    def drqn_update(algo, ts, dev):
+        buf = ReplayBuffer(32, 2)
+        bs = buf.init(Batch({k: torch.as_tensor(v[0]) for k, v in steps[0].items()}), device=dev)
+        for tr in steps:
+            bs = buf.add(bs, Batch({k: torch.from_numpy(v).to(dev) for k, v in tr.items()}))
+        s = slots.to(dev)
+        buf.sample_with_weights = lambda st, g, b: (s // 32, s % 32, torch.ones(b, device=dev))
+        buf.update_priorities = lambda st, env_idx, pos, td_abs: td_abs
+        return algo.update(ts, buf, bs, None, batch)
+
+    noise = rng.normal(size=(2, batch, 1)).astype(np.float32)
+    subset = torch.tensor([3, 0])
+    makers = {
+        "redq": (lambda dev: REDQ(GaussianActor(obs_dim, hidden, 1, conditioned_sigma=True),
+                                  CriticEnsemble(obs_dim, 1, hidden, num_critics=5), Box(-1.0, 1.0, (1,)),
+                                  ensemble_size=5, subset_size=2, actor_delay=1, alpha_lr=3e-2, device=dev),
+                 lambda algo, ts, dev: algo.update_sampled(
+                     ts, None, None, sampled(dev, "box"), noise=tuple(torch.from_numpy(noise).to(dev)),
+                     subset=subset.to(dev))),
+        "discrete_sac": (lambda dev: DiscreteSAC(QNet(obs_dim, hidden, 3), QNetEnsemble(obs_dim, hidden, 3),
+                                                 Discrete(3), alpha_lr=3e-2, device=dev),
+                         lambda algo, ts, dev: algo.update_sampled(ts, None, None, sampled(dev, "discrete"))),
+        "bdq": (lambda dev: BDQ(BranchingQNet(obs_dim, hidden, 2, 4, (16,), (16,)), MultiDiscrete((4, 4)),
+                                n_step=2, target_update_freq=1, device=dev),
+                lambda algo, ts, dev: algo.update_sampled(ts, None, None, sampled(dev, "multi"))),
+        "drqn": (lambda dev: DRQN(RecurrentQNet(obs_dim, 16, 2), Discrete(2), stack_num=4, target_update_freq=1,
+                                  device=dev), drqn_update),
+    }
+
+    for kind, (make, update) in makers.items():
+        runs, init = {}, None
+        for dev in ("cuda", "cpu"):
+            algo = make(dev)
+            ts = algo.init(torch.Generator(device=dev).manual_seed(0))
+            parts = ("actor", "critic", "target_critic") if kind in ("redq", "discrete_sac") else ("online", "target")
+            if init is None:
+                init = {p: {n: v.detach().cpu() for n, v in getattr(ts, p).state_dict().items()} for p in parts}
+            for p in parts:
+                getattr(ts, p).load_state_dict(init[p])
+            ts, out, m = update(algo, ts, dev)
+            runs[dev] = (ts, [torch.stack([m[k].float() for k in sorted(m)]), *([out] if out is not None else [])])
+        (gts, gout), (cts, cout) = runs["cuda"], runs["cpu"]
+        err = max(_assert_close(f"{kind} output {i}", g, c) for i, (g, c) in enumerate(zip(gout, cout)))
+        for p in parts:
+            for name, v in getattr(gts, p).state_dict().items():
+                err = max(err, _assert_close(f"{kind} {p}.{name}", v, getattr(cts, p).state_dict()[name]))
+        if kind in ("redq", "discrete_sac"):
+            err = max(err, _assert_close(f"{kind} log_alpha", gts.log_alpha, cts.log_alpha))
+        log(f"reference {kind}: one update on the card equals the CPU's within rtol 1e-4 / atol 1e-5 (largest "
+            f"difference {err:.3e})")
+
+    # a greedy DRQN segment, one step at a time, across episode ends
+    env, n_envs, seg_steps = fixed_reset_cartpole(), 4, 40
+    start = rng.uniform(-0.15, 0.15, (4, n_envs)).astype(np.float32)
+    carry = rng.normal(0.0, 0.5, (2, n_envs, 16)).astype(np.float32)
+    runs, init = {}, None
+    for dev in ("cuda", "cpu"):
+        algo = makers["drqn"][0](dev)
+        ts = algo.init(torch.Generator(device=dev).manual_seed(0))
+        init = init or {n: v.detach().cpu() for n, v in ts.online.state_dict().items()}
+        ts.online.load_state_dict(init)
+        venv = VectorEnv(env, n_envs, device=dev)
+        st = CartPoleState(*torch.from_numpy(start).to(dev).unbind(0),
+                           torch.zeros(n_envs, dtype=torch.int32, device=dev))
+        cstate = Collector(algo, venv, device=dev).reset(torch.Generator(device=dev).manual_seed(0))
+        cstate.env_state, cstate.obs = st, env._obs(st)
+        cstate.policy_state = tuple(torch.from_numpy(carry).to(dev).unbind(0))
+        step = rollout_segment(algo, venv, None, 1, explore=False, record_traj=True)
+        acts, dones, carries = [], [], []
+        for _ in range(seg_steps):
+            cstate, _, out = step(ts, cstate, None, 0.0)
+            acts.append(out["traj"]["act"][0])
+            dones.append(out["done"][0])
+            carries.append(torch.stack(cstate.policy_state))
+        runs[dev] = (torch.stack(acts), torch.stack(dones), torch.stack(carries))
+    (ga, gd, gc), (ca, cd, cc) = runs["cuda"], runs["cpu"]
+    if not (torch.equal(ga.cpu(), ca) and torch.equal(gd.cpu(), cd)):
+        raise AssertionError("drqn segment: the card's actions or episode ends differ from the CPU's")
+    ends = int(cd.sum())
+    reset = cc.permute(0, 2, 1, 3)[cd]  # [ends, 2, hidden]: the carries of the envs that just ended
+    if ends < 2 or bool(reset.ne(0).any()):
+        raise AssertionError(f"drqn segment: {ends} episode ends, carries reset to zeros: {not bool(reset.ne(0).any())}")
+    err = _assert_close("drqn segment carries", gc, cc)
+    log(f"reference drqn segment: {seg_steps} greedy steps of {n_envs} CartPole envs with {ends} episode ends: the "
+        f"same actions on the card and the CPU, each ended env's carry reset to zeros, the carries within rtol "
+        f"1e-4 / atol 1e-5 (largest difference {err:.3e})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1417,6 +1658,7 @@ def main() -> int:
     phase_reference_continuous()
     phase_reference_onpolicy()
     phase_reference_distributional()
+    phase_reference_offpolicy_rest()
     results, launches = {}, 0
     for path in PATHS:
         results[path] = (phase_host if path in HOST_PATHS else phase_superstep)(path, gather_rows_cast)

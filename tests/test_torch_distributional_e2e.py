@@ -1,16 +1,16 @@
 """The port's copies of the learning-threshold tests of the distributional
 family and of prioritized replay (tests/test_distributional_e2e.py
-``test_rainbow_cartpole`` and ``test_qrdqn_cartpole``, >= 180;
-tests/test_prio.py ``test_per_dqn_smoke``, >= 150): the same
-configurations through the port's whole pipeline on the CPU.  Rainbow runs
-on a prioritized buffer, so its updates take the trainer's per-update
-sampling branch.  IQN's and FQF's threshold runs are left out: their update
-parity (tests/test_torch_distributional.py) covers them."""
+``test_rainbow_cartpole``, ``test_qrdqn_cartpole`` and
+``test_c51_cartpole``, >= 180; tests/test_prio.py ``test_per_dqn_smoke``,
+>= 150): the same configurations through the port's whole pipeline on the
+CPU.  Rainbow runs on a prioritized buffer, so its updates take the
+trainer's per-update sampling branch.  IQN's and FQF's copies are in
+tests/test_torch_quantile_e2e.py."""
 
 import pytest
 import torch
 
-from tianshou_tpu_torch.algos.c51 import Rainbow
+from tianshou_tpu_torch.algos.c51 import C51, Rainbow
 from tianshou_tpu_torch.algos.dqn import DQN
 from tianshou_tpu_torch.algos.qrdqn import QRDQN
 from tianshou_tpu_torch.collect.collector import Collector
@@ -67,6 +67,13 @@ def test_rainbow_cartpole(one_thread):
     algo = Rainbow(C51Net(4, (128, 128), 2, num_atoms=51, noisy=True), env.action_space, num_atoms=51, v_min=0.0,
                    v_max=200.0, gamma=0.95, n_step=3, target_update_freq=320, device="cpu")
     _distributional(algo, PrioritizedReplayBuffer(capacity=2000, num_envs=10, alpha=0.6, beta=0.4))
+
+
+def test_c51_cartpole(one_thread):
+    env = CartPole()
+    algo = C51(C51Net(4, (128, 128), 2, num_atoms=51), env.action_space, num_atoms=51, v_min=0.0, v_max=200.0,
+               gamma=0.95, n_step=3, target_update_freq=320, device="cpu")
+    _distributional(algo, ReplayBuffer(capacity=2000, num_envs=10))
 
 
 def test_qrdqn_cartpole(one_thread):

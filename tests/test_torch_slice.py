@@ -11,7 +11,8 @@ NatureCNN in float32 (so that argmax ties and bf16 rounding cannot differ),
 (c) Without CUDA, every entry point's default device raises.
 (d) The port imports nothing of JAX or of tianshou_tpu, the modules of
     each slice checked by name (slice 5: segtree, PER and the
-    distributional family).
+    distributional family; slice 6: the noise processes, REDQ,
+    DiscreteSAC, BDQ, DRQN and the recurrent hooks).
 (e) The same comparison as (a) on the paths of slice 2: a greedy CartPole
     segment (QNet, float32; storage within atol 1e-6), a MinAtar Breakout
     segment (sticky actions off) and a deduplicated stacked pixel segment
@@ -176,9 +177,17 @@ def test_trainer_stops_on_stop_fn(test_in_train):
 
 
 def _entry_points():
+    from tianshou_tpu_torch.algos.bdq import BDQ
     from tianshou_tpu_torch.algos.c51 import C51
+    from tianshou_tpu_torch.algos.drqn import DRQN
     from tianshou_tpu_torch.algos.qrdqn import QRDQN
+    from tianshou_tpu_torch.algos.redq import REDQ
+    from tianshou_tpu_torch.algos.sac import DiscreteSAC
     from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
+    from tianshou_tpu_torch.envs.spaces import Box, Discrete, MultiDiscrete
+    from tianshou_tpu_torch.exploration.noise import OUNoise
+    from tianshou_tpu_torch.networks.common import BranchingQNet, QNetEnsemble, RecurrentQNet
+    from tianshou_tpu_torch.networks.continuous import CriticEnsemble, GaussianActor
     from tianshou_tpu_torch.networks.conv import ConvQRDQNNet
     from tianshou_tpu_torch.networks.discrete import C51Net
 
@@ -198,11 +207,18 @@ def _entry_points():
         "PrioritizedReplayBuffer.init": lambda: PrioritizedReplayBuffer(CAP, N_ENVS).init(example),
         "C51": lambda: C51(C51Net((H, W, C), (8,), A, num_atoms=5, noisy=True), env.action_space),
         "QRDQN": lambda: QRDQN(ConvQRDQNNet((H, W, C), A, 8, "nature"), env.action_space),
+        "REDQ": lambda: REDQ(GaussianActor(3, (8,), 1), CriticEnsemble(3, 1, (8,), 4), Box(-1.0, 1.0, (1,)),
+                             ensemble_size=4),
+        "DiscreteSAC": lambda: DiscreteSAC(QNet(4, (8,), 2), QNetEnsemble(4, (8,), 2), Discrete(2)),
+        "BDQ": lambda: BDQ(BranchingQNet(4, (8,), 2, 3), MultiDiscrete((3, 3))),
+        "DRQN": lambda: DRQN(RecurrentQNet(4, 8, 2), Discrete(2)),
+        "OUNoise": lambda: OUNoise(),
     }
 
 
 @pytest.mark.parametrize("entry", ["VectorEnv", "ReplayBuffer.init", "DQN", "Collector", "OffPolicyTrainer",
-                                   "PrioritizedReplayBuffer.init", "C51", "QRDQN"])
+                                   "PrioritizedReplayBuffer.init", "C51", "QRDQN", "REDQ", "DiscreteSAC", "BDQ",
+                                   "DRQN", "OUNoise"])
 def test_default_device_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -223,7 +239,7 @@ def test_port_imports_no_jax():
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 49
+    assert int(res.stdout.strip()) >= 54
 
 
 SLICE2_MODULES = ["envs.classic", "envs.wrappers", "envs.minatar", "networks.common"]
@@ -232,12 +248,14 @@ SLICE3_MODULES = ["ops.dist", "networks.continuous", "networks.convert", "algos.
 SLICE4_MODULES = ["ops.returns", "utils.statistics", "envs.norm", "networks.continuous", "algos.pg", "algos.a2c",
                   "algos.ppo", "algos.npg", "collect.collector", "collect.host_collector", "trainer.onpolicy"]
 SLICE5_MODULES = ["ops.segtree", "data.prio", "networks.discrete", "algos.c51", "algos.qrdqn"]
+SLICE6_MODULES = ["networks.common", "networks.convert", "exploration.noise", "algos.base", "collect.collector",
+                  "algos.redq", "algos.sac", "algos.bdq", "algos.drqn", "data.tree", "data.buffer", "envs.spaces"]
 
 
 def test_port_imports_slice2_modules_without_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES!r}:\n"
+        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES!r}:\n"
         "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tianshou_tpu'))\n"

@@ -74,6 +74,11 @@ class A2C(PG):
         return OnPolicyTrainState(actor=actor, critic=critic, optimizer=self._optimizer(params, self.lr),
                                   **self._ret_stats())
 
+    def values(self, critic: nn.Module, obs: torch.Tensor) -> torch.Tensor:
+        """The critic's values of ``obs`` (``critic`` is ``ts.critic``, the
+        counterpart of the JAX package's critic parameters)."""
+        return critic(obs)
+
     # -- rollout processing ------------------------------------------------
     def _ret_scale(self, ts: OnPolicyTrainState) -> torch.Tensor:
         return torch.sqrt(ts.ret_var + 1e-8)

@@ -9,7 +9,13 @@ state explicitly, so the collector and trainer read like the JAX package's.
 The JAX package's ``act`` returns ``(action, extras)``; here :meth:`Algorithm.act`
 returns the action alone and :meth:`Algorithm.act_with_extras` both, the
 per-step policy outputs to store beside the transition (PPO's ``log_prob``).
-Its default wraps ``act`` with an empty ``Batch``.  On-policy algorithms
+Its default wraps ``act`` with an empty ``Batch``.  A recurrent policy
+(DRQN) carries a per-env state through the rollout:
+:meth:`Algorithm.init_policy_state` builds it (``()`` for a feedforward
+policy, which the collector then threads at no cost) and
+:meth:`Algorithm.act_with_state` acts from it and returns the next one.
+:meth:`Algorithm.compute_action` acts greedily on one observation and
+returns the env's action on the host.  On-policy algorithms
 implement :meth:`Algorithm.process_rollout`, :meth:`Algorithm.update_rollout_stats`
 and :meth:`Algorithm.learn`.
 :class:`RandomPolicy` acts uniformly at random, for warm-up collection.
@@ -19,15 +25,17 @@ and :meth:`Algorithm.learn`.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
-from tianshou_tpu_torch.data.tree import tree_leaves
-from tianshou_tpu_torch.envs.spaces import Box, Space
-from tianshou_tpu_torch.utils.device import resolve_device
+from tianshou_tpu_torch.data.tree import tree_leaves, tree_map
+from tianshou_tpu_torch.envs.spaces import Box, Discrete, Space
+from tianshou_tpu_torch.utils.device import make_generator, resolve_device
 
 __all__ = ["TrainState", "Algorithm", "RandomPolicy", "polyak_update", "uniform_legal_action", "write_back"]
 
@@ -116,6 +124,36 @@ class Algorithm:
         """``(action, extras)``: the action and the per-step policy outputs
         stored with the transition under ``policy`` (empty by default)."""
         return self.act(ts, obs, generator, explore, explore_param), Batch()
+
+    def compute_action(self, ts: TrainState, obs: Any, generator: torch.Generator | None = None) -> Any:
+        """The env's action for one observation (no batch dimension, numpy
+        or tensor leaves): the greedy :meth:`act` on a batch of one, mapped
+        to the action space and copied to the host, an ``int`` for a
+        ``Discrete`` space, else a numpy array."""
+        generator = generator if generator is not None else make_generator(0, self.device)
+        obs_b = tree_map(lambda x: torch.as_tensor(x, device=self.device)[None], obs)
+        out = self.map_action(self.act(ts, obs_b, generator, explore=False))[0].cpu().numpy()
+        return int(out) if isinstance(self.action_space, Discrete) else np.asarray(out)
+
+    def init_policy_state(self, num_envs: int) -> Any:
+        """The per-env recurrent state the collector carries through a
+        rollout and resets at episode ends; ``()`` for a feedforward
+        policy."""
+        return ()
+
+    def act_with_state(
+        self,
+        ts: TrainState,
+        obs: torch.Tensor,
+        policy_state: Any,
+        generator: torch.Generator,
+        explore: bool,
+        explore_param: float = 0.0,
+    ) -> tuple[torch.Tensor, Batch, Any]:
+        """``(action, extras, next policy state)``; by default
+        :meth:`act_with_extras`, the state passed through unchanged."""
+        act, extras = self.act_with_extras(ts, obs, generator, explore, explore_param)
+        return act, extras, policy_state
 
     def act_params(self, ts: TrainState) -> nn.Module:
         """The module :meth:`act` reads (the host path snapshots it to act

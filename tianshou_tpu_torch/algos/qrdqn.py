@@ -265,6 +265,11 @@ class FQF(QRDQN):
         taus, _, vals, _, _ = self._forward(net, fraction, obs)
         return self._expected(taus, vals)
 
+    def q_values_fqf(self, ts: FQFTrainState, obs) -> torch.Tensor:
+        """The online net's expected values at its own proposed fractions,
+        ``[B, A]``."""
+        return self.q_values(ts.online, obs, ts.fraction)
+
     def act_params(self, ts: FQFTrainState) -> nn.Module:
         # acting reads the quantile net and the fraction proposals
         return nn.ModuleDict({"online": ts.online, "fraction": ts.fraction})
@@ -274,7 +279,7 @@ class FQF(QRDQN):
 
     @torch.no_grad()
     def act(self, ts, obs, generator, explore, explore_param=0.0):
-        greedy = self.q_values(ts.online, obs, ts.fraction).argmax(dim=-1)
+        greedy = self.q_values_fqf(ts, obs).argmax(dim=-1)
         if not explore:
             return greedy
         return self._epsilon_greedy(greedy, generator, explore_param)

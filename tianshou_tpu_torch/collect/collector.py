@@ -15,7 +15,14 @@ The policy's per-step extras (:meth:`Algorithm.act_with_extras`, e.g. PPO's
 ``record_traj`` the segment's transitions come back stacked ``[T, N, ...]``
 as ``outputs["traj"]``, the on-policy trainer's rollout.
 
-Not ported yet: recurrent policy state and MARL reward metrics.
+A recurrent policy's per-env state (DRQN's LSTM carry) rides in
+``CollectState.policy_state``: each step acts through
+:meth:`Algorithm.act_with_state`, and at an episode's end the env's state
+is reset to :meth:`Algorithm.init_policy_state`'s.  A feedforward policy's
+state is ``()``, which costs no launch.  Warm-up acting
+(``random=True``) leaves the state as it is.
+
+Not ported yet: MARL reward metrics.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 from tianshou_tpu_torch.algos.base import Algorithm, RandomPolicy, TrainState
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
-from tianshou_tpu_torch.data.tree import tree_map
+from tianshou_tpu_torch.data.tree import tree_map, tree_where
 from tianshou_tpu_torch.envs.base import VectorEnv
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 
@@ -45,6 +52,7 @@ class CollectState:
     rng: torch.Generator
     ep_ret: torch.Tensor  # [N] running episode return
     ep_len: torch.Tensor  # [N] running episode length
+    policy_state: Any = ()  # per-env recurrent policy state (LSTM carries)
 
 
 @dataclasses.dataclass
@@ -88,11 +96,13 @@ def rollout_segment(
     def seg(ts: TrainState, cstate: CollectState, bstate, explore_param: float):
         obs, env_state = cstate.obs, cstate.env_state
         ep_ret, ep_len = cstate.ep_ret, cstate.ep_len
+        pstate, init_pstate = cstate.policy_state, algo.init_policy_state(venv.num_envs)
         dones, rets, lens, steps = [], [], [], []
         for _ in range(num_steps):
-            act, extras = actor.act_with_extras(ts, obs, cstate.rng, explore, explore_param)
+            act, extras, pstate = actor.act_with_state(ts, obs, pstate, cstate.rng, explore, explore_param)
             env_state, res, carry_obs = venv.step(env_state, algo.map_action(act), cstate.rng)
             done = res.done
+            pstate = tree_where(done, init_pstate, pstate)
             ep_ret = ep_ret + res.reward
             ep_len = ep_len + 1
             transition = Batch(
@@ -118,7 +128,8 @@ def rollout_segment(
         }
         if record_traj:
             outputs["traj"] = tree_map(lambda *xs: torch.stack(xs), *steps)
-        new = CollectState(env_state=env_state, obs=obs, rng=cstate.rng, ep_ret=ep_ret, ep_len=ep_len)
+        new = CollectState(env_state=env_state, obs=obs, rng=cstate.rng, ep_ret=ep_ret, ep_len=ep_len,
+                           policy_state=pstate)
         return new, bstate, outputs
 
     return seg
@@ -154,6 +165,7 @@ class Collector:
             rng=fork_generator(generator),
             ep_ret=torch.zeros((n,), dtype=torch.float32, device=self.device),
             ep_len=torch.zeros((n,), dtype=torch.int64, device=self.device),
+            policy_state=self.algo.init_policy_state(n),
         )
 
     def example_transition(self, ts: TrainState, cstate: CollectState) -> Batch:

@@ -217,6 +217,14 @@ class ReplayBuffer:
         pos = torch.remainder(start + offset_in_env, self.capacity)
         return env_idx, pos
 
+    def sample(
+        self, state: ReplayBufferState, generator: torch.Generator, batch_size: int
+    ) -> tuple[Batch, torch.Tensor, torch.Tensor]:
+        """``(batch, env_idx, pos)``: :meth:`get` of every key at uniform
+        :meth:`sample_indices`."""
+        env_idx, pos = self.sample_indices(state, generator, batch_size)
+        return self.get(state, env_idx, pos), env_idx, pos
+
     @staticmethod
     def _uniform_below(count: torch.Tensor, generator: torch.Generator, n: int) -> torch.Tensor:
         """``n`` uniform int64 draws from ``[0, max(count, 1))`` for a count

@@ -85,6 +85,11 @@ class HostVectorEnv:
         self.action_space = space_from_gym(self.envs[0].action_space)
         self.pool = ThreadPoolExecutor(max_workers=max_workers or min(32, self.num_envs))
 
+    def seed(self, seed: int) -> None:
+        """Record the seeds ``seed + i`` of env ``i``, as the JAX package's
+        ``seed`` does; :meth:`reset` takes its seed explicitly."""
+        self._seeds = [seed + i for i in range(self.num_envs)]
+
     def reset(self, seed: int | None = None) -> Any:
         """Reset every env, env ``i`` with ``seed + i``."""
         seeds = [seed + i for i in range(self.num_envs)] if seed is not None else [None] * self.num_envs

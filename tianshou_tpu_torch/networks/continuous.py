@@ -7,25 +7,21 @@ sqrt(2) hidden, 1 output) with zero biases, the Gaussian mean head is
 orthogonal with gain 0.01, and the conditioned log-sigma head keeps Flax's
 default lecun-normal.  Log-sigma is clipped to ``[-20, 2]``.
 
-:class:`CriticEnsemble` holds its K critics as one module: each layer is a
-``[K, in, out]`` weight and a ``[K, out]`` bias, and a forward is one
-batched product per layer (``baddbmm``), not K separate MLPs.  The first
-layer's input is shared by the K critics, so it broadcasts without a copy.
-Each critic draws its own init, as ``nn.vmap``'s ``split_rngs`` gives.
+:class:`CriticEnsemble` holds its K critics as one
+:class:`~tianshou_tpu_torch.networks.common.EnsembleMLP` over the
+concatenated observation and action: one batched product per layer.
 
 ``Perturbation`` and ``VAE`` come with their algorithms.
 """
 
 from __future__ import annotations
 
-import math
 from collections.abc import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from tianshou_tpu_torch.networks.common import MLP, _flat_dim
+from tianshou_tpu_torch.networks.common import MLP, EnsembleMLP, _flat_dim
 from tianshou_tpu_torch.networks.conv import _lecun_normal_
 
 __all__ = ["DeterministicActor", "GaussianActor", "Critic", "CriticEnsemble", "ValueNet", "LOG_SIG_MIN", "LOG_SIG_MAX"]
@@ -135,9 +131,9 @@ class Critic(nn.Module):
         return self.mlp(_critic_input(obs, act)).squeeze(-1)
 
 
-class CriticEnsemble(nn.Module):
+class CriticEnsemble(EnsembleMLP):
     """K critics evaluated together: ``(obs, act) -> [K, B]``.  K = 2 gives
-    the twin critics of TD3 and SAC."""
+    the twin critics of TD3 and SAC; REDQ takes 10."""
 
     def __init__(
         self,
@@ -147,34 +143,10 @@ class CriticEnsemble(nn.Module):
         num_critics: int = 2,
         compute_dtype: torch.dtype | None = None,
     ):
-        super().__init__()
-        self.num_critics = num_critics
-        self.compute_dtype = compute_dtype
-        sizes = [_flat_dim(obs_shape) + action_dim, *hidden_sizes, 1]
-        self.weights = nn.ParameterList(
-            [nn.Parameter(torch.empty(num_critics, i, o)) for i, o in zip(sizes[:-1], sizes[1:])])
-        self.biases = nn.ParameterList([nn.Parameter(torch.empty(num_critics, o)) for o in sizes[1:]])
-        self.reset_parameters()
-
-    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        last = len(self.weights) - 1
-        with torch.no_grad():
-            for i, (w, b) in enumerate(zip(self.weights, self.biases)):
-                for k in range(self.num_critics):
-                    nn.init.orthogonal_(w[k], gain=1.0 if i == last else math.sqrt(2.0), generator=generator)
-                nn.init.zeros_(b)
+        super().__init__(num_critics, _flat_dim(obs_shape) + action_dim, hidden_sizes, 1, compute_dtype)
 
     def forward(self, obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype or torch.float32
-        x = _critic_input(obs, act).to(dt)  # [B, in], shared by the K critics
-        last = len(self.weights) - 1
-        for i, (w, b) in enumerate(zip(self.weights, self.biases)):
-            w, b = w.to(dt), b.to(dt)[:, None, :]
-            # [B, in] @ [K, in, out] broadcasts to [K, B, out]
-            x = torch.matmul(x, w) + b if i == 0 else torch.baddbmm(b, x, w)
-            if i != last:
-                x = F.relu(x)
-        return x.squeeze(-1).to(torch.float32)
+        return super().forward(_critic_input(obs, act)).squeeze(-1)
 
 
 class ValueNet(nn.Module):

@@ -35,10 +35,19 @@ The distributional nets: ``QRDQNNet`` and a plain ``C51Net`` are an
 ``NoisyMLP_1`` as ``a`` / ``v``, whose ``NoisyLinear`` kernels ``w_mu`` and
 ``w_sigma`` are transposed like any dense kernel.
 
-``CriticEnsemble``'s Flax tree is ``nn.vmap``'s: ``VmapCritic_0`` ->
-``MLP_0`` -> ``Dense_i`` with a leading K axis on every leaf.  The port
-keeps the same ``[K, in, out]`` kernels (``weights.i``, no transpose, the
-layout ``baddbmm`` takes) and ``[K, out]`` biases (``biases.i``).
+The ensembles' Flax trees are ``nn.vmap``'s, with a leading K axis on
+every leaf: ``VmapCritic_0`` (``CriticEnsemble``) and ``VmapQNet_0``
+(``QNetEnsemble``) -> ``MLP_0`` -> ``Dense_i``, and ``VmapMLP_0``
+(``EnsembleMLP``) -> ``Dense_i``.  The port keeps the same ``[K, in, out]``
+kernels (``weights.i``, no transpose, the layout ``baddbmm`` takes) and
+``[K, out]`` biases (``biases.i``).  ``BranchingQNet`` is ``MLP_0`` (the
+trunk, -> ``mlp``), ``MLP_1`` (the value head, -> ``value``) and
+``VmapMLP_0`` (the branch heads, -> ``branches``).  ``RecurrentQNet`` is
+``Dense_0`` (-> ``dense``), ``OptimizedLSTMCell_0`` (-> ``cell``) and
+``Dense_1`` (-> ``head``); the cell's per-gate kernels ``ii/if/ig/io``
+(no bias) and ``hi/hf/hg/ho`` are stacked in that gate order into
+``weight_ih`` and ``weight_hh`` (transposed), their biases into
+``bias_hh``.
 
 :func:`onpolicy_state_from_flax` carries an on-policy train state: the
 ``{"actor": ..., "critic": ...}`` parameters (a ``ValueNet`` critic is an
@@ -95,14 +104,23 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32))  # a writable copy
 
 
-def _ensemble(tree: Mapping) -> dict[str, torch.Tensor]:
+def _ensemble(tree: Mapping, prefix: str = "", out: dict | None = None) -> dict[str, torch.Tensor]:
+    """One ``nn.vmap``-ed MLP: ``Vmap*_0`` (-> ``MLP_0``) -> ``Dense_i``."""
     (vmapped,) = [k for k in tree if k.startswith("Vmap")]
-    mlp = tree[vmapped]["MLP_0"]
-    out: dict[str, torch.Tensor] = {}
+    mlp = tree[vmapped].get("MLP_0", tree[vmapped])
+    out = {} if out is None else out
     for i, name in enumerate(_numbered(mlp, "Dense")):
-        out[f"weights.{i}"] = _tensor(mlp[name]["kernel"])
-        out[f"biases.{i}"] = _tensor(mlp[name]["bias"])
+        out[_join(prefix, f"weights.{i}")] = _tensor(mlp[name]["kernel"])
+        out[_join(prefix, f"biases.{i}")] = _tensor(mlp[name]["bias"])
     return out
+
+
+def _lstm(cell: Mapping, prefix: str, out: dict) -> None:
+    """An ``OptimizedLSTMCell``'s per-gate kernels, stacked i, f, g, o."""
+    gates = "ifgo"
+    out[f"{prefix}.weight_ih"] = _tensor(np.concatenate([np.asarray(cell["i" + g]["kernel"]).T for g in gates]))
+    out[f"{prefix}.weight_hh"] = _tensor(np.concatenate([np.asarray(cell["h" + g]["kernel"]).T for g in gates]))
+    out[f"{prefix}.bias_hh"] = _tensor(np.concatenate([np.asarray(cell["h" + g]["bias"]) for g in gates]))
 
 
 def _noisy(tree: Mapping, prefix: str, out: dict) -> None:
@@ -140,6 +158,18 @@ def params_from_flax(flax_params: Mapping, heads: tuple[str, ...] | None = None)
     ``heads``: the port's names of the top-level ``Dense`` layers, in Flax's
     order."""
     tree = flax_params.get("params", flax_params)
+    if "OptimizedLSTMCell_0" in tree:
+        out: dict[str, torch.Tensor] = {}
+        _layer("dense", tree["Dense_0"], out)
+        _lstm(tree["OptimizedLSTMCell_0"], "cell", out)
+        _layer("head", tree["Dense_1"], out)
+        return out
+    if "VmapMLP_0" in tree and "MLP_0" in tree:
+        # BranchingQNet
+        out = {}
+        _mlp(tree["MLP_0"], "mlp", out)
+        _mlp(tree["MLP_1"], "value", out)
+        return _ensemble(tree, "branches", out)
     if any(k.startswith("Vmap") for k in tree):
         return _ensemble(tree)
     if any(k.startswith("NoisyMLP") for k in tree):

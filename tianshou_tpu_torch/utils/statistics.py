@@ -34,6 +34,12 @@ class MovAvg:
     def get(self) -> float:
         return float(np.mean(self.cache)) if self.cache else 0.0
 
+    def mean(self) -> float:
+        return self.get()
+
+    def std(self) -> float:
+        return float(np.std(self.cache)) if self.cache else 0.0
+
 
 class RunningMeanStd:
     """Running mean and variance over batches, merged with Chan et al.'s

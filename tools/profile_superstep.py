@@ -9,7 +9,9 @@ frame-stack buffer; ``cartpole``, the CartPole headline; ``minatar``,
 MinAtar Breakout; ``sac_pendulum`` and ``td3_pendulum``, the continuous
 updates on the on-device Pendulum; ``ppo_cartpole`` and ``trpo_pendulum``,
 the on-policy supersteps; ``rainbow_per``, Rainbow on a prioritized ring;
-``qrdqn_minatar``, QRDQN at MinAtar conv width), runs two warm-up supersteps, then traces
+``qrdqn_minatar``, QRDQN at MinAtar conv width; ``redq_pendulum``,
+``discrete_sac_cartpole``, ``bdq_pendulum`` and ``drqn_cartpole``, the rest
+of the off-policy families), runs two warm-up supersteps, then traces
 ``--supersteps`` more with ``torch.profiler``.  Prints the device's busy time a superstep (the union of
 its kernels' intervals) and its share of the traced wall time, the number
 of kernels a superstep, the time of a few kernels named in PERF.md, and the
@@ -32,7 +34,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--path", default="atari", choices=["atari", "atari_dedup", "cartpole", "minatar", "sac_pendulum",
                                                              "td3_pendulum", "ppo_cartpole", "trpo_pendulum",
-                                                             "rainbow_per", "qrdqn_minatar"])
+                                                             "rainbow_per", "qrdqn_minatar", "redq_pendulum",
+                                                             "discrete_sac_cartpole", "bdq_pendulum", "drqn_cartpole"])
     parser.add_argument("--supersteps", type=int, default=2)
     parser.add_argument("--out", default="build/profile")
     args = parser.parse_args()

@@ -43,8 +43,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    of REDQ (the critic subset and the normals injected), DiscreteSAC, BDQ
    and DRQN (the same sampled slots of the same ring), and a greedy DRQN
    CartPole segment, one step at a time, whose carries cross episode ends
-   (the same actions, the carries reset to zeros at each end);
-5. paths, each at full width: 2 warm-up and 5 timed supersteps, one more
+   (the same actions, the carries reset to zeros at each end).  Then slice
+   7, in float32 with TF32 off, within rtol 1e-4 / atol 1e-5 of the CPU,
+   from the same parameters, ring, sampled slots and draws: one update each
+   of BC, TD3BC, BCQ, CQL (plain, CQL(Lagrange), and CalQL with its
+   calibration returns), DiscreteBCQ, DiscreteCQL, DiscreteCRR in each mode
+   and ICM around DQN; GAIL's discriminator steps and reward rewrite; one
+   PSRL learn with the same Dirichlet draw; ``sample_her`` and one DDPG
+   update from a HER presample;
+5. paths, each at full width: 1 warm-up and 3 timed supersteps, one more
    superstep in which a host synchronisation raises, one under the profiler
    (device kernels and busy time), where the time of a superstep goes,
    then the trainer's ``run()`` for one epoch of two supersteps with a test
@@ -121,7 +128,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
    - ``drqn_cartpole``: DRQN on the on-device CartPole, ``RecurrentQNet``
      (hidden 128) with its LSTM carries threaded through the collector,
      histories of 4 rebuilt for each update; 10 envs x 10 steps, 10 updates
-     of batch 64, each sampling its own batch (the per-update branch).
+     of batch 64, each sampling its own batch (the per-update branch);
+   - ``cql_d4rl``: ``examples/offline_d4rl_cql.py`` at its full widths on a
+     dataset of ``halfcheetah-medium-v2``'s schema and size (1,000,000
+     transitions, obs 17, actions 6, episodes of 1,000 steps) made from a
+     seed by running ``HalfCheetahStandIn``'s dynamics in numpy under a
+     noisy linear policy, written to ``build/`` as ``.npz`` and loaded by
+     ``buffer_from_d4rl`` (no ``h5py``): CQL(Lagrange, threshold 10) over a
+     conditioned ``GaussianActor`` and twin critics (256, 256), actor lr
+     1e-4, critic lr 3e-4, 10 repeated actions, ``calibrated=False``, 100
+     updates of batch 256 a superstep through ``OfflineTrainer``, tested on
+     10 host envs of the stand-in, one episode each.  An offline superstep
+     collects nothing: its rate is gradient steps/s (and samples/s);
+   - ``discrete_cql_cartpole``: DiscreteCQL over ``QRDQNNet((128, 128), 32
+     quantiles)``, min_q_weight 10, gamma 0.95, n 3, target every 320, 100
+     updates of batch 64 a superstep, from a [10, 2000] ring that one
+     epsilon-greedy rollout fills on the on-device CartPole;
+   - ``gail_pendulum``: GAIL (PPO over ``GaussianActor`` and ``ValueNet``
+     (64, 64), a ``Critic`` (64, 64) discriminator, 2 discriminator steps
+     at lr 2.5e-4) on the on-device Pendulum, 16 envs x 128 steps, 10 passes
+     of 8 minibatches of 256, against a [10, 2400] expert ring from a
+     random rollout on the card;
+   - ``icm_cartpole``: ICM (``ICMNet((64,), 32 features)``, lr 1e-3, reward
+     scale 0.01) around DQN (``QNet((128, 128))``, gamma 0.95, n 1, target
+     every 320) on the on-device CartPole, 10 envs x 10 steps, 10 updates
+     of batch 64, each a curiosity step and a DQN step through the
+     buffer view (the per-update branch).
 
 It then prints a ``paths`` JSON line, the ``kernels`` JSON line and, last,
 the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
@@ -176,22 +208,45 @@ PATHS = {
                          update_per_step=0.1),
     "drqn_cartpole": dict(num_envs=10, segment=10, batch=64, updates=10, capacity=2000, warmup=1000,
                           update_per_step=0.1),
+    # slice 7.  The offline paths collect nothing: updates and batch a
+    # superstep, the dataset (cql_d4rl: transitions in episodes of 1000
+    # steps; discrete_cql_cartpole: a [num_envs, capacity] ring), test envs
+    # and episodes
+    "cql_d4rl": dict(batch=256, updates=100, transitions=1_000_000, episode_len=1000, test_envs=10, episodes=10),
+    "discrete_cql_cartpole": dict(num_envs=10, capacity=2000, batch=64, updates=100, test_envs=10, episodes=10),
+    "gail_pendulum": dict(num_envs=16, segment=128, batch=256, repeat=10, updates=80, test_envs=16, episodes=10,
+                          expert_envs=10, expert_capacity=2400),
+    "icm_cartpole": dict(num_envs=10, segment=10, batch=64, updates=10, capacity=2000, warmup=1000,
+                         update_per_step=0.1),
 }
 DQN_PATHS = ("atari", "atari_dedup", "cartpole", "minatar", "rainbow_per", "qrdqn_minatar", "bdq_pendulum",
              "drqn_cartpole")
 PER_PATHS = ("rainbow_per",)
 HOST_PATHS = ("sac_host", "ppo_host")
-ONPOLICY_PATHS = ("ppo_cartpole", "trpo_pendulum", "ppo_host")
+ONPOLICY_PATHS = ("ppo_cartpole", "trpo_pendulum", "ppo_host", "gail_pendulum")
+OFFLINE_PATHS = ("cql_d4rl", "discrete_cql_cartpole")
+# the paths whose exploration is epsilon-greedy at 0.1
+EPSILON_PATHS = DQN_PATHS + ("icm_cartpole",)
+SLICE7_FAMILY = {"cql_d4rl": "cql", "discrete_cql_cartpole": "discrete_cql", "gail_pendulum": "gail",
+                 "icm_cartpole": "icm"}
 # the metrics each family's superstep (segment) and run() must report, finite
 FAMILY_METRICS = {"dqn": ("loss",), "continuous": ("critic_loss", "actor_loss"),
                   "ppo": ("loss", "policy_loss", "value_loss"), "trpo": ("value_loss", "accepted", "kl"),
-                  "redq": ("critic_loss", "alpha")}
+                  "redq": ("critic_loss", "alpha"),
+                  "cql": ("critic_loss", "td_loss", "cql_penalty", "actor_loss", "alpha", "cql_alpha"),
+                  "discrete_cql": ("loss", "qr_loss", "cql_loss"),
+                  "gail": ("loss", "policy_loss", "value_loss", "disc_loss", "acc_pi", "acc_exp"),
+                  "icm": ("loss", "icm_loss", "icm_forward", "icm_inverse")}
 # launches of gather_rows_cast a superstep: obs and obs_next of the presample;
 # the on-policy paths use no replay buffer
 KERNEL_LAUNCHES = {"atari": 2, "atari_dedup": 2, "cartpole": 0, "minatar": 0, "sac_pendulum": 0,
                    "td3_pendulum": 0, "sac_host": 0, "ppo_cartpole": 0, "trpo_pendulum": 0, "ppo_host": 0,
                    "rainbow_per": 0, "qrdqn_minatar": 0, "redq_pendulum": 0, "discrete_sac_cartpole": 0,
-                   "bdq_pendulum": 0, "drqn_cartpole": 0}
+                   "bdq_pendulum": 0, "drqn_cartpole": 0, "cql_d4rl": 0, "discrete_cql_cartpole": 0,
+                   "gail_pendulum": 0, "icm_cartpole": 0}
+# timed supersteps (segments) of every path, after WARMUP untimed ones; cut
+# from 5 after 2 so that the twenty paths run in about the time sixteen took
+TIMED, WARMUP = 3, 1
 # the MuJoCo PPO example's learning-rate decay runs to zero over every
 # minibatch update of its default run: 100 epochs x 5 segments x 10 passes x
 # 32 minibatches (examples/mujoco_ppo.py)
@@ -208,6 +263,8 @@ TRPO_FLOAT32_STEP_LIMIT = 5e-3
 
 
 def family(path: str) -> str:
+    if path in SLICE7_FAMILY:
+        return SLICE7_FAMILY[path]
     if path in DQN_PATHS:
         return "dqn"
     if path in ONPOLICY_PATHS or path == "redq_pendulum":
@@ -509,6 +566,17 @@ def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, **
         algo = DRQN(RecurrentQNet(4, cfg.get("hidden", 128), 2), env.action_space, stack_num=4, gamma=0.95,
                     target_update_freq=320, device=device)
         test_envs = 10
+    elif path == "icm_cartpole":
+        # tests/test_utils_misc.py:210-254
+        from tianshou_tpu_torch.algos.icm import ICM, ICMNet
+        from tianshou_tpu_torch.envs.classic import CartPole
+        from tianshou_tpu_torch.networks.common import QNet
+
+        env = CartPole()
+        inner = DQN(QNet(4, cfg.get("hidden", (128, 128)), 2), env.action_space, lr=1e-3, gamma=0.95, n_step=1,
+                    target_update_freq=320, device=device)
+        algo = ICM(inner, ICMNet(4, (64,), feature_dim=32, num_actions=2), lr=1e-3, reward_scale=0.01)
+        test_envs = 10
     else:
         raise ValueError(f"unknown path {path!r}; have {sorted(PATHS)}")
     if path not in PER_PATHS:
@@ -533,7 +601,7 @@ def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, **
         # the DQN family explores with epsilon 0.1 (Rainbow through its
         # weight noise, ignoring it); TD3 takes its default, its own
         # exploration noise (SAC samples and ignores it)
-        train_param_fn=(lambda epoch, step: 0.1) if path in DQN_PATHS else None,
+        train_param_fn=(lambda epoch, step: 0.1) if path in EPSILON_PATHS else None,
         warmup_steps=cfg.get("warmup", 0), pipeline_host_updates=pipeline,
     )
     if (trainer.segment_len, trainer.updates_per_segment) != (segment, updates):
@@ -733,7 +801,7 @@ def _check_metrics(path: str, metrics: dict[str, float]) -> None:
         raise AssertionError(f"{path}: metrics {metrics}, missing {missing}")
 
 
-def timed(step, n: int, warmup: int = 2) -> tuple[float, dict[str, float]]:
+def timed(step, n: int, warmup: int = WARMUP) -> tuple[float, dict[str, float]]:
     """``warmup`` calls of ``step`` (which returns device metrics), then
     ``n`` timed ones closed by reading the last metrics: ``(seconds,
     metrics)``."""
@@ -788,7 +856,7 @@ def superstep_of(trainer, state: list, generator):
 
 
 def phase_superstep(path: str, gather) -> dict:
-    """An on-device path at full width: 2 warm-up and 5 timed supersteps,
+    """An on-device path at full width: 1 warm-up and 3 timed supersteps,
     one under the sync guard, one under the profiler (device kernels and
     busy time), and the breakdown: the rollout, then the presample and the
     updates (off-policy) or one processing pass and the learning (on-policy:
@@ -802,13 +870,13 @@ def phase_superstep(path: str, gather) -> dict:
     env, algo, col, buffer, trainer = build(path)
     gen, *state = init_states(algo, col, buffer)
     step = superstep_of(trainer, state, gen)
-    n, steps = 5, cfg["num_envs"] * cfg["segment"]
+    n, steps = TIMED, cfg["num_envs"] * cfg["segment"]
     gather.launches = 0
     dt, metrics = timed(step, n)
     launches = gather.launches
-    if launches != KERNEL_LAUNCHES[path] * (n + 2):
-        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in {n + 2} supersteps, "
-                             f"not {KERNEL_LAUNCHES[path] * (n + 2)}")
+    if launches != KERNEL_LAUNCHES[path] * (n + WARMUP):
+        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in {n + WARMUP} supersteps, "
+                             f"not {KERNEL_LAUNCHES[path] * (n + WARMUP)}")
     _check_metrics(path, metrics)
     # the superstep keeps everything on the device: an operation in it that
     # PyTorch knows to synchronise the host with the card raises
@@ -817,14 +885,14 @@ def phase_superstep(path: str, gather) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     kernels, busy_ms = _profile_counts(step)
     result = {"env_steps_per_s": n * steps / dt, "ms_per_superstep": dt / n * 1e3, **metrics,
-              "updates_per_superstep": cfg["updates"], "gather_rows_cast_per_superstep": launches / (n + 2),
+              "updates_per_superstep": cfg["updates"], "gather_rows_cast_per_superstep": launches / (n + WARMUP),
               "device_kernels_per_superstep": kernels, "device_busy_ms_per_superstep_profiled": busy_ms,
               "max_memory_allocated_gib": peak}
     if buffer is not None:
         result["ring_gb"] = sum(x.numel() * x.element_size() for x in tree_leaves(state[2].storage)) / 1e9
     log(f"{path}: {n} supersteps of {cfg['num_envs']} envs x {cfg['segment']} steps + {cfg['updates']} updates of "
         f"batch {cfg['batch']}: {result['env_steps_per_s']:.1f} env-steps/s, {result['ms_per_superstep']:.2f} ms "
-        f"per superstep, metrics {metrics}, gather_rows_cast launches {launches} in {n + 2}, max_memory_allocated "
+        f"per superstep, metrics {metrics}, gather_rows_cast launches {launches} in {n + WARMUP}, max_memory_allocated "
         f"{peak:.3f} GiB; a superstep under torch.cuda.set_sync_debug_mode('error') raised no host sync; "
         f"profiled superstep: {kernels} device kernels, device busy {busy_ms:.2f} ms")
 
@@ -843,6 +911,8 @@ def phase_superstep(path: str, gather) -> dict:
 
         parts = {"rollout": rollout, "processing pass": lambda: algo.process_rollout(state[0], held["traj"]),
                  "learn incl. processing": learning}
+        if hasattr(algo, "pre_learn"):
+            parts["discriminator steps (pre_learn)"] = lambda: algo.pre_learn(state[0], held["traj"], gen)
         result["processing_passes_per_superstep"] = _processing_passes(algo, cfg["repeat"])
     else:
         seg = rollout_segment(algo, col.venv, buffer, cfg["segment"], explore=True)
@@ -862,6 +932,13 @@ def phase_superstep(path: str, gather) -> dict:
                 buffer.stacked_obs(state[2], env_idx, pos, algo.stack_num, obs_key="obs_next")
 
             parts = {"rollout": rollout, "history sample (one update)": history_sample,
+                     "updates incl. sampling": updates}
+        elif path == "icm_cartpole":
+            # each update samples its own batches: the curiosity step's and
+            # the inner DQN's, through the buffer view
+            parts = {"rollout": rollout,
+                     "one update (curiosity step + DQN through the view)": lambda: algo.update(
+                         state[0], buffer, state[2], gen, cfg["batch"]),
                      "updates incl. sampling": updates}
         elif path in PER_PATHS:
             # each update samples its own batch: the sum-tree descent and
@@ -902,7 +979,7 @@ def check_policy(path: str, algo, ts, obs, gen, env, policy_state=()) -> None:
     from ``policy_state`` (a recurrent policy's carries, which must come out
     finite)."""
     space = env.action_space
-    q_values = path in DQN_PATHS and path not in ("bdq_pendulum", "drqn_cartpole")
+    q_values = (path in DQN_PATHS and path not in ("bdq_pendulum", "drqn_cartpole")) or path == "discrete_cql_cartpole"
     with torch.no_grad():
         if q_values:
             out, state = algo.q_values(ts.online, obs), ()
@@ -913,7 +990,7 @@ def check_policy(path: str, algo, ts, obs, gen, env, policy_state=()) -> None:
         raise AssertionError(f"{path}: bad policy output: {tuple(out.shape)}, expected {shape}")
     if not all(bool(torch.isfinite(x).all()) for x in state):
         raise AssertionError(f"{path}: non-finite policy state")
-    if family(path) in ("continuous", "redq") and out.is_floating_point() and float(out.abs().max()) > 1.0:
+    if family(path) in ("continuous", "redq", "cql") and out.is_floating_point() and float(out.abs().max()) > 1.0:
         raise AssertionError(f"{path}: actions outside [-1, 1]")
     if not out.is_floating_point() and not space.contains(out):
         raise AssertionError(f"{path}: illegal discrete actions")
@@ -969,7 +1046,7 @@ class _OnPolicyHost:
 
 
 def phase_host(path: str, gather) -> dict:
-    """A host-env path at full width: 2 warm-up and 5 timed segments
+    """A host-env path at full width: 1 warm-up and 3 timed segments
     (collect on the host envs, one packed copy, the device part), the device
     part of one more under the sync guard, one in which PyTorch must
     dispatch exactly one host-to-device copy (the packed segment), one under
@@ -983,13 +1060,13 @@ def phase_host(path: str, gather) -> dict:
     _fresh_memory()
     env, algo, col, _, trainer = build(path)
     hp = (_OnPolicyHost if onpolicy else _OffPolicyHost)(trainer)
-    n, steps = 5, cfg["num_envs"] * cfg["segment"]
+    n, steps = TIMED, cfg["num_envs"] * cfg["segment"]
     gather.launches = 0
     copies = TreePacker.copies
     dt, metrics = timed(lambda: hp.device(hp.upload(hp.collect())), n)
     copies = TreePacker.copies - copies
-    if gather.launches != 0 or copies != n + 2:
-        raise AssertionError(f"{path}: {copies} packed copies and {gather.launches} gather launches in {n + 2} "
+    if gather.launches != 0 or copies != n + WARMUP:
+        raise AssertionError(f"{path}: {copies} packed copies and {gather.launches} gather launches in {n + WARMUP} "
                              "segments")
     _check_metrics(path, metrics)
 
@@ -1031,7 +1108,7 @@ def phase_host(path: str, gather) -> dict:
               "max_memory_allocated_gib": peak, "breakdown_ms": breakdown(parts)}
     log(f"{path}: {n} segments of {cfg['num_envs']} host envs x {cfg['segment']} steps + {cfg['updates']} updates "
         f"of batch {cfg['batch']}: {result['env_steps_per_s']:.1f} env-steps/s, {result['ms_per_segment']:.2f} ms "
-        f"per segment (stand-in env: env time understated), metrics {metrics}, {copies} packed copies in {n + 2}, "
+        f"per segment (stand-in env: env time understated), metrics {metrics}, {copies} packed copies in {n + WARMUP}, "
         f"max_memory_allocated {peak:.3f} GiB; the device part under torch.cuda.set_sync_debug_mode('error') raised "
         f"no host sync; one host-to-device copy dispatched in a segment ({floats} floats); {kernels} device kernels "
         f"and device busy {busy_ms:.2f} ms in its device part")
@@ -1080,7 +1157,7 @@ def phase_main_path(path: str, gather) -> int:
     (segments) with a test phase; the launch count is read over exactly that
     run."""
     cfg = PATHS[path]
-    trainer = build(path)[-1]
+    trainer = build_offline_path(path, "cuda")[-1] if path in OFFLINE_PATHS else build(path)[-1]
     gather.launches = 0
     info = trainer.run()
     launches = gather.launches
@@ -1088,8 +1165,12 @@ def phase_main_path(path: str, gather) -> int:
     if launches != KERNEL_LAUNCHES[path] * 2:
         raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in run(), "
                              f"not {KERNEL_LAUNCHES[path] * 2}")
-    warmup = cfg.get("warmup", 0) // cfg["num_envs"] * cfg["num_envs"]  # whole steps of every env
-    env_steps = warmup + 2 * cfg["num_envs"] * cfg["segment"]
+    if path in OFFLINE_PATHS:
+        # the offline accounting: env_step = gradient_step * batch
+        env_steps = 2 * cfg["updates"] * cfg["batch"]
+    else:
+        warmup = cfg.get("warmup", 0) // cfg["num_envs"] * cfg["num_envs"]  # whole steps of every env
+        env_steps = warmup + 2 * cfg["num_envs"] * cfg["segment"]
     if info.env_step != env_steps or info.gradient_step != 2 * cfg["updates"]:
         raise AssertionError(f"{path}: counters env_step={info.env_step} gradient_step={info.gradient_step}")
     _check_metrics(path, info.last_metrics)
@@ -1097,6 +1178,8 @@ def phase_main_path(path: str, gather) -> int:
         raise AssertionError(f"{path}: non-finite best reward: {info}")
     if path in HOST_PATHS:
         trainer.train_collector.venv.close()
+        trainer.test_collector.venv.close()
+    if path == "cql_d4rl":
         trainer.test_collector.venv.close()
     return launches
 
@@ -1132,6 +1215,17 @@ def build_onpolicy_path(path: str, device):
                    env.action_space, lr=linear_schedule(3e-4, 0.0, PPO_HOST_DECAY_UPDATES), gamma=0.99,
                    gae_lambda=0.95, eps_clip=0.2, vf_coef=0.25, ent_coef=0.0, max_grad_norm=0.5, adv_norm=False,
                    ret_norm=True, recompute_advantage=True, device=device)
+    elif path == "gail_pendulum":
+        # tests/test_offline_e2e.py:225-261
+        from tianshou_tpu_torch.algos.gail import GAIL
+        from tianshou_tpu_torch.envs.classic import Pendulum
+        from tianshou_tpu_torch.networks.continuous import Critic
+
+        env = Pendulum()
+        ebuf, ebs = pendulum_expert_ring(device, cfg["expert_envs"], cfg["expert_capacity"])
+        algo = GAIL(GaussianActor(3, hidden, 1), ValueNet(3, hidden), env.action_space, disc_net=Critic(3, 1, hidden),
+                    expert_buffer=ebuf, expert_buffer_state=ebs, disc_lr=2.5e-4, disc_update_num=2, lr=3e-4,
+                    gamma=0.95, gae_lambda=0.95, max_grad_norm=0.5, ent_coef=0.0, device=device)
     else:
         raise ValueError(f"unknown on-policy path {path!r}; have {ONPOLICY_PATHS}")
     if path in HOST_PATHS:
@@ -1159,6 +1253,194 @@ def build(path: str):
     """A path at full width on the card: ``(env, algo, train collector,
     buffer or None, trainer)``."""
     return build_onpolicy_path(path, "cuda") if path in ONPOLICY_PATHS else build_path(path, "cuda")
+
+
+_DATA: dict = {}
+
+
+def pendulum_expert_ring(device, num_envs: int, capacity: int):
+    """GAIL's expert data: a ``[num_envs, capacity]`` ring filled by one
+    rollout of uniform random actions over the on-device Pendulum (made once
+    per device)."""
+    key = ("pendulum", str(device), num_envs, capacity)
+    if key not in _DATA:
+        from tianshou_tpu_torch.algos.base import RandomPolicy
+        from tianshou_tpu_torch.collect.collector import Collector
+        from tianshou_tpu_torch.data.buffer import ReplayBuffer
+        from tianshou_tpu_torch.envs.base import VectorEnv
+        from tianshou_tpu_torch.envs.classic import Pendulum
+
+        env = Pendulum()
+        policy = RandomPolicy(env.action_space, device=device)
+        buf = ReplayBuffer(capacity, num_envs)
+        col = Collector(policy, VectorEnv(env, num_envs, device=device), buf, device=device)
+        _, ts, cstate, bstate = init_states(policy, col, buf, seed=3)
+        _, bstate, _ = col.collect(ts, cstate, bstate, capacity, random=True)
+        _DATA[key] = (buf, bstate)
+    return _DATA[key]
+
+
+def cartpole_offline_ring(device, num_envs: int, capacity: int):
+    """DiscreteCQL's data: a ``[num_envs, capacity]`` ring filled by one
+    epsilon-greedy (0.1) rollout of a freshly drawn QNet((128, 128, 128))
+    over the on-device CartPole (made once per device)."""
+    key = ("cartpole", str(device), num_envs, capacity)
+    if key not in _DATA:
+        from tianshou_tpu_torch.algos.dqn import DQN
+        from tianshou_tpu_torch.collect.collector import Collector
+        from tianshou_tpu_torch.data.buffer import ReplayBuffer
+        from tianshou_tpu_torch.envs.base import VectorEnv
+        from tianshou_tpu_torch.envs.classic import CartPole
+        from tianshou_tpu_torch.networks.common import QNet
+
+        env = CartPole()
+        policy = DQN(QNet(4, (128, 128, 128), 2), env.action_space, device=device)
+        buf = ReplayBuffer(capacity, num_envs)
+        col = Collector(policy, VectorEnv(env, num_envs, device=device), buf, device=device)
+        _, ts, cstate, bstate = init_states(policy, col, buf, seed=9)
+        _, bstate, _ = col.collect(ts, cstate, bstate, capacity, explore=True, explore_param=0.1)
+        _DATA[key] = (buf, bstate)
+    return _DATA[key]
+
+
+def d4rl_standin_dataset(transitions: int, episode_len: int, seed: int = 0) -> dict[str, np.ndarray]:
+    """A dataset in the D4RL qlearning schema at the size and shapes of
+    ``halfcheetah-medium-v2`` (obs 17 float32, actions 6 in [-1, 1]):
+    ``transitions // episode_len`` episodes of ``HalfCheetahStandIn``'s
+    dynamics run at once in numpy under a noisy linear policy, stored
+    episode after episode.  ``terminals`` are all false and ``timeouts``
+    mark each episode's last step."""
+    env = HalfCheetahStandIn()
+    env.reset(seed=seed)  # draws the dynamics and the reward weights
+    rng = np.random.default_rng(seed + 1)
+    n, m, episodes = env.OBS_DIM, env.ACT_DIM, transitions // episode_len
+    policy = rng.normal(0.0, 1.0 / math.sqrt(n), (n, m))
+    obs = np.empty((episodes, episode_len, n), np.float32)
+    act = np.empty((episodes, episode_len, m), np.float32)
+    rew = np.empty((episodes, episode_len), np.float32)
+    nxt = np.empty((episodes, episode_len, n), np.float32)
+    x = rng.normal(0.0, 0.1, (episodes, n))
+    for t in range(episode_len):
+        a = np.clip(np.tanh(x @ policy) + rng.normal(0.0, 0.3, (episodes, m)), -1.0, 1.0)
+        x_next = np.tanh(x @ env._a.T + a @ env._b.T) + rng.normal(0.0, 0.01, (episodes, n))
+        obs[:, t], act[:, t], nxt[:, t] = x, a, x_next
+        rew[:, t] = x_next @ env._w - 0.1 * (a * a).sum(-1)
+        x = x_next
+    timeouts = np.zeros((episodes, episode_len), bool)
+    timeouts[:, -1] = True
+    return {"observations": obs.reshape(-1, n), "actions": act.reshape(-1, m), "rewards": rew.reshape(-1),
+            "next_observations": nxt.reshape(-1, n), "terminals": np.zeros(episodes * episode_len, bool),
+            "timeouts": timeouts.reshape(-1)}
+
+
+def d4rl_standin_file(cfg: dict) -> str:
+    """:func:`d4rl_standin_dataset` written to ``build/`` as ``.npz`` (once
+    per run)."""
+    if "d4rl" not in _DATA:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "halfcheetah_standin_1m.npz")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        t0 = time.perf_counter()
+        np.savez(path, **d4rl_standin_dataset(cfg["transitions"], cfg["episode_len"]))
+        log(f"cql_d4rl dataset: {cfg['transitions']} transitions in the D4RL schema written to {path} "
+            f"({os.path.getsize(path) / 2**30:.3f} GiB) in {time.perf_counter() - t0:.1f} s")
+        _DATA["d4rl"] = path
+    return _DATA["d4rl"]
+
+
+def build_offline_path(path: str, device):
+    """An offline path through the port's entry points: ``(env, algo, test
+    collector, buffer, buffer state, trainer)``.  The trainer runs one epoch
+    of two supersteps."""
+    from tianshou_tpu_torch.algos.offline import CQL, DiscreteCQL
+    from tianshou_tpu_torch.collect.collector import Collector
+    from tianshou_tpu_torch.trainer.offline import OfflineTrainer
+
+    cfg = PATHS[path]
+    if path == "cql_d4rl":
+        # examples/offline_d4rl_cql.py:26-103 at its defaults, calibrated=False
+        from tianshou_tpu_torch.collect.host_collector import HostCollector
+        from tianshou_tpu_torch.data.persistence import buffer_from_d4rl
+        from tianshou_tpu_torch.envs.host import HostVectorEnv
+        from tianshou_tpu_torch.networks.continuous import CriticEnsemble, GaussianActor
+
+        buffer, bstate = buffer_from_d4rl(d4rl_standin_file(cfg), device=device)
+        env, hidden = HalfCheetahStandIn(), (256, 256)
+        algo = CQL(GaussianActor(env.OBS_DIM, hidden, env.ACT_DIM, conditioned_sigma=True),
+                   CriticEnsemble(env.OBS_DIM, env.ACT_DIM, hidden, num_critics=2), env.action_space, actor_lr=1e-4,
+                   critic_lr=3e-4, cql_weight=1.0, num_repeat_actions=10, with_lagrange=True, lagrange_threshold=10.0,
+                   calibrated=False, device=device)
+        test = HostCollector(algo, HostVectorEnv([HalfCheetahStandIn] * cfg["test_envs"]), device=device)
+    elif path == "discrete_cql_cartpole":
+        # tests/test_offline_e2e.py:197-209
+        from tianshou_tpu_torch.envs.base import VectorEnv
+        from tianshou_tpu_torch.envs.classic import CartPole
+        from tianshou_tpu_torch.networks.discrete import QRDQNNet
+
+        env = CartPole()
+        buffer, bstate = cartpole_offline_ring(device, cfg["num_envs"], cfg["capacity"])
+        algo = DiscreteCQL(QRDQNNet(4, (128, 128), 2, num_quantiles=32), env.action_space, num_quantiles=32,
+                           min_q_weight=10.0, gamma=0.95, n_step=3, target_update_freq=320, device=device)
+        test = Collector(algo, VectorEnv(env, cfg["test_envs"], device=device), device=device)
+    else:
+        raise ValueError(f"unknown offline path {path!r}; have {OFFLINE_PATHS}")
+    trainer = OfflineTrainer(algo, buffer, bstate, test, max_epoch=1, update_per_epoch=2 * cfg["updates"],
+                             batch_size=cfg["batch"], episode_per_test=cfg["episodes"],
+                             updates_per_superstep=cfg["updates"], device=device)
+    return env, algo, test, buffer, bstate, trainer
+
+
+def phase_offline(path: str, gather) -> dict:
+    """An offline path at full width: 1 warm-up and 3 timed supersteps of
+    ``updates`` updates, one under the sync guard, one under the profiler,
+    and the breakdown (one sampled batch, one update)."""
+    from tianshou_tpu_torch.data.tree import tree_leaves
+    from tianshou_tpu_torch.utils.device import fork_generator, make_generator
+
+    cfg = PATHS[path]
+    _fresh_memory()
+    env, algo, test, buffer, bstate, trainer = build_offline_path(path, "cuda")
+    gen = make_generator(0, algo.device)
+    state = [algo.init(fork_generator(gen)), algo.prepare_offline(buffer, bstate)
+             if hasattr(algo, "prepare_offline") else bstate]
+    fn = trainer._build_superstep()
+
+    def step():
+        state[0], state[1], metrics = fn(state[0], state[1], gen)
+        return metrics
+
+    n, updates, batch = TIMED, cfg["updates"], cfg["batch"]
+    gather.launches = 0
+    dt, metrics = timed(step, n)
+    if gather.launches != KERNEL_LAUNCHES[path] * (n + WARMUP):
+        raise AssertionError(f"{path}: gather_rows_cast launched {gather.launches} times in {n + WARMUP} supersteps")
+    _check_metrics(path, metrics)
+    sync_guarded(step)
+    obs = buffer.get(state[1], torch.zeros(256, dtype=torch.int64, device=algo.device),
+                     torch.arange(256, device=algo.device) * 997 % buffer.capacity, keys=("obs",))["obs"]
+    check_policy(path, algo, state[0], obs, gen, env)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kernels, busy_ms = _profile_counts(step)
+    data_gb = sum(x.numel() * x.element_size() for x in tree_leaves(state[1].storage)) / 1e9
+    result = {"gradient_steps_per_s": n * updates / dt, "samples_per_s": n * updates * batch / dt,
+              "ms_per_superstep": dt / n * 1e3, **metrics, "updates_per_superstep": updates, "batch": batch,
+              "device_kernels_per_superstep": kernels, "device_busy_ms_per_superstep_profiled": busy_ms,
+              "max_memory_allocated_gib": peak, "dataset_gb": data_gb}
+
+    def sample():
+        env_idx, pos, _ = buffer.sample_with_weights(state[1], gen, batch)
+        buffer.get(state[1], env_idx, pos, keys=("obs", "act", "rew", "obs_next", "terminated", "truncated"))
+
+    result["breakdown_ms"] = breakdown({"sample (one batch)": sample,
+                                        "one update": lambda: algo.update(state[0], buffer, state[1], gen, batch)})
+    log(f"{path}: {n} supersteps of {updates} updates of batch {batch} on a dataset of {data_gb:.3f} GB: "
+        f"{result['gradient_steps_per_s']:.1f} gradient steps/s ({result['samples_per_s']:.0f} samples/s), "
+        f"{result['ms_per_superstep']:.2f} ms per superstep, metrics {metrics}, max_memory_allocated {peak:.3f} GiB; "
+        f"a superstep under torch.cuda.set_sync_debug_mode('error') raised no host sync; profiled superstep: "
+        f"{kernels} device kernels, device busy {busy_ms:.2f} ms")
+    log(f"{path} breakdown (median of 3, ms): " + ", ".join(f"{k} {v:.2f}" for k, v in result["breakdown_ms"].items()))
+    if hasattr(test.venv, "close"):
+        test.venv.close()
+    return result
 
 
 def _processing_passes(algo, repeat: int) -> int:
@@ -1205,13 +1487,16 @@ def _profile_counts(fn) -> tuple[int, float]:
         torch.cuda._sleep(2_000_000_000)
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name]
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
-        busy_us += max(0.0, stop - max(start, end))
+    # the trace's raw records hold the same kernels as ``prof.events()``,
+    # without building a function event for each of tens of thousands of
+    # records
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name()]
+    busy_ns, end = 0, -1
+    for start, stop in sorted((e.start_ns(), e.end_ns()) for e in events):
+        busy_ns += max(0, stop - max(start, end))
         end = max(end, stop)
-    return len(events), busy_us / 1e3
+    return len(events), busy_ns / 1e6
 
 
 def phase_reference_onpolicy() -> None:
@@ -1642,6 +1927,213 @@ def phase_reference_offpolicy_rest() -> None:
         f"1e-4 / atol 1e-5 (largest difference {err:.3e})")
 
 
+def phase_reference_offline() -> None:
+    """Slice 7 on the card against the CPU (float32, TF32 off, rtol 1e-4 /
+    atol 1e-5), from the same parameters, ring, sampled slots and draws: one
+    update each of BC, TD3BC, BCQ, CQL (plain, Lagrange, and CalQL with
+    ``prepare_offline``'s returns), DiscreteBCQ, DiscreteCQL, DiscreteCRR in
+    each mode and ICM around DQN; GAIL's ``pre_learn`` and
+    ``process_rollout``; one PSRL ``learn`` with the same Dirichlet draw;
+    ``sample_her`` and one DDPG update from a HER presample."""
+    from tianshou_tpu_torch.algos.ddpg import DDPG
+    from tianshou_tpu_torch.algos.dqn import DQN
+    from tianshou_tpu_torch.algos.gail import GAIL
+    from tianshou_tpu_torch.algos.icm import ICM, ICMNet
+    from tianshou_tpu_torch.algos.offline import BC, BCQ, CQL, TD3BC, DiscreteBCQ, DiscreteCQL, DiscreteCRR
+    from tianshou_tpu_torch.algos.psrl import PSRL
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.data.buffer import ReplayBuffer
+    from tianshou_tpu_torch.data.her import HERReplayBuffer
+    from tianshou_tpu_torch.envs.spaces import Box, Discrete
+    from tianshou_tpu_torch.networks.common import QNet
+    from tianshou_tpu_torch.networks.continuous import (
+        VAE, Critic, CriticEnsemble, DeterministicActor, GaussianActor, Perturbation, ValueNet)
+    from tianshou_tpu_torch.networks.discrete import QRDQNNet
+
+    rng = np.random.default_rng(8)
+    obs_dim, hidden, batch, cap, n_envs = 4, (32, 32), 16, 16, 2
+    box, disc = Box(-1.0, 1.0, (2,)), Discrete(3)
+
+    def steps_of(kind, seed):
+        r = np.random.default_rng(seed)
+        out = []
+        for _ in range(40):
+            act = (r.uniform(-1, 1, (n_envs, 2)).astype(np.float32) if kind == "box"
+                   else r.integers(0, 3, n_envs).astype(np.int32))
+            obs, nxt = (r.normal(size=(n_envs, obs_dim)).astype(np.float32) for _ in range(2))
+            if kind == "goal":  # [pos, achieved, desired, 0]
+                obs[:, 1], nxt[:, 1] = obs[:, 0], nxt[:, 0]
+                nxt[:, 2] = obs[:, 2]
+                act = r.uniform(-1, 1, (n_envs, 2)).astype(np.float32)
+            out.append(dict(obs=obs, act=act, rew=r.normal(size=n_envs).astype(np.float32),
+                            terminated=r.random(n_envs) < 0.1, truncated=r.random(n_envs) < 0.1, obs_next=nxt))
+        return out
+
+    data = {kind: steps_of(kind, i) for i, kind in enumerate(("box", "discrete", "goal"))}
+    slots = torch.from_numpy(rng.choice(n_envs * cap, batch, replace=False))
+
+    def ring(dev, kind, buf=None):
+        """The ring of ``kind``'s 40 steps on ``dev``; every sample draws
+        ``slots``."""
+        buf = buf or ReplayBuffer(cap, n_envs)
+        steps = data[kind]
+        bs = buf.init(Batch({k: torch.as_tensor(v[0]) for k, v in steps[0].items()}), device=dev)
+        for tr in steps:
+            bs = buf.add(bs, Batch({k: torch.from_numpy(v).to(dev) for k, v in tr.items()}))
+        s = slots.to(dev)
+        buf.sample_with_weights = lambda st, g, b: (s // cap, s % cap, torch.ones(b, device=dev))
+        return buf, bs
+
+    normals = {shape: rng.normal(size=shape).astype(np.float32) for shape in
+               ((batch, 2), (batch * 5, 3), (batch, 3), (batch * 4, 2))}
+    uniform = rng.uniform(-1, 1, (batch * 4, 2)).astype(np.float32)
+
+    def on(dev, *arrays):
+        return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+    def offline_update(kind):
+        def update(algo, ts, dev):
+            buf, bs = ring(dev, kind)
+            ts, _, m = algo.update(ts, buf, bs, None, batch)
+            return ts, m, []
+        return update
+
+    def td3bc_update(algo, ts, dev):
+        buf, bs = ring(dev, "box")
+        ts, _, m = algo.update_sampled(ts, buf, bs, algo.presample(buf, bs, None, batch),
+                                       noise=on(dev, normals[batch, 2])[0])
+        return ts, m, []
+
+    def bcq_update(algo, ts, dev):
+        buf, bs = ring(dev, "box")
+        noise = on(dev, normals[batch, 3], normals[batch * 5, 3], normals[batch, 3] * 0.5)
+        ts, _, m = algo.update(ts, buf, bs, None, batch, noise=noise)
+        return ts, m, []
+
+    def cql_update(algo, ts, dev):
+        buf, bs = ring(dev, "box")
+        bs = algo.prepare_offline(buf, bs)
+        noise = on(dev, normals[batch, 2], normals[batch, 2] * 0.5, normals[batch * 4, 2],
+                   normals[batch * 4, 2][::-1].copy(), uniform)
+        ts, _, m = algo.update(ts, buf, bs, None, batch, noise=noise)
+        return ts, m, [bs.storage["calibration_return"]] if algo.calibrated else []
+
+    def icm_update(algo, ts, dev):
+        buf, bs = ring(dev, "discrete")
+        ts, _, m = algo.update(ts, buf, bs, None, batch)
+        return ts, m, []
+
+    traj_np = dict(obs=rng.normal(size=(8, 4, obs_dim)).astype(np.float32),
+                   act=rng.normal(size=(8, 4, 2)).astype(np.float32), rew=rng.normal(size=(8, 4)).astype(np.float32),
+                   terminated=rng.random((8, 4)) < 0.05, truncated=rng.random((8, 4)) < 0.05,
+                   obs_next=rng.normal(size=(8, 4, obs_dim)).astype(np.float32),
+                   log_prob=(rng.normal(size=(8, 4)) - 1).astype(np.float32))
+    gail_rows = [torch.from_numpy(rng.integers(0, 32, batch)) for _ in range(2)]
+
+    def gail_make(dev):
+        buf, bs = ring(dev, "box")
+        return GAIL(GaussianActor(obs_dim, hidden, 2), ValueNet(obs_dim, hidden), box,
+                    disc_net=Critic(obs_dim, 2, hidden), expert_buffer=buf, expert_buffer_state=bs, disc_lr=1e-2,
+                    disc_update_num=2, lr=1e-3, gamma=0.95, gae_lambda=0.95, max_grad_norm=0.5, device=dev)
+
+    def gail_update(algo, ts, dev):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in traj_np.items()}
+        traj = Batch({k: v for k, v in t.items() if k != "log_prob"}, policy=Batch(log_prob=t["log_prob"]))
+        s = slots.to(dev)
+        ts, m = algo.pre_learn(ts, traj, None, draws=[(r.to(dev), s // cap, s % cap) for r in gail_rows])
+        processed = algo.process_rollout(ts, traj)
+        return ts, m, [processed[k] for k in sorted(processed)]
+
+    mb_np = dict(obs=rng.integers(0, 5, (40, 1)), act=rng.integers(0, 2, 40), rew=rng.normal(size=40).astype(np.float32),
+                 obs_next=rng.integers(0, 5, (40, 1)))
+    dirichlet = rng.dirichlet(np.ones(5), size=(5, 2)).astype(np.float32)
+
+    def psrl_update(algo, ts, dev):
+        ts, m = algo.learn(ts, Batch({k: torch.from_numpy(v).to(dev) for k, v in mb_np.items()}),
+                           transitions=on(dev, dirichlet)[0])
+        return ts, m, [ts.trans_counts, ts.rew_sum, ts.rew_count, ts.value_table, ts.policy_table]
+
+    def her_reward(achieved, desired):
+        return torch.where((achieved[:, 0] - desired[:, 0]).abs() <= 0.5, 0.0, -1.0)
+
+    her_u = rng.random((2, batch)).astype(np.float32)
+
+    def her_update(algo, ts, dev):
+        buf, bs = ring(dev, "goal", HERReplayBuffer(cap, n_envs, compute_reward_fn=her_reward, achieved_slice=(1, 2),
+                                                    desired_slice=(2, 3), horizon=6, future_k=4.0))
+        s = slots.to(dev)
+        draws = (s // cap, s % cap, *on(dev, *her_u))
+        buf.sample_her = lambda st, g, b: HERReplayBuffer.sample_her(buf, st, g, b, draws=draws)
+        sampled = algo.presample(buf, bs, None, batch)
+        ts, _, m = algo.update_sampled(ts, buf, bs, sampled)
+        return ts, m, [sampled[3][k] for k in sorted(sampled[3])]
+
+    ac = ("actor", "critic", "target_actor", "target_critic")
+    sac_like = ("actor", "critic", "target_critic")
+    dq = ("online", "target")
+    cases = {
+        "bc": (lambda dev: BC(DeterministicActor(obs_dim, hidden, 2), box, lr=1e-2, device=dev), ("online",),
+               offline_update("box")),
+        "td3bc": (lambda dev: TD3BC(DeterministicActor(obs_dim, hidden, 2), CriticEnsemble(obs_dim, 2, hidden), box,
+                                    update_actor_freq=1, device=dev), ac, td3bc_update),
+        "bcq": (lambda dev: BCQ(Perturbation(obs_dim, hidden, 2, phi=0.5), CriticEnsemble(obs_dim, 2, hidden),
+                                VAE(obs_dim, hidden, 2, 3), box, num_sampled_action=5, device=dev), ac + ("vae",),
+                bcq_update),
+        "discrete_bcq": (lambda dev: DiscreteBCQ(QNet(obs_dim, hidden, 3), QNet(obs_dim, hidden, 3), disc,
+                                                 target_update_freq=1, device=dev), dq, offline_update("discrete")),
+        "discrete_cql": (lambda dev: DiscreteCQL(QRDQNNet(obs_dim, hidden, 3, num_quantiles=8), disc, num_quantiles=8,
+                                                 n_step=3, target_update_freq=1, device=dev), dq,
+                         offline_update("discrete")),
+        "icm": (lambda dev: ICM(DQN(QNet(obs_dim, hidden, 3), disc, n_step=1, target_update_freq=1, device=dev),
+                                ICMNet(obs_dim, (16,), 8, 3), reward_scale=0.5), ("icm", "inner.online", "inner.target"),
+                icm_update),
+        "gail": (gail_make, ("actor", "critic", "disc"), gail_update),
+        "psrl": (lambda dev: PSRL(5, Discrete(2), gamma=0.9, device=dev), (), psrl_update),
+        "her_ddpg": (lambda dev: DDPG(DeterministicActor(obs_dim, hidden, 2), CriticEnsemble(obs_dim, 2, hidden, 1),
+                                      box, device=dev), ac, her_update),
+    }
+    for variant, kw in (("cql", dict(with_lagrange=False)), ("cql_lagrange", dict(lagrange_threshold=0.5)),
+                        ("calql", dict(lagrange_threshold=0.5, calibrated=True))):
+        cases[variant] = (lambda dev, kw=kw: CQL(GaussianActor(obs_dim, hidden, 2, conditioned_sigma=True),
+                                                 CriticEnsemble(obs_dim, 2, hidden), box, num_repeat_actions=4,
+                                                 alpha_lr=3e-2, cql_alpha_lr=3e-2, device=dev, **kw),
+                          sac_like + ("log_alpha",) + (("cql_log_alpha",) if variant != "cql" else ()), cql_update)
+    for mode in ("exp", "binary", "all"):
+        cases[f"discrete_crr_{mode}"] = (
+            lambda dev, mode=mode: DiscreteCRR(QNet(obs_dim, hidden, 3), QNet(obs_dim, hidden, 3), disc,
+                                               policy_improvement_mode=mode, beta=0.5, target_update_freq=1,
+                                               device=dev), dq, offline_update("discrete"))
+
+    def part(ts, name):
+        for attr in name.split("."):
+            ts = getattr(ts, attr)
+        return ts
+
+    def values(obj) -> dict[str, torch.Tensor]:
+        return obj.state_dict() if isinstance(obj, torch.nn.Module) else {"": obj}
+
+    for kind, (make, parts, update) in cases.items():
+        runs, init = {}, None
+        for dev in ("cuda", "cpu"):
+            algo = make(dev)
+            ts = algo.init(torch.Generator(device=dev).manual_seed(0))
+            if init is None:
+                init = {p: {n: v.detach().cpu().clone() for n, v in values(part(ts, p)).items()} for p in parts}
+            with torch.no_grad():
+                for p in parts:
+                    for n, v in values(part(ts, p)).items():
+                        v.copy_(init[p][n])
+            ts, m, out = update(algo, ts, dev)
+            runs[dev] = (ts, [torch.stack([m[k].float() for k in sorted(m)]), *out])
+        (gts, gout), (cts, cout) = runs["cuda"], runs["cpu"]
+        err = max(_assert_close(f"{kind} output {i}", g.float(), c.float()) for i, (g, c) in enumerate(zip(gout, cout)))
+        for p in parts:
+            for n, v in values(part(gts, p)).items():
+                err = max(err, _assert_close(f"{kind} {p} {n}", v, values(part(cts, p))[n]))
+        log(f"reference {kind}: one update on the card equals the CPU's within rtol 1e-4 / atol 1e-5 (largest "
+            f"difference {err:.3e})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1659,10 +2151,15 @@ def main() -> int:
     phase_reference_onpolicy()
     phase_reference_distributional()
     phase_reference_offpolicy_rest()
+    phase_reference_offline()
+    log(f"chip_smoke: checks and references passed at {time.perf_counter() - t0:.1f} s")
     results, launches = {}, 0
     for path in PATHS:
-        results[path] = (phase_host if path in HOST_PATHS else phase_superstep)(path, gather_rows_cast)
+        t_path = time.perf_counter()
+        phase = phase_host if path in HOST_PATHS else phase_offline if path in OFFLINE_PATHS else phase_superstep
+        results[path] = phase(path, gather_rows_cast)
         launches += phase_main_path(path, gather_rows_cast)
+        results[path]["phase_s"] = time.perf_counter() - t_path
     kernel["launches"] = launches
     stored, dedup = results["atari"], results["atari_dedup"]
     log("atari memory regime: frames stored once (atari_dedup) beside stored stacks (atari): "

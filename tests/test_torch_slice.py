@@ -180,16 +180,24 @@ def _entry_points():
     from tianshou_tpu_torch.algos.bdq import BDQ
     from tianshou_tpu_torch.algos.c51 import C51
     from tianshou_tpu_torch.algos.drqn import DRQN
+    from tianshou_tpu_torch.algos.gail import GAIL
+    from tianshou_tpu_torch.algos.icm import ICM, ICMNet
+    from tianshou_tpu_torch.algos.offline import BC, BCQ, CQL, TD3BC, DiscreteBCQ, DiscreteCQL, DiscreteCRR
+    from tianshou_tpu_torch.algos.psrl import PSRL
     from tianshou_tpu_torch.algos.qrdqn import QRDQN
     from tianshou_tpu_torch.algos.redq import REDQ
     from tianshou_tpu_torch.algos.sac import DiscreteSAC
+    from tianshou_tpu_torch.data.her import HERReplayBuffer
+    from tianshou_tpu_torch.data.persistence import buffer_from_d4rl
     from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
     from tianshou_tpu_torch.envs.spaces import Box, Discrete, MultiDiscrete
     from tianshou_tpu_torch.exploration.noise import OUNoise
     from tianshou_tpu_torch.networks.common import BranchingQNet, QNetEnsemble, RecurrentQNet
-    from tianshou_tpu_torch.networks.continuous import CriticEnsemble, GaussianActor
+    from tianshou_tpu_torch.networks.continuous import (
+        VAE, Critic, CriticEnsemble, DeterministicActor, GaussianActor, Perturbation, ValueNet)
     from tianshou_tpu_torch.networks.conv import ConvQRDQNNet
-    from tianshou_tpu_torch.networks.discrete import C51Net
+    from tianshou_tpu_torch.networks.discrete import C51Net, QRDQNNet
+    from tianshou_tpu_torch.trainer.offline import OfflineTrainer
 
     env = SyntheticPixelEnv(H, W, C, num_actions=A)
     algo = DQN(ConvQNet((H, W, C), A), env.action_space, device="cpu")
@@ -197,6 +205,9 @@ def _entry_points():
     col = Collector(algo, venv, device="cpu")
     example = col.example_transition(algo.init(torch.Generator().manual_seed(0)),
                                      col.reset(torch.Generator().manual_seed(0)))
+    box = Box(-1.0, 1.0, (1,))
+    d4rl = {k: np.zeros((4, 3), np.float32) for k in ("observations", "next_observations")}
+    d4rl.update(actions=np.zeros((4, 1), np.float32), rewards=np.zeros(4), terminals=np.zeros(4, bool))
     return {
         "VectorEnv": lambda: VectorEnv(env, N_ENVS),
         "ReplayBuffer.init": lambda: ReplayBuffer(CAP, N_ENVS).init(example),
@@ -213,12 +224,31 @@ def _entry_points():
         "BDQ": lambda: BDQ(BranchingQNet(4, (8,), 2, 3), MultiDiscrete((3, 3))),
         "DRQN": lambda: DRQN(RecurrentQNet(4, 8, 2), Discrete(2)),
         "OUNoise": lambda: OUNoise(),
+        "BC": lambda: BC(DeterministicActor(3, (8,), 1), box),
+        "TD3BC": lambda: TD3BC(DeterministicActor(3, (8,), 1), CriticEnsemble(3, 1, (8,)), box),
+        "BCQ": lambda: BCQ(Perturbation(3, (8,), 1), CriticEnsemble(3, 1, (8,)), VAE(3, (8,), 1, 2), box),
+        "CQL": lambda: CQL(GaussianActor(3, (8,), 1, conditioned_sigma=True), CriticEnsemble(3, 1, (8,)), box),
+        "DiscreteBCQ": lambda: DiscreteBCQ(QNet(4, (8,), 2), QNet(4, (8,), 2), Discrete(2)),
+        "DiscreteCQL": lambda: DiscreteCQL(QRDQNNet(4, (8,), 2, 8), Discrete(2), num_quantiles=8),
+        "DiscreteCRR": lambda: DiscreteCRR(QNet(4, (8,), 2), QNet(4, (8,), 2), Discrete(2)),
+        "buffer_from_d4rl": lambda: buffer_from_d4rl(d4rl),
+        "OfflineTrainer": lambda: OfflineTrainer(
+            algo, ReplayBuffer(CAP, N_ENVS), ReplayBuffer(CAP, N_ENVS).init(example, device="cpu"), col,
+            max_epoch=1, update_per_epoch=1),
+        "HERReplayBuffer.init": lambda: HERReplayBuffer(
+            CAP, N_ENVS, compute_reward_fn=None, achieved_slice=(0, 1), desired_slice=(1, 2)).init(example),
+        "ICM": lambda: ICM(DQN(QNet(4, (8,), 2), Discrete(2)), ICMNet(4, (8,), 4, 2)),
+        "GAIL": lambda: GAIL(GaussianActor(3, (8,), 1), ValueNet(3, (8,)), box, disc_net=Critic(3, 1, (8,)),
+                             expert_buffer=ReplayBuffer(CAP, 1), expert_buffer_state=None),
+        "PSRL": lambda: PSRL(5, Discrete(2)),
     }
 
 
 @pytest.mark.parametrize("entry", ["VectorEnv", "ReplayBuffer.init", "DQN", "Collector", "OffPolicyTrainer",
                                    "PrioritizedReplayBuffer.init", "C51", "QRDQN", "REDQ", "DiscreteSAC", "BDQ",
-                                   "DRQN", "OUNoise"])
+                                   "DRQN", "OUNoise", "BC", "TD3BC", "BCQ", "CQL", "DiscreteBCQ", "DiscreteCQL",
+                                   "DiscreteCRR", "buffer_from_d4rl", "OfflineTrainer", "HERReplayBuffer.init", "ICM",
+                                   "GAIL", "PSRL"])
 def test_default_device_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -250,16 +280,38 @@ SLICE4_MODULES = ["ops.returns", "utils.statistics", "envs.norm", "networks.cont
 SLICE5_MODULES = ["ops.segtree", "data.prio", "networks.discrete", "algos.c51", "algos.qrdqn"]
 SLICE6_MODULES = ["networks.common", "networks.convert", "exploration.noise", "algos.base", "collect.collector",
                   "algos.redq", "algos.sac", "algos.bdq", "algos.drqn", "data.tree", "data.buffer", "envs.spaces"]
+SLICE7_MODULES = ["data.persistence", "networks.continuous", "trainer.offline", "algos.offline", "data.her",
+                  "algos.icm", "algos.gail", "algos.psrl", "algos.base", "algos.ddpg"]
 
 
 def test_port_imports_slice2_modules_without_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES!r}:\n"
+        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES!r}:\n"
         "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tianshou_tpu'))\n"
         "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_slice7_modules_import_without_h5py():
+    """No module of the port imports ``h5py`` when it is imported: with
+    ``h5py`` unimportable, every slice-7 module imports and an ``.npz``
+    dataset loads."""
+    code = (
+        "import importlib, sys\n"
+        "import numpy as np\n"
+        "sys.modules['h5py'] = None\n"
+        f"for m in {SLICE7_MODULES!r}:\n"
+        "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
+        "from tianshou_tpu_torch.data.persistence import buffer_from_d4rl\n"
+        "d = {k: np.zeros((4, 3), np.float32) for k in ('observations', 'next_observations')}\n"
+        "d.update(actions=np.zeros((4, 1), np.float32), rewards=np.zeros(4), terminals=np.zeros(4, bool))\n"
+        "buf, st = buffer_from_d4rl(d, device='cpu')\n"
+        "assert buf.capacity == 4\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

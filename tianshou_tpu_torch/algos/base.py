@@ -33,6 +33,7 @@ from torch import nn
 
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
+from tianshou_tpu_torch.data.her import HERReplayBuffer
 from tianshou_tpu_torch.data.tree import tree_leaves, tree_map
 from tianshou_tpu_torch.envs.spaces import Box, Discrete, Space
 from tianshou_tpu_torch.utils.device import make_generator, resolve_device
@@ -187,9 +188,23 @@ class Algorithm:
     ) -> tuple:
         """Sample and gather the n-step structure of an off-policy update:
         ``(env_idx, pos, weight, batch{obs, act}, rew_chain [B, n],
-        done_chain [B, n], term{obs_next, terminated})``."""
-        env_idx, pos, weight = buffer.sample_with_weights(bstate, generator, batch_size)
+        done_chain [B, n], term{obs_next, terminated})``.
+
+        A :class:`HERReplayBuffer` is sampled through its ``sample_her``
+        (hindsight goals and rewards; one-step targets only), so that the
+        algorithms stay unaware of goals; its ``batch`` holds every key of
+        the rewritten transitions."""
         dt = self.obs_dtype
+        if isinstance(buffer, HERReplayBuffer):
+            if n_step != 1:
+                raise ValueError(f"HER supports 1-step targets, not n_step={n_step}")
+            env_idx, pos, weight, b = buffer.sample_her(bstate, generator, batch_size)
+            if dt is not None:
+                b["obs"], b["obs_next"] = b["obs"].to(dt), b["obs_next"].to(dt)
+            done_chain = (b["terminated"] | b["truncated"]).to(torch.int32)[:, None]
+            term = Batch(obs_next=b["obs_next"], terminated=b["terminated"])
+            return env_idx, pos, weight, b, b["rew"][:, None], done_chain, term
+        env_idx, pos, weight = buffer.sample_with_weights(bstate, generator, batch_size)
         batch = buffer.get(bstate, env_idx, pos, keys=("obs", "act"), dtypes={"obs": dt})
         rew_chain, done_chain, term_pos = buffer.nstep_chain(bstate, env_idx, pos, n_step)
         term = buffer.get(

@@ -150,9 +150,14 @@ class DDPG(Algorithm):
         a_next = self._target_action(ts, obs_next, generator, noise)
         return torch.amin(ts.target_critic(obs_next, a_next), dim=0) * value_mask
 
-    def _update_actor(self, ts: ACTrainState, batch) -> torch.Tensor:
+    def _actor_loss(self, ts: ACTrainState, batch) -> torch.Tensor:
+        """``-Q_0(s, pi(s))`` averaged over the batch (TD3+BC adds its
+        behaviour-cloning term here)."""
         obs = batch["obs"]
-        loss = -ts.critic(obs, ts.actor(obs))[0].mean()
+        return -ts.critic(obs, ts.actor(obs))[0].mean()
+
+    def _update_actor(self, ts: ACTrainState, batch) -> torch.Tensor:
+        loss = self._actor_loss(ts, batch)
         apply_loss(ts.actor_optimizer, loss)
         polyak_update(ts.target_actor, ts.actor, self.tau)
         polyak_update(ts.target_critic, ts.critic, self.tau)

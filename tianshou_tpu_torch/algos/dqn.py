@@ -28,7 +28,18 @@ from tianshou_tpu_torch.envs.spaces import Discrete
 from tianshou_tpu_torch.ops.returns import nstep_return
 from tianshou_tpu_torch.utils.device import resolve_device
 
-__all__ = ["DQN", "take_action"]
+__all__ = ["DQN", "optimizer_step", "take_action"]
+
+
+def optimizer_step(ts: TrainState, loss: torch.Tensor, target_update_freq: int = 0) -> None:
+    """The optimizer step on ``loss``, ``step += 1``, and the target copy
+    when ``target_update_freq > 0`` and ``step % target_update_freq == 0``."""
+    ts.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    ts.optimizer.step()
+    ts.step += 1
+    if target_update_freq > 0 and ts.step % target_update_freq == 0:
+        ts.target.load_state_dict(ts.online.state_dict())
 
 
 def take_action(values: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
@@ -153,11 +164,4 @@ class DQN(Algorithm):
         return ts, bstate, {"loss": loss.detach(), "td_abs_mean": td_abs.mean()}
 
     def _finish_update(self, ts: TrainState, loss: torch.Tensor) -> None:
-        """The Adam step on ``loss``, ``step += 1``, and the target copy
-        when ``step % target_update_freq == 0``."""
-        ts.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        ts.optimizer.step()
-        ts.step += 1
-        if self.target_update_freq > 0 and ts.step % self.target_update_freq == 0:
-            ts.target.load_state_dict(ts.online.state_dict())
+        optimizer_step(ts, loss, self.target_update_freq)

@@ -11,7 +11,12 @@ default lecun-normal.  Log-sigma is clipped to ``[-20, 2]``.
 :class:`~tianshou_tpu_torch.networks.common.EnsembleMLP` over the
 concatenated observation and action: one batched product per layer.
 
-``Perturbation`` and ``VAE`` come with their algorithms.
+:class:`Perturbation` and :class:`VAE` are BCQ's behaviour model
+(``algos/offline.py``).  The VAE's mean and log-std heads keep Flax's
+default lecun-normal; its encoder and decoder are MLPs initialised as
+above.  Its two normal draws (the reparameterised latent, the clipped prior
+sample of :meth:`VAE.decode`) are taken as arguments, so the parity tests
+can feed the JAX package's own.
 """
 
 from __future__ import annotations
@@ -24,7 +29,10 @@ from torch import nn
 from tianshou_tpu_torch.networks.common import MLP, EnsembleMLP, _flat_dim
 from tianshou_tpu_torch.networks.conv import _lecun_normal_
 
-__all__ = ["DeterministicActor", "GaussianActor", "Critic", "CriticEnsemble", "ValueNet", "LOG_SIG_MIN", "LOG_SIG_MAX"]
+__all__ = [
+    "DeterministicActor", "GaussianActor", "Critic", "CriticEnsemble", "ValueNet", "Perturbation", "VAE",
+    "LOG_SIG_MIN", "LOG_SIG_MAX",
+]
 
 LOG_SIG_MIN = -20.0
 LOG_SIG_MAX = 2.0
@@ -171,3 +179,85 @@ class ValueNet(nn.Module):
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         return self.mlp(obs).squeeze(-1)
+
+
+class Perturbation(nn.Module):
+    """BCQ's perturbation net: ``(obs, act) -> clip(act + phi * max_action *
+    tanh(MLP([obs, act])), -max_action, max_action)``, a bounded adjustment
+    of a sampled action."""
+
+    def __init__(
+        self,
+        obs_shape: int | Sequence[int],
+        hidden_sizes: Sequence[int],
+        action_dim: int,
+        max_action: float = 1.0,
+        phi: float = 0.05,
+    ):
+        super().__init__()
+        self.mlp = MLP(_flat_dim(obs_shape) + action_dim, hidden_sizes, action_dim)
+        self.max_action = max_action
+        self.phi = phi
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        self.mlp.reset_parameters(generator)
+
+    def forward(self, obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+        adj = self.phi * self.max_action * torch.tanh(self.mlp(_critic_input(obs, act)))
+        return torch.clamp(act + adj, -self.max_action, self.max_action)
+
+
+class VAE(nn.Module):
+    """BCQ's conditional VAE over actions.  The encoder maps ``[obs, act]``
+    to the latent's mean and log-std (clipped to ``[-4, 15]``); the decoder
+    maps ``[obs, z]`` to ``max_action * tanh(...)``, its hidden sizes the
+    encoder's reversed."""
+
+    LOG_STD_MIN, LOG_STD_MAX = -4.0, 15.0
+
+    def __init__(
+        self,
+        obs_shape: int | Sequence[int],
+        hidden_sizes: Sequence[int],
+        action_dim: int,
+        latent_dim: int,
+        max_action: float = 1.0,
+    ):
+        super().__init__()
+        obs_dim = _flat_dim(obs_shape)
+        self.encoder = MLP(obs_dim + action_dim, hidden_sizes, None)
+        self.mean_head = nn.Linear(self.encoder.out_features, latent_dim)
+        self.log_std_head = nn.Linear(self.encoder.out_features, latent_dim)
+        self.decoder = MLP(obs_dim + latent_dim, tuple(reversed(hidden_sizes)), action_dim)
+        self.latent_dim = latent_dim
+        self.max_action = max_action
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        self.encoder.reset_parameters(generator)
+        for head in (self.mean_head, self.log_std_head):
+            _lecun_normal_(head.weight, generator)
+            nn.init.zeros_(head.bias)
+        self.decoder.reset_parameters(generator)
+
+    def forward(
+        self, obs: torch.Tensor, act: torch.Tensor, noise: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(reconstruction, mean, log_std)``, the latent drawn as ``mean +
+        exp(log_std) * noise`` from ``noise [B, latent_dim]``, a standard
+        normal draw."""
+        h = self.encoder(_critic_input(obs, act))
+        mean = self.mean_head(h)
+        log_std = torch.clamp(self.log_std_head(h), self.LOG_STD_MIN, self.LOG_STD_MAX)
+        z = mean + torch.exp(log_std) * noise
+        return self.decode(obs, z), mean, log_std
+
+    def decode(
+        self, obs: torch.Tensor, z: torch.Tensor | None = None, noise: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        """Actions decoded from ``z``, or without ``z`` from a prior sample,
+        ``noise [B, latent_dim]`` (a standard normal draw) clipped to
+        ``[-0.5, 0.5]``."""
+        if z is None:
+            z = torch.clamp(noise, -0.5, 0.5)
+        return self.max_action * torch.tanh(self.decoder(_critic_input(obs, z)))

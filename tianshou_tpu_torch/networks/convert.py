@@ -49,6 +49,12 @@ trunk, -> ``mlp``), ``MLP_1`` (the value head, -> ``value``) and
 ``weight_ih`` and ``weight_hh`` (transposed), their biases into
 ``bias_hh``.
 
+Modules that name their submodules in ``setup`` keep those names: BCQ's
+``VAE`` (``encoder`` and ``decoder`` MLPs, ``mean_head`` and
+``log_std_head`` Dense layers) and ICM's ``ICMNet`` (``encoder``,
+``forward_head`` and ``inverse_head`` MLPs); an MLP ``name``'s ``Dense_i``
+becomes ``name.layers.i``.  BCQ's ``Perturbation`` is an ``MLP_0`` alone.
+
 :func:`onpolicy_state_from_flax` carries an on-policy train state: the
 ``{"actor": ..., "critic": ...}`` parameters (a ``ValueNet`` critic is an
 ``MLP_0`` alone) and the running return statistics ``ret_mean``,
@@ -57,6 +63,7 @@ trunk, -> ``mlp``), ``MLP_1`` (the value head, -> ``value``) and
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -150,6 +157,13 @@ def _noisy_c51(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def _setup_named(tree: Mapping) -> bool:
+    """Whether every submodule of ``tree`` has a ``setup`` name (no
+    ``Class_i`` auto-name)."""
+    return bool(tree) and all(isinstance(v, Mapping) and not re.fullmatch(r"[A-Z]\w*_\d+", k)
+                              for k, v in tree.items())
+
+
 def params_from_flax(flax_params: Mapping, heads: tuple[str, ...] | None = None) -> dict[str, torch.Tensor]:
     """State dict of the port's counterpart of a Flax network, from its
     parameter tree, e.g. for ``ConvQNet(encoder="nature")``
@@ -180,6 +194,14 @@ def params_from_flax(flax_params: Mapping, heads: tuple[str, ...] | None = None)
         _mlp(tree["trunk"], "mlp", out)
         for name in ("phi", "head1", "head2"):
             _layer(name, tree[name], out)
+        return out
+    if _setup_named(tree):
+        # a Dense layer or an MLP under each name (VAE, ICMNet)
+        for name, sub in tree.items():
+            if "kernel" in sub:
+                _layer(name, sub, out)
+            else:
+                _mlp(sub, name, out)
         return out
     if "log_sigma" in tree:
         out["log_sigma"] = _tensor(tree["log_sigma"])

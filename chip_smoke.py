@@ -153,7 +153,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
      scale 0.01) around DQN (``QNet((128, 128))``, gamma 0.95, n 1, target
      every 320) on the on-device CartPole, 10 envs x 10 steps, 10 updates
      of batch 64, each a curiosity step and a DQN step through the
-     buffer view (the per-update branch).
+     buffer view (the per-update branch);
+   - ``hl_cartpole``: the README's Quick start through the public builder,
+     ``DQNExperimentBuilder(TorchEnvFactory("CartPole-v1"))`` with its
+     ``SamplingConfig`` (16 envs x 6 steps, 10 updates of batch 64 a
+     superstep, a 20,000-slot ring, 10 test envs) and ``DQNParams()``, cut
+     to one epoch (105 supersteps), with an in-memory logger (the card's
+     machine has no tensorboard) and the watch episodes;
+   - ``hl_atari``: the same builder over ``SyntheticPixelEnv(84, 84, 4)`` at
+     the ``atari`` path's configuration (128 envs x 16 steps, 26 updates of
+     batch 512, capacity 64, 1 test env for 1 episode), one epoch of 4
+     supersteps; its kernels a superstep must stay within 13 of ``atari``'s
+     in the same call.  Then its train and buffer states are checkpointed
+     and restored into a freshly built trainer's states on the card
+     (bitwise, no storage shared), a second experiment resumes from the
+     logger's counters, and a run of 2 supersteps with ``profile_dir``
+     writes a trace whose kernels include ``gather_rows_cast``.
 
 It then prints a ``paths`` JSON line, the ``kernels`` JSON line and, last,
 the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
@@ -162,10 +177,12 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -218,9 +235,19 @@ PATHS = {
                           expert_envs=10, expert_capacity=2400),
     "icm_cartpole": dict(num_envs=10, segment=10, batch=64, updates=10, capacity=2000, warmup=1000,
                          update_per_step=0.1),
+    # slice 8: the public builders.  hl_cartpole is the README's Quick start
+    # (its SamplingConfig and DQNParams() at their defaults: 16 train envs,
+    # 100 steps a collect, 10 test envs, ring 20,000, batch 64); hl_atari
+    # the same builder at the atari path's configuration.  supersteps: of
+    # the main path's run (one epoch)
+    "hl_cartpole": dict(num_envs=16, segment=6, batch=64, updates=10, capacity=1250, test_envs=10, episodes=10,
+                        supersteps=105),
+    "hl_atari": dict(num_envs=128, segment=16, batch=512, updates=26, capacity=64, test_envs=1, episodes=1,
+                     supersteps=4),
 }
-DQN_PATHS = ("atari", "atari_dedup", "cartpole", "minatar", "rainbow_per", "qrdqn_minatar", "bdq_pendulum",
-             "drqn_cartpole")
+HIGHLEVEL_PATHS = ("hl_cartpole", "hl_atari")
+DQN_PATHS = HIGHLEVEL_PATHS + ("atari", "atari_dedup", "cartpole", "minatar", "rainbow_per", "qrdqn_minatar",
+                               "bdq_pendulum", "drqn_cartpole")
 PER_PATHS = ("rainbow_per",)
 HOST_PATHS = ("sac_host", "ppo_host")
 ONPOLICY_PATHS = ("ppo_cartpole", "trpo_pendulum", "ppo_host", "gail_pendulum")
@@ -243,7 +270,10 @@ KERNEL_LAUNCHES = {"atari": 2, "atari_dedup": 2, "cartpole": 0, "minatar": 0, "s
                    "td3_pendulum": 0, "sac_host": 0, "ppo_cartpole": 0, "trpo_pendulum": 0, "ppo_host": 0,
                    "rainbow_per": 0, "qrdqn_minatar": 0, "redq_pendulum": 0, "discrete_sac_cartpole": 0,
                    "bdq_pendulum": 0, "drqn_cartpole": 0, "cql_d4rl": 0, "discrete_cql_cartpole": 0,
-                   "gail_pendulum": 0, "icm_cartpole": 0}
+                   "gail_pendulum": 0, "icm_cartpole": 0, "hl_cartpole": 0, "hl_atari": 2}
+# short spin kernels that open a profiled window after the long one (see
+# _profile_counts)
+PROFILE_PADDING = 64
 # timed supersteps (segments) of every path, after WARMUP untimed ones; cut
 # from 5 after 2 so that the twenty paths run in about the time sixteen took
 TIMED, WARMUP = 3, 1
@@ -1252,7 +1282,237 @@ def build_onpolicy_path(path: str, device):
 def build(path: str):
     """A path at full width on the card: ``(env, algo, train collector,
     buffer or None, trainer)``."""
+    if path in HIGHLEVEL_PATHS:
+        world = highlevel_experiment(path).build_world(logger=memory_logger())
+        trainer, cfg = world.trainer, PATHS[path]
+        wired = (trainer.segment_len, trainer.updates_per_segment, trainer.batch_size, trainer.buffer.capacity)
+        if wired != (cfg["segment"], cfg["updates"], cfg["batch"], cfg["capacity"]):
+            raise AssertionError(f"{path}: the builder wired (segment, updates, batch, capacity) {wired}")
+        return world.envs.train_venv.env, world.algo, trainer.train_collector, trainer.buffer, trainer
     return build_onpolicy_path(path, "cuda") if path in ONPOLICY_PATHS else build_path(path, "cuda")
+
+
+def memory_logger():
+    """A logger that keeps its writes in memory (the card's machine has no
+    tensorboard): the writes' steps and keys, the saved counters, and those
+    counters back for a resumed run.  The default intervals of
+    ``BaseLogger``."""
+    from tianshou_tpu_torch.utils.logger import BaseLogger
+
+    class MemoryLogger(BaseLogger):
+        def __init__(self):
+            super().__init__()
+            self.writes: list[tuple[int, tuple[str, ...]]] = []
+            self.saves: list[tuple[int, int, int]] = []
+
+        def write(self, step, data):
+            self.writes.append((step, tuple(sorted(data))))
+
+        def save_data(self, epoch, env_step, gradient_step, save_checkpoint_fn=None):
+            self.saves.append((epoch, env_step, gradient_step))
+            super().save_data(epoch, env_step, gradient_step, save_checkpoint_fn)
+
+        def restore_data(self):
+            return self.saves[-1] if self.saves else (0, 0, 0)
+
+    return MemoryLogger()
+
+
+def highlevel_experiment(path: str, **sampling):
+    """A high-level path's experiment through the port's public builders, on
+    the card, logging nowhere but the logger ``run`` is given; ``sampling``
+    overrides ``SamplingConfig`` fields."""
+    from tianshou_tpu_torch.envs.synthetic import SyntheticPixelEnv
+    from tianshou_tpu_torch.highlevel.config import SamplingConfig
+    from tianshou_tpu_torch.highlevel.env import TorchEnvFactory
+    from tianshou_tpu_torch.highlevel.experiment import DQNExperimentBuilder, DQNParams, ExperimentConfig
+
+    cfg = PATHS[path]
+    if path == "hl_cartpole":
+        # README.md's Quick start as published, cut to one epoch
+        factory, params = TorchEnvFactory("CartPole-v1"), DQNParams()
+        base = SamplingConfig(num_epochs=10, step_per_epoch=10000, step_per_collect=100, update_per_step=0.1)
+    else:
+        # the atari path (bench.py's atari stage) through the same builder
+        steps = cfg["num_envs"] * cfg["segment"]
+        factory, params = TorchEnvFactory(SyntheticPixelEnv(84, 84, 4)), DQNParams(
+            gamma=0.99, n_step=3, target_update_freq=1000)
+        base = SamplingConfig(num_epochs=1, step_per_epoch=cfg["supersteps"] * steps, step_per_collect=steps,
+                              update_per_step=cfg["updates"] / steps, batch_size=cfg["batch"],
+                              num_train_envs=cfg["num_envs"], num_test_envs=cfg["test_envs"],
+                              episode_per_test=cfg["episodes"], buffer_size=cfg["num_envs"] * cfg["capacity"],
+                              start_timesteps=PATHS["atari"].get("warmup", 0))
+    config = ExperimentConfig(seed=0, logger="none", watch=path == "hl_cartpole", device="cuda")
+    builder = DQNExperimentBuilder(factory, config=config, sampling=dataclasses.replace(base, **{"num_epochs": 1, **sampling}))
+    return builder.with_params(params).with_seed(0).with_stop_fn(lambda rew: rew >= 195).build()
+
+
+def _state_leaves(state) -> list[torch.Tensor]:
+    """Every tensor of a train or buffer state in a fixed order: module
+    parameters and buffers, optimizer state, tensor fields and dict leaves."""
+    from tianshou_tpu_torch.data.tree import tree_leaves
+
+    out = []
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.nn.Module):
+            out += list(v.state_dict().values())
+        elif isinstance(v, torch.optim.Optimizer):
+            out += [t for st in v.state_dict()["state"].values() for t in st.values() if isinstance(t, torch.Tensor)]
+        elif isinstance(v, (torch.Tensor, dict)):
+            out += tree_leaves(v)
+    return out
+
+
+def phase_checkpoint(path: str, trainer) -> dict:
+    """The trainer's train and buffer states through ``save_checkpoint`` and
+    ``restore_checkpoint`` into a freshly built trainer's states, on the
+    card: bitwise equal, sharing no storage with the source or the
+    template.  The files go under ``build/`` and are removed after."""
+    from tianshou_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    source = {"train": trainer.train_state, "buffer": trainer.buffer_state}
+    _, algo, col, buffer, _ = build(path)
+    _, ts, _, bstate = init_states(algo, col, buffer, seed=1)
+    template = {"train": ts, "buffer": bstate}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"{path}_checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt = save_checkpoint(root, source, step=1)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(ckpt, template)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    compared = 0
+    for key in source:
+        got, ref, tmpl = (_state_leaves(x[key]) for x in (restored, source, template))
+        if len(got) != len(ref) or not got:
+            raise AssertionError(f"{path} checkpoint: {len(got)} {key} tensors restored, {len(ref)} saved")
+        for g, r in zip(got, ref):
+            if g.dtype != r.dtype or g.shape != r.shape or g.device != r.device or not torch.equal(g, r):
+                raise AssertionError(f"{path} checkpoint: a {key} tensor {tuple(r.shape)} differs after the restore")
+        own = {t.untyped_storage().data_ptr() for t in got if t.numel()}
+        if own & {t.untyped_storage().data_ptr() for t in ref + tmpl if t.numel()}:
+            raise AssertionError(f"{path} checkpoint: the restored {key} state shares storage with another state")
+        compared += len(got)
+    result = {"bytes": nbytes, "save_ms": save_ms, "restore_ms": restore_ms, "tensors": compared}
+    log(f"{path} checkpoint of the train and buffer states: {nbytes / 1e9:.4f} GB written in {save_ms:.1f} ms, "
+        f"restored on the card in {restore_ms:.1f} ms; {compared} tensors bitwise equal, no storage shared")
+    return result
+
+
+def phase_builder_beside_atari(reps: int = 3) -> dict:
+    """``hl_atari`` (the builder's wiring) and ``atari`` (the wiring by
+    hand) built side by side, each warmed up by 5 supersteps, then profiled
+    and timed in turns (atari, hl_atari, hl_atari, atari, ...): kernels a
+    superstep, within 13 of each other, and ms a superstep.  Profiling the
+    two in turns keeps the profiler's dropped records, which grow as the
+    process ages, out of the comparison."""
+    steps = {}
+    for path in ("atari", "hl_atari"):
+        _, algo, col, buffer, trainer = build(path)
+        gen, *state = init_states(algo, col, buffer)
+        steps[path] = superstep_of(trainer, state, gen)
+        for _ in range(5):
+            steps[path]()
+    kernels: dict[str, list[int]] = {p: [] for p in steps}
+    ms: dict[str, list[float]] = {p: [] for p in steps}
+    for i in range(reps):
+        for p in ("atari", "hl_atari") if i % 2 == 0 else ("hl_atari", "atari"):
+            kernels[p].append(_profile_counts(steps[p])[0])
+            dt, _ = timed(steps[p], TIMED)
+            ms[p].append(dt / TIMED * 1e3)
+    hl, atari = (sorted(kernels[p])[reps // 2] for p in ("hl_atari", "atari"))
+    log(f"hl_atari beside atari, in turns: kernels a superstep {kernels['hl_atari']} vs {kernels['atari']}, "
+        f"ms a superstep {[round(x, 2) for x in ms['hl_atari']]} vs {[round(x, 2) for x in ms['atari']]}")
+    if abs(hl - atari) > 13:
+        raise AssertionError(f"hl_atari launches {hl} kernels a superstep, atari {atari}")
+    del steps
+    _fresh_memory()
+    return {"kernels": kernels, "ms_per_superstep": ms}
+
+
+def _trace_kernels(trace_path: str, name: str) -> tuple[int, int]:
+    """Device kernel events in a Chrome trace: all of them, and those whose
+    name holds ``name``."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return len(kernels), sum(name in e.get("name", "") for e in kernels)
+
+
+def phase_main_highlevel(path: str, gather) -> tuple[int, dict]:
+    """The high-level path's main run: the public builder's experiment with
+    an in-memory logger, for one epoch; its launches, counters, logger
+    writes and (hl_cartpole) watch episodes.  On hl_atari also the
+    checkpoint of its states on the card, a second experiment resumed from
+    the logger's counters, and a traced run whose kernels include
+    ``gather_rows_cast``."""
+    cfg = PATHS[path]
+    logger = memory_logger()
+    gather.launches = 0
+    result = highlevel_experiment(path).run(logger=logger)
+    launches = gather.launches
+    info = result.info
+    log(f"{path} Experiment.run(): {info}; logger {len(logger.writes)} writes, {len(logger.saves)} saves "
+        f"{logger.saves}")
+    supersteps, steps = cfg["supersteps"], cfg["num_envs"] * cfg["segment"]
+    if launches != KERNEL_LAUNCHES[path] * supersteps:
+        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in run(), "
+                             f"not {KERNEL_LAUNCHES[path] * supersteps}")
+    if (info.env_step, info.gradient_step, info.epoch) != (supersteps * steps, supersteps * cfg["updates"], 1):
+        raise AssertionError(f"{path}: counters {info}")
+    if logger.saves != [(1, info.env_step, info.gradient_step)] or not logger.writes:
+        raise AssertionError(f"{path}: logger writes {logger.writes}, saves {logger.saves}")
+    _check_metrics(path, info.last_metrics)
+    if not math.isfinite(info.best_reward):
+        raise AssertionError(f"{path}: non-finite best reward: {info}")
+    out = {"run_env_step": info.env_step, "run_gradient_step": info.gradient_step, "best_reward": info.best_reward,
+           "run_s": info.duration, "logger_writes": len(logger.writes), "logger_saves": len(logger.saves)}
+    if path == "hl_cartpole":
+        watch = result.watch_stats
+        if watch is None or watch.n_collected_episodes != 10 or not math.isfinite(watch.returns_mean):
+            raise AssertionError(f"{path}: watch episodes {watch}")
+        out["watch_returns_mean"] = watch.returns_mean
+        return launches, out
+
+    out["checkpoint"] = phase_checkpoint(path, result.world.trainer)
+    del result
+    _fresh_memory()
+    # resume: a second experiment of two epochs continues from the saved
+    # epoch and counters, and runs the second epoch only
+    gather.launches = 0
+    resumed = highlevel_experiment(path, num_epochs=2).run(logger=logger, resume_from_log=True).info
+    want = (2, 2 * supersteps * steps, 2 * supersteps * cfg["updates"])
+    if (resumed.epoch, resumed.env_step, resumed.gradient_step) != want or gather.launches != KERNEL_LAUNCHES[path] * supersteps:
+        raise AssertionError(f"{path}: resumed run {resumed}, {gather.launches} launches; wanted {want}")
+    log(f"{path} resumed from {logger.saves[0]}: epoch {resumed.epoch}, env_step {resumed.env_step}, "
+        f"gradient_step {resumed.gradient_step}, {gather.launches} gather_rows_cast launches")
+    out["resumed"] = {"epoch": resumed.epoch, "env_step": resumed.env_step, "gradient_step": resumed.gradient_step}
+    # a traced run of two supersteps: the profiler may drop the first
+    # records of a window, so the kernel is looked for in either
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"{path}_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    try:
+        traced = highlevel_experiment(path, step_per_epoch=2 * steps).run(logger=memory_logger(),
+                                                                        profile_dir=trace_dir)
+        trace = traced.world.trainer.trace_path
+        kernels, gathers = _trace_kernels(trace, "gather_rows_cast")
+        trace_mb = os.path.getsize(trace) / 1e6
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    if not gathers:
+        raise AssertionError(f"{path}: the profile_dir trace holds {kernels} kernels, none of gather_rows_cast")
+    log(f"{path} profile_dir trace of 2 supersteps and a test phase: {trace_mb:.1f} MB, {kernels} device kernels, "
+        f"{gathers} of them gather_rows_cast")
+    out["trace"] = {"kernels": kernels, "gather_rows_cast": gathers, "mb": trace_mb}
+    return launches, out
 
 
 _DATA: dict = {}
@@ -1476,22 +1736,28 @@ class _HostToDeviceCopies(TorchDispatchMode):
 def _profile_counts(fn) -> tuple[int, float]:
     """``fn`` under ``torch.profiler``: device kernels and the device's busy
     milliseconds (the union of their intervals).  The window opens with
-    about a second of a busy stream (``torch.cuda._sleep``'s spin kernel,
-    left out of the counts) before ``fn``'s work: the profiler drops device
-    activity from the start of a window, more of it the longer the process
-    has run."""
+    about a second of a busy stream (``torch.cuda._sleep``'s spin kernel)
+    and then ``PROFILE_PADDING`` short spins, all left out of the counts,
+    before ``fn``'s work: the profiler drops the first device records of a
+    window, more of them the longer the process has run (up to 19 of a
+    superstep late in a run), and the spins take the loss.  A window that
+    lost every spin is reported."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(2_000_000_000)
+        for _ in range(PROFILE_PADDING):
+            torch.cuda._sleep(1)
         fn()
         torch.cuda.synchronize()
     # the trace's raw records hold the same kernels as ``prof.events()``,
     # without building a function event for each of tens of thousands of
     # records
-    events = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name()]
+    device = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    events = [e for e in device if "spin_kernel" not in e.name()]
+    if len(device) - len(events) == 0:
+        log(f"profiler: every padding spin was dropped; {len(events)} kernels may undercount")
     busy_ns, end = 0, -1
     for start, stop in sorted((e.start_ns(), e.end_ns()) for e in events):
         busy_ns += max(0, stop - max(start, end))
@@ -2158,9 +2424,14 @@ def main() -> int:
         t_path = time.perf_counter()
         phase = phase_host if path in HOST_PATHS else phase_offline if path in OFFLINE_PATHS else phase_superstep
         results[path] = phase(path, gather_rows_cast)
-        launches += phase_main_path(path, gather_rows_cast)
+        if path in HIGHLEVEL_PATHS:
+            n, results[path]["main_run"] = phase_main_highlevel(path, gather_rows_cast)
+            launches += n
+        else:
+            launches += phase_main_path(path, gather_rows_cast)
         results[path]["phase_s"] = time.perf_counter() - t_path
     kernel["launches"] = launches
+    results["hl_atari"]["beside_atari"] = phase_builder_beside_atari()
     stored, dedup = results["atari"], results["atari_dedup"]
     log("atari memory regime: frames stored once (atari_dedup) beside stored stacks (atari): "
         + ", ".join(f"{k} {dedup[k]:.4f} vs {stored[k]:.4f}" for k in (

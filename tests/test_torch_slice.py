@@ -188,6 +188,9 @@ def _entry_points():
     from tianshou_tpu_torch.algos.redq import REDQ
     from tianshou_tpu_torch.algos.sac import DiscreteSAC
     from tianshou_tpu_torch.data.her import HERReplayBuffer
+    from tianshou_tpu_torch.highlevel.cli import experiment_cli
+    from tianshou_tpu_torch.highlevel.env import TorchEnvFactory
+    from tianshou_tpu_torch.highlevel.experiment import DQNExperimentBuilder
     from tianshou_tpu_torch.data.persistence import buffer_from_d4rl
     from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
     from tianshou_tpu_torch.envs.spaces import Box, Discrete, MultiDiscrete
@@ -241,6 +244,8 @@ def _entry_points():
         "GAIL": lambda: GAIL(GaussianActor(3, (8,), 1), ValueNet(3, (8,)), box, disc_net=Critic(3, 1, (8,)),
                              expert_buffer=ReplayBuffer(CAP, 1), expert_buffer_state=None),
         "PSRL": lambda: PSRL(5, Discrete(2)),
+        "ExperimentConfig().run": lambda: DQNExperimentBuilder(TorchEnvFactory("CartPole-v1")).build().run(),
+        "experiment_cli": lambda: experiment_cli(["--algo", "dqn", "--task", "CartPole-v1"]),
     }
 
 
@@ -248,7 +253,7 @@ def _entry_points():
                                    "PrioritizedReplayBuffer.init", "C51", "QRDQN", "REDQ", "DiscreteSAC", "BDQ",
                                    "DRQN", "OUNoise", "BC", "TD3BC", "BCQ", "CQL", "DiscreteBCQ", "DiscreteCQL",
                                    "DiscreteCRR", "buffer_from_d4rl", "OfflineTrainer", "HERReplayBuffer.init", "ICM",
-                                   "GAIL", "PSRL"])
+                                   "GAIL", "PSRL", "ExperimentConfig().run", "experiment_cli"])
 def test_default_device_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -263,7 +268,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, 'tianshou_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'tianshou_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tianshou_tpu'))\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('tianshou_tpu_torch.')]))\n"
     )
@@ -282,15 +287,20 @@ SLICE6_MODULES = ["networks.common", "networks.convert", "exploration.noise", "a
                   "algos.redq", "algos.sac", "algos.bdq", "algos.drqn", "data.tree", "data.buffer", "envs.spaces"]
 SLICE7_MODULES = ["data.persistence", "networks.continuous", "trainer.offline", "algos.offline", "data.her",
                   "algos.icm", "algos.gail", "algos.psrl", "algos.base", "algos.ddpg"]
+SLICE8_MODULES = ["utils.repr", "data.stats", "utils.logger", "utils.checkpoint", "trainer.hooks", "trainer.offpolicy",
+                  "trainer.onpolicy", "trainer.offline", "highlevel.config", "highlevel.env", "highlevel.module",
+                  "highlevel.experiment", "highlevel.cli", "evaluation.aggregate", "evaluation.launcher",
+                  "evaluation.plots", "evaluation", "networks.convert"]
+OPTIONAL_PACKAGES = ["tensorboard", "cloudpickle", "joblib", "matplotlib", "tqdm", "wandb", "gymnasium", "h5py"]
 
 
 def test_port_imports_slice2_modules_without_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES!r}:\n"
+        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES + SLICE8_MODULES!r}:\n"
         "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'tianshou_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tianshou_tpu'))\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -317,6 +327,38 @@ def test_slice7_modules_import_without_h5py():
     assert res.returncode == 0, res.stderr
 
 
+def test_slice8_modules_import_without_optional_packages():
+    """With every optional package unimportable, each slice-8 module
+    imports and a small experiment runs on the CPU through the in-memory
+    logger path: ``tensorboard`` is needed only where a
+    ``TensorboardLogger`` is built, ``cloudpickle`` only by ``save``."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {OPTIONAL_PACKAGES!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {SLICE8_MODULES!r}:\n"
+        "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
+        "from tianshou_tpu_torch.highlevel.config import SamplingConfig\n"
+        "from tianshou_tpu_torch.highlevel.env import TorchEnvFactory\n"
+        "from tianshou_tpu_torch.highlevel.experiment import DQNExperimentBuilder, ExperimentConfig\n"
+        "r = DQNExperimentBuilder(TorchEnvFactory('CartPole-v1'), config=ExperimentConfig(device='cpu'),\n"
+        "    sampling=SamplingConfig(num_epochs=1, step_per_epoch=64, step_per_collect=32, num_train_envs=4,\n"
+        "    num_test_envs=2, episode_per_test=2, buffer_size=400)).build().run()\n"
+        "assert r.info.env_step == 64, r.info\n"
+        "from tianshou_tpu_torch.utils.logger import TensorboardLogger\n"
+        "try:\n"
+        "    TensorboardLogger('unused')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "else:\n"
+        "    raise AssertionError('TensorboardLogger built without tensorboard')\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {OPTIONAL_PACKAGES!r} and sys.modules[m])\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_port_sources_name_no_jax_import():
     files = sorted((REPO / "tianshou_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "profile_superstep.py"]
@@ -329,7 +371,7 @@ def test_port_sources_name_no_jax_import():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "optax", "tianshou_tpu"), (path, name)
+                assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "optax", "orbax", "tianshou_tpu"), (path, name)
 
 
 # -- (e) the paths of slice 2 -------------------------------------------------

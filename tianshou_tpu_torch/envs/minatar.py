@@ -186,7 +186,7 @@ def make_minatar(name: str, **kwargs) -> TorchEnv:
     key = name.lower().removeprefix("minatar/").removeprefix("minatar-").replace("-", "_")
     if key in _NOT_PORTED:
         raise NotImplementedError(
-            f"MinAtar {key!r} is not ported yet: its random spawns wait for a later slice (ROADMAP.md)"
+            f"MinAtar {key!r} is not ported yet: its random spawns wait for a later slice (ROADMAP.md, item 5)"
         )
     if key not in _REGISTRY:
         raise ValueError(f"unknown MinAtar env {name!r}; have {sorted(_REGISTRY) + list(_NOT_PORTED)}")

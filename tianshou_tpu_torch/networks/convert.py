@@ -69,7 +69,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_flax", "onpolicy_state_from_flax"]
+__all__ = ["params_from_flax", "onpolicy_state_from_flax", "load_flax_params"]
 
 _ENCODERS = ("NatureCNN_0", "MinAtarCNN_0")
 
@@ -226,6 +226,26 @@ def params_from_flax(flax_params: Mapping, heads: tuple[str, ...] | None = None)
     for name, flax_name in zip(names, flax_heads):
         _layer(name, tree[flax_name], out)
     return out
+
+
+def _heads_of(module: torch.nn.Module) -> tuple[str, ...] | None:
+    """The ``heads`` :func:`params_from_flax` needs for ``module``."""
+    name = type(module).__name__
+    if name == "GaussianActor":
+        return ("mu", "sigma") if module.conditioned_sigma else ("mu",)
+    if name == "ImplicitQuantileNetwork":
+        return ("phi", "head1", "head2")
+    if name == "FractionProposalNetwork":
+        return ("head",)
+    return getattr(module, "heads", None)  # the conv nets name their heads
+
+
+def load_flax_params(module: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
+    """``module`` with the Flax counterpart's parameters loaded (strict),
+    the heads picked from its class: what the high-level factories build
+    takes no per-class argument."""
+    module.load_state_dict(params_from_flax(flax_params, heads=_heads_of(module)))
+    return module
 
 
 def onpolicy_state_from_flax(state, actor_heads: tuple[str, ...] | None = None) -> dict:

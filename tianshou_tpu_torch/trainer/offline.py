@@ -11,16 +11,16 @@ or a :class:`~tianshou_tpu_torch.collect.host_collector.HostCollector`.
 The algorithm's ``prepare_offline`` (CalQL's calibration returns) runs
 once, before the first update.  The metrics stay on the device and are read
 once an epoch.  ``env_step`` is ``gradient_step * batch_size``, the
-reference's accounting.
-
-Not ported yet, as in the other two trainers: loggers and checkpoint
-hooks.
+reference's accounting.  A ``logger`` gets each epoch's last metrics in its
+update scope and the test results, both at the gradient step, as in the
+JAX package, which has no checkpoint hooks here either.
 """
 
 from __future__ import annotations
 
 import time
 from collections.abc import Callable
+from typing import Any
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ import torch
 from tianshou_tpu_torch.algos.base import Algorithm, TrainState
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.stats import InfoStats
+from tianshou_tpu_torch.trainer.hooks import log_test
 from tianshou_tpu_torch.trainer.offpolicy import build_update_scan
 from tianshou_tpu_torch.trainer.onpolicy import _read
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
@@ -49,6 +50,7 @@ class OfflineTrainer:
         episode_per_test: int = 10,
         updates_per_superstep: int = 100,
         stop_fn: Callable[[float], bool] | None = None,
+        logger: Any | None = None,
         seed: int = 0,
         save_best_fn: Callable[[TrainState], None] | None = None,
         device: str | torch.device = "cuda",
@@ -70,6 +72,7 @@ class OfflineTrainer:
         self.episode_per_test = episode_per_test
         self.updates_per_superstep = min(updates_per_superstep, update_per_epoch)
         self.stop_fn = stop_fn
+        self.logger = logger
         self.seed = seed
         self.save_best_fn = save_best_fn
 
@@ -102,12 +105,15 @@ class OfflineTrainer:
                 grad_step += self.updates_per_superstep
             last_metrics = _read(metrics)  # the one metric read of the epoch
             train_time += time.time() - t0
+            if self.logger is not None:
+                self.logger.log_update_data(last_metrics, grad_step)
             test = self.test_collector.collect_episodes(ts, gen, self.episode_per_test, explore=False)
             rew, rew_std = test.returns_mean, test.returns_std
             if rew > best_reward:
                 best_reward, best_reward_std = rew, rew_std
                 if self.save_best_fn is not None:
                     self.save_best_fn(ts)
+            log_test(self.logger, rew, rew_std, grad_step)
             if self.stop_fn is not None and self.stop_fn(rew):
                 stop_triggered = True
                 break

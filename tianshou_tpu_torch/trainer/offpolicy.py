@@ -18,8 +18,14 @@ ONE packed host-to-device copy of the segment, ``add_trajectory`` and the k
 updates.  ``pipeline_host_updates`` (default off) acts with the actor from
 before the updates in flight, on a side CUDA stream, from a snapshot of it.
 
-Not ported yet: the fused fine cycle of the host path, loggers, checkpoint
-hooks and device tracing.
+Both loops take a ``logger`` (train data each superstep, from the metrics
+``run`` already read; the counters at each epoch's end, with
+``save_checkpoint_fn``; test results), ``resume_from_log`` (the counters
+restored from the logger, epochs continued) and ``profile_dir`` (a device
+trace of the run, :class:`~tianshou_tpu_torch.trainer.hooks.RunContext`).
+None of them adds a launch or a host synchronisation to a superstep.
+
+Not ported yet: the fused fine cycle of the host path.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from __future__ import annotations
 import copy
 import time
 from collections.abc import Callable
+from typing import Any
 
 import numpy as np
 import torch
@@ -38,7 +45,7 @@ from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
 from tianshou_tpu_torch.data.stats import InfoStats
 from tianshou_tpu_torch.data.tree import tree_map
-from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext
+from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext, log_test, log_train, save_epoch
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 
 __all__ = ["HostStep", "OffPolicyTrainer", "build_update_scan"]
@@ -176,10 +183,14 @@ class OffPolicyTrainer:
         stop_fn: Callable[[float], bool] | None = None,
         warmup_steps: int = 0,
         warmup_random: bool = True,
+        logger: Any | None = None,
         seed: int = 0,
         save_best_fn: Callable[[TrainState], None] | None = None,
+        save_checkpoint_fn: Callable[[int, int, int], Any] | None = None,
+        resume_from_log: bool = False,
         test_in_train: bool = False,
         show_progress: bool = False,
+        profile_dir: str | None = None,
         smooth_window: int = 1,
         pipeline_host_updates: bool = False,
         device: str | torch.device = "cuda",
@@ -210,10 +221,15 @@ class OffPolicyTrainer:
         self.stop_fn = stop_fn
         self.warmup_steps = warmup_steps
         self.warmup_random = warmup_random
+        self.logger = logger
         self.seed = seed
         self.save_best_fn = save_best_fn
+        self.save_checkpoint_fn = save_checkpoint_fn
+        self.resume_from_log = resume_from_log
         self.test_in_train = test_in_train
         self.show_progress = show_progress
+        self.profile_dir = profile_dir
+        self.trace_path: str | None = None
         self.smooth_window = smooth_window
         # host path: collect segment s+1 with the actor from before segment
         # s's updates.  Off by default (the reference's sequential order):
@@ -275,15 +291,19 @@ class OffPolicyTrainer:
         t_start = time.time()
         smooth = MetricSmoother(self.smooth_window)
         loop, env_step = self._host_setup()
-        grad_step = 0
+        grad_step = start_epoch = 0
+        if self.resume_from_log and self.logger is not None:
+            start_epoch, restored_step, grad_step = self.logger.restore_data()
+            env_step += restored_step
         best_reward, best_reward_std = -np.inf, 0.0
         last_metrics: dict = {}
         metrics_interval = max(1, 4096 // self.steps_per_segment)
         seg_count = 0
         stop_triggered = False
         epoch = 0
-        with RunContext(self.max_epoch * self.step_per_epoch, self.show_progress, desc="offpolicy") as rc:
-            for epoch in range(1, self.max_epoch + 1):
+        with RunContext((self.max_epoch - start_epoch) * self.step_per_epoch, self.show_progress, self.profile_dir,
+                        desc="offpolicy") as rc:
+            for epoch in range(start_epoch + 1, self.max_epoch + 1):
                 steps_this_epoch = 0
                 while steps_this_epoch < self.step_per_epoch:
                     stats, traj = loop.collect(float(self.train_param_fn(epoch, env_step)))
@@ -311,8 +331,10 @@ class OffPolicyTrainer:
                             best_reward_std = tt.returns_std
                             stop_triggered = True
                             break
+                    log_train(self.logger, env_step, stats, last_metrics)
                 if stop_triggered:
                     break
+                save_epoch(self.logger, self.save_checkpoint_fn, epoch, env_step, grad_step)
                 test_stats = self.test_collector.collect_episodes(
                     loop.ts, loop.generator, self.episode_per_test, explore=False, explore_param=self.test_param)
                 rew, rew_std = test_stats.returns_mean, test_stats.returns_std
@@ -320,9 +342,11 @@ class OffPolicyTrainer:
                     best_reward, best_reward_std = rew, rew_std
                     if self.save_best_fn is not None:
                         self.save_best_fn(loop.ts)
+                log_test(self.logger, rew, rew_std, env_step)
                 if self.stop_fn is not None and self.stop_fn(rew):
                     stop_triggered = True
                     break
+        self.trace_path = rc.trace_path
         if loop.metrics is not None:
             last_metrics = smooth(loop.read_metrics())
 
@@ -353,8 +377,9 @@ class OffPolicyTrainer:
             self.train_collector.example_transition(ts, cstate), device=self.device
         )
 
-        env_step = 0
-        grad_step = 0
+        env_step = grad_step = start_epoch = 0
+        if self.resume_from_log and self.logger is not None:
+            start_epoch, env_step, grad_step = self.logger.restore_data()
         best_reward = -np.inf
         best_reward_std = 0.0
         last_metrics: dict = {}
@@ -371,8 +396,9 @@ class OffPolicyTrainer:
         superstep = self._build_superstep()
         stop_triggered = False
         epoch = 0
-        with RunContext(self.max_epoch * self.step_per_epoch, self.show_progress, desc="offpolicy") as rc:
-            for epoch in range(1, self.max_epoch + 1):
+        with RunContext((self.max_epoch - start_epoch) * self.step_per_epoch, self.show_progress, self.profile_dir,
+                        desc="offpolicy") as rc:
+            for epoch in range(start_epoch + 1, self.max_epoch + 1):
                 steps_this_epoch = 0
                 while steps_this_epoch < self.step_per_epoch:
                     explore_param = float(self.train_param_fn(epoch, env_step))
@@ -406,9 +432,11 @@ class OffPolicyTrainer:
                             break
                     last_metrics = smooth(host_metrics)
                     rc.step(self.steps_per_segment, last_metrics)
+                    log_train(self.logger, env_step, stats, last_metrics)
 
                 if stop_triggered:
                     break
+                save_epoch(self.logger, self.save_checkpoint_fn, epoch, env_step, grad_step)
                 test_stats = self.test_collector.collect_episodes(
                     ts, gen, self.episode_per_test,
                     explore=False, explore_param=self.test_param,
@@ -418,10 +446,12 @@ class OffPolicyTrainer:
                     best_reward, best_reward_std = rew, rew_std
                     if self.save_best_fn is not None:
                         self.save_best_fn(ts)
+                log_test(self.logger, rew, rew_std, env_step)
                 if self.stop_fn is not None and self.stop_fn(rew):
                     stop_triggered = True
                     break
 
+        self.trace_path = rc.trace_path
         self.train_state = ts
         self.collect_state = cstate
         self.buffer_state = bstate

@@ -16,14 +16,15 @@ With a :class:`~tianshou_tpu_torch.collect.host_collector.HostCollector`
 ``run`` takes the host-env path: a segment collected from host envs, its
 numpy leaves sent to the card in ONE packed copy, then the same learning.
 
-Not ported yet: loggers, checkpoint hooks, ``resume_from_log`` and device
-tracing (``profile_dir``).
+``logger``, ``save_checkpoint_fn``, ``resume_from_log`` and ``profile_dir``
+work as in :class:`~tianshou_tpu_torch.trainer.offpolicy.OffPolicyTrainer`.
 """
 
 from __future__ import annotations
 
 import time
 from collections.abc import Callable
+from typing import Any
 
 import numpy as np
 import torch
@@ -33,7 +34,7 @@ from tianshou_tpu_torch.collect.collector import Collector, rollout_segment
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.stats import InfoStats
 from tianshou_tpu_torch.data.tree import tree_map
-from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext
+from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext, log_test, log_train, save_epoch
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 
 __all__ = ["OnPolicyTrainer", "build_rollout_learn"]
@@ -107,10 +108,14 @@ class OnPolicyTrainer:
         batch_size: int = 64,
         episode_per_test: int = 10,
         stop_fn: Callable[[float], bool] | None = None,
+        logger: Any | None = None,
         seed: int = 0,
         save_best_fn: Callable[[TrainState], None] | None = None,
+        save_checkpoint_fn: Callable[[int, int, int], Any] | None = None,
+        resume_from_log: bool = False,
         test_in_train: bool = False,
         show_progress: bool = False,
+        profile_dir: str | None = None,
         smooth_window: int = 1,
         device: str | torch.device = "cuda",
     ):
@@ -128,10 +133,15 @@ class OnPolicyTrainer:
         self.batch_size = batch_size
         self.episode_per_test = episode_per_test
         self.stop_fn = stop_fn
+        self.logger = logger
         self.seed = seed
         self.save_best_fn = save_best_fn
+        self.save_checkpoint_fn = save_checkpoint_fn
+        self.resume_from_log = resume_from_log
         self.test_in_train = test_in_train
         self.show_progress = show_progress
+        self.profile_dir = profile_dir
+        self.trace_path: str | None = None
         self.smooth_window = smooth_window
 
         num_envs = train_collector.venv.num_envs
@@ -184,13 +194,16 @@ class OnPolicyTrainer:
             ts = self.algo.init(g_init)
             superstep = self._build_superstep()
 
-        env_step = grad_step = epoch = 0
+        env_step = grad_step = epoch = start_epoch = 0
+        if self.resume_from_log and self.logger is not None:
+            start_epoch, env_step, grad_step = self.logger.restore_data()
         best_reward, best_reward_std = -np.inf, 0.0
         last_metrics: dict = {}
         train_time = 0.0
         stop_triggered = False
-        with RunContext(self.max_epoch * self.step_per_epoch, self.show_progress, desc="onpolicy") as rc:
-            for epoch in range(1, self.max_epoch + 1):
+        with RunContext((self.max_epoch - start_epoch) * self.step_per_epoch, self.show_progress, self.profile_dir,
+                        desc="onpolicy") as rc:
+            for epoch in range(start_epoch + 1, self.max_epoch + 1):
                 steps_this_epoch = 0
                 while steps_this_epoch < self.step_per_epoch:
                     t0 = time.time()
@@ -223,17 +236,21 @@ class OnPolicyTrainer:
                             best_reward_std = rew_std
                             stop_triggered = True
                             break
+                    log_train(self.logger, env_step, stats, last_metrics)
                 if stop_triggered:
                     break
+                save_epoch(self.logger, self.save_checkpoint_fn, epoch, env_step, grad_step)
                 rew, rew_std = self._test(ts, gen)
                 if rew > best_reward:
                     best_reward, best_reward_std = rew, rew_std
                     if self.save_best_fn is not None:
                         self.save_best_fn(ts)
+                log_test(self.logger, rew, rew_std, env_step)
                 if self.stop_fn is not None and self.stop_fn(rew):
                     stop_triggered = True
                     break
 
+        self.trace_path = rc.trace_path
         self.train_state = ts
         if not host:
             self.collect_state = cstate

@@ -14,6 +14,12 @@ FQF over a ``FullQuantileFunction((128, 128))`` with 32 fractions, lr
 320 updates, a uniform ring of 2,000 x 10 envs, 8 epochs of 8,000 steps,
 100 steps and 10 updates of batch 64 a collect, epsilon 0.1, 1,000 warm-up
 steps, stopping at 180.
+``--config quickstart`` is README.md's Quick start through each package's
+high-level builder: ``DQNExperimentBuilder`` on CartPole with
+``SamplingConfig(num_epochs=10, step_per_epoch=10000, step_per_collect=100,
+update_per_step=0.1)`` and ``DQNParams()`` (MLP (128, 128), gamma 0.99,
+3-step returns, a target copy every 320 updates, epsilon 0.1, 16 envs, a
+ring of 20,000, batch 64), stopping at 195.
 
 Each (package, seed) runs in a process of its own, ``--workers`` at a
 time, and prints its best test reward; the last line is a JSON object with
@@ -21,7 +27,7 @@ every result.  The two packages' random streams (Threefry and Philox)
 share nothing, so a seed names a different run in each: compare how many
 seeds reach the threshold, not seed by seed.
 
-    python3 tools/seed_sweep.py [--config per_dqn|fqf] [--seeds 0 1 2 3 4] [--workers 4]
+    python3 tools/seed_sweep.py [--config per_dqn|fqf|quickstart] [--seeds 0 1 2 3 4] [--workers 4]
 
 This script is a comparison between the two packages and imports each in
 its own process; the port itself imports nothing of JAX.
@@ -43,7 +49,19 @@ CONFIGS = {
                                batch_size=64, warmup_steps=500)),
     "fqf": (180.0, 10, dict(max_epoch=8, step_per_epoch=8000, step_per_collect=100, update_per_step=0.1,
                             batch_size=64, warmup_steps=1000)),
+    "quickstart": (195.0, 16, dict(num_epochs=10, step_per_epoch=10000, step_per_collect=100, update_per_step=0.1)),
 }
+
+
+def _quickstart(highlevel, env_factory, seed: int, **config) -> float:
+    """README.md's Quick start through a package's builder (its modules
+    ``config`` and ``experiment``)."""
+    sampling_config, experiment = highlevel
+    threshold, _, sampling = CONFIGS["quickstart"]
+    exp = (experiment.DQNExperimentBuilder(env_factory, config=experiment.ExperimentConfig(logger="none", **config),
+                                           sampling=sampling_config.SamplingConfig(**sampling))
+           .with_seed(seed).with_stop_fn(lambda rew: rew >= threshold).build())
+    return float(exp.run().info.best_reward)
 
 
 def _run_jax(config: str, seed: int) -> float:
@@ -61,6 +79,12 @@ def _run_jax(config: str, seed: int) -> float:
     from tianshou_tpu.networks.discrete import FractionProposalNetwork, FullQuantileFunction
     from tianshou_tpu.trainer.offpolicy import OffPolicyTrainer
 
+    if config == "quickstart":
+        from tianshou_tpu.highlevel import config as hl_config
+        from tianshou_tpu.highlevel import experiment as hl_experiment
+        from tianshou_tpu.highlevel.env import JaxEnvFactory
+
+        return _quickstart((hl_config, hl_experiment), JaxEnvFactory("CartPole-v1"), seed)
     threshold, n, schedule = CONFIGS[config]
     env = CartPole()
     if config == "per_dqn":
@@ -92,6 +116,12 @@ def _run_torch(config: str, seed: int) -> float:
     from tianshou_tpu_torch.networks.discrete import FractionProposalNetwork, FullQuantileFunction
     from tianshou_tpu_torch.trainer.offpolicy import OffPolicyTrainer
 
+    if config == "quickstart":
+        from tianshou_tpu_torch.highlevel import config as hl_config
+        from tianshou_tpu_torch.highlevel import experiment as hl_experiment
+        from tianshou_tpu_torch.highlevel.env import TorchEnvFactory
+
+        return _quickstart((hl_config, hl_experiment), TorchEnvFactory("CartPole-v1"), seed, device="cpu")
     threshold, n, schedule = CONFIGS[config]
     env = CartPole()
     if config == "per_dqn":

@@ -168,7 +168,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and restored into a freshly built trainer's states on the card
      (bitwise, no storage shared), a second experiment resumes from the
      logger's counters, and a run of 2 supersteps with ``profile_dir``
-     writes a trace whose kernels include ``gather_rows_cast``.
+     writes a trace whose kernels include ``gather_rows_cast``;
+   - ``atari_host``: ``examples/atari_dqn.py --fake-ale`` at its defaults:
+     10 ``FakeAtariEnv``\\ s (ALE is not on the card's machine) through
+     ``wrap_deepmind`` (the numpy warp) in ``HostVectorEnv``, frame stacks
+     of 4 into a ``ReplayBuffer(10,000 a env, stack_num=4,
+     save_only_last_obs, ignore_obs_next)`` of 100,000 frames, NatureCNN in
+     bf16, 10 steps a env and 10 updates of batch 32 a segment, epsilon 1.0
+     -> 0.05, 5,000 warm-up steps, 10 test envs: ``gather_rows_cast`` at
+     that ring, 2 launches a segment;
+   - ``cpp_cartpole``: ``examples/cpp_pool_dqn.py``: the native pool
+     (``CppVectorEnv("CartPole-v1", 16)``, compiled with ``g++`` into
+     ``build/``), QNet (128, 128, 128), 10 steps a env and 16 updates of
+     batch 64, 1,000 warm-up steps; then the pool's raw step rate on
+     CartPole-v1 and Reacher2 (16 envs x 2,000 steps);
+   - ``sac_fine``: ``examples/mujoco_sac.py`` at its defaults, 8 envs of
+     ``HalfCheetahStandIn`` one step each and 8 updates of batch 256 a
+     cycle, SAC (256, 256) with alpha 0.2, a 1,000,000-transition ring,
+     10,000 warm-up steps: the fused fine cycle, whose device part runs
+     under the sync guard and whose whole cycle makes one host
+     synchronisation (the action fetch), timed in turns with the segment
+     path (``fused_fine_host=False``);
+   - ``marl_tictactoe``: ``tests/test_marl.py``'s self-play: two DQN agents
+     (QNet (128, 128), gamma 0.95, n 2, target every 320) under
+     ``MultiAgentPolicyManager`` on 16 on-device ``TicTacToe`` envs, 10
+     steps a env and 16 updates of batch 128 (each agent samples its own),
+     epsilon 0.2, 2,000 warm-up steps.
+   Last, ``sac_host``'s configuration through the host path's variants, in
+   turns with plain ``sac_host``: a ``RemoteVectorEnv`` over an env farm
+   subprocess on 127.0.0.1 (killed at the end), ``AsyncHostCollector``
+   with ``wait_num`` 4 of 8, and ``act_on_host=True``; ms a segment and the
+   copies the card ran each way.
 
 It then prints a ``paths`` JSON line, the ``kernels`` JSON line and, last,
 the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
@@ -177,15 +207,18 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import math
 import os
+import select
 import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -244,18 +277,33 @@ PATHS = {
                         supersteps=105),
     "hl_atari": dict(num_envs=128, segment=16, batch=512, updates=26, capacity=64, test_envs=1, episodes=1,
                      supersteps=4),
+    # slice 9: the host env layer.  atari_host is examples/atari_dqn.py
+    # --fake-ale at its defaults (a ring of 100,000 frames over 10 envs,
+    # 10 steps a env and 10 updates of batch 32 a segment, epsilon 1.0 ->
+    # 0.05 over 1,000,000 steps, 0.005 in tests); cpp_cartpole
+    # examples/cpp_pool_dqn.py; sac_fine examples/mujoco_sac.py (one step a
+    # env and 8 updates a cycle: the fused fine cycle); marl_tictactoe
+    # tests/test_marl.py's self-play
+    "atari_host": dict(num_envs=10, segment=10, batch=32, updates=10, capacity=10_000, warmup=5000, test_envs=10,
+                       episodes=10, eps_decay=(1.0, 0.05, 1_000_000), eps_test=0.005),
+    "cpp_cartpole": dict(num_envs=16, segment=10, batch=64, updates=16, capacity=2000, warmup=1000, test_envs=16,
+                         episodes=10, eps=0.1),
+    "sac_fine": dict(num_envs=8, segment=1, batch=256, updates=8, capacity=1_000_000 // 8, warmup=10_000,
+                     test_envs=10, episodes=10),
+    "marl_tictactoe": dict(num_envs=16, segment=10, batch=128, updates=16, capacity=2000, warmup=2000, eps=0.2),
 }
 HIGHLEVEL_PATHS = ("hl_cartpole", "hl_atari")
 DQN_PATHS = HIGHLEVEL_PATHS + ("atari", "atari_dedup", "cartpole", "minatar", "rainbow_per", "qrdqn_minatar",
-                               "bdq_pendulum", "drqn_cartpole")
+                               "bdq_pendulum", "drqn_cartpole", "atari_host", "cpp_cartpole")
 PER_PATHS = ("rainbow_per",)
-HOST_PATHS = ("sac_host", "ppo_host")
+HOST_PATHS = ("sac_host", "ppo_host", "atari_host", "cpp_cartpole")
+FUSED_PATHS = ("sac_fine",)
 ONPOLICY_PATHS = ("ppo_cartpole", "trpo_pendulum", "ppo_host", "gail_pendulum")
 OFFLINE_PATHS = ("cql_d4rl", "discrete_cql_cartpole")
 # the paths whose exploration is epsilon-greedy at 0.1
 EPSILON_PATHS = DQN_PATHS + ("icm_cartpole",)
 SLICE7_FAMILY = {"cql_d4rl": "cql", "discrete_cql_cartpole": "discrete_cql", "gail_pendulum": "gail",
-                 "icm_cartpole": "icm"}
+                 "icm_cartpole": "icm", "marl_tictactoe": "marl"}
 # the metrics each family's superstep (segment) and run() must report, finite
 FAMILY_METRICS = {"dqn": ("loss",), "continuous": ("critic_loss", "actor_loss"),
                   "ppo": ("loss", "policy_loss", "value_loss"), "trpo": ("value_loss", "accepted", "kl"),
@@ -263,16 +311,18 @@ FAMILY_METRICS = {"dqn": ("loss",), "continuous": ("critic_loss", "actor_loss"),
                   "cql": ("critic_loss", "td_loss", "cql_penalty", "actor_loss", "alpha", "cql_alpha"),
                   "discrete_cql": ("loss", "qr_loss", "cql_loss"),
                   "gail": ("loss", "policy_loss", "value_loss", "disc_loss", "acc_pi", "acc_exp"),
-                  "icm": ("loss", "icm_loss", "icm_forward", "icm_inverse")}
+                  "icm": ("loss", "icm_loss", "icm_forward", "icm_inverse"),
+                  "marl": ("agent0/loss", "agent1/loss")}
 # launches of gather_rows_cast a superstep: obs and obs_next of the presample;
 # the on-policy paths use no replay buffer
 KERNEL_LAUNCHES = {"atari": 2, "atari_dedup": 2, "cartpole": 0, "minatar": 0, "sac_pendulum": 0,
                    "td3_pendulum": 0, "sac_host": 0, "ppo_cartpole": 0, "trpo_pendulum": 0, "ppo_host": 0,
                    "rainbow_per": 0, "qrdqn_minatar": 0, "redq_pendulum": 0, "discrete_sac_cartpole": 0,
                    "bdq_pendulum": 0, "drqn_cartpole": 0, "cql_d4rl": 0, "discrete_cql_cartpole": 0,
-                   "gail_pendulum": 0, "icm_cartpole": 0, "hl_cartpole": 0, "hl_atari": 2}
+                   "gail_pendulum": 0, "icm_cartpole": 0, "hl_cartpole": 0, "hl_atari": 2, "atari_host": 2,
+                   "cpp_cartpole": 0, "sac_fine": 0, "marl_tictactoe": 0}
 # short spin kernels that open a profiled window after the long one (see
-# _profile_counts)
+# _device_records)
 PROFILE_PADDING = 64
 # timed supersteps (segments) of every path, after WARMUP untimed ones; cut
 # from 5 after 2 so that the twenty paths run in about the time sixteen took
@@ -425,7 +475,7 @@ def phase_kernels() -> dict:
         chain = torch.remainder(pos - torch.arange(stack - 1, -1, -1, device=dev), capacity)
         return (env * capacity + chain).reshape(-1)
 
-    atari, dedup = PATHS["atari"], PATHS["atari_dedup"]
+    atari, dedup, host = PATHS["atari"], PATHS["atari_dedup"], PATHS["atari_host"]
     ring = atari["num_envs"] * atari["capacity"]
     # (storage, idx): the slice's stored-stack shape; the deduplicated
     # layout's stacked gather of single 84x84 frames; an unaligned row
@@ -435,6 +485,10 @@ def phase_kernels() -> dict:
         (storage_of(ring, 84 * 84 * 4), random_idx(ring, atari["updates"] * atari["batch"])),
         (storage_of(ring, 84 * 84), stacked_idx(dedup["num_envs"], dedup["capacity"],
                                                 dedup["updates"] * dedup["batch"], 4)),
+        # atari_host: examples/atari_dqn.py's ring of single frames, one
+        # segment's presample of updates x batch stacks of 4
+        (storage_of(host["num_envs"] * host["capacity"], 84 * 84),
+         stacked_idx(host["num_envs"], host["capacity"], host["updates"] * host["batch"], 4)),
         (storage_of(16, 13), random_idx(16, 9)),
         (storage_of(300, 4100), random_idx(300, 1001)),
         (storage_of(64, 28224, offset=3), random_idx(64, 77)),
@@ -452,6 +506,7 @@ def phase_kernels() -> dict:
 
     stored = _time_gather(*cases[0], "stored stacks (atari)")
     stacked = _time_gather(*cases[1], "stacked single frames (atari_dedup)")
+    host_stacks = _time_gather(*cases[2], "stacked single frames (atari_host)")
     return {
         "name": "gather_rows_cast",
         "route": "cuda",
@@ -460,7 +515,7 @@ def phase_kernels() -> dict:
         "launches": None,
         "max_abs_err": max_err,
         **{k: stored[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "shapes": {"atari": stored, "atari_dedup": stacked},
+        "shapes": {"atari": stored, "atari_dedup": stacked, "atari_host": host_stacks},
     }
 
 
@@ -480,7 +535,19 @@ def continuous_algo(kind: str, obs_dim: int, act_dim: int, action_space, hidden,
                update_actor_freq=2, device=device, **kw)
 
 
-def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, **small):
+def _train_param_fn(path: str, cfg: dict):
+    """The path's exploration schedule: a constant epsilon, a linear decay
+    (``eps_decay``: start, end, steps), or the algorithm's own (None)."""
+    if "eps_decay" in cfg:
+        start, end, steps = cfg["eps_decay"]
+        return lambda epoch, step: start + min(1.0, step / steps) * (end - start)
+    if "eps" in cfg or path in EPSILON_PATHS:
+        eps = cfg.get("eps", 0.1)
+        return lambda epoch, step: eps
+    return None
+
+
+def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, fused: bool | None = None, **small):
     """A path's configuration through the port's entry points; ``small``
     overrides sizes (the card-vs-CPU reference runs a small slice)."""
     from tianshou_tpu_torch.algos.dqn import DQN
@@ -550,10 +617,46 @@ def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, **
         env = Pendulum()
         algo = continuous_algo(path[:3], 3, 1, env.action_space, cfg.get("hidden", (128, 128)), device)
         test_envs = 10
-    elif path == "sac_host":
+    elif path in ("sac_host", "sac_fine"):
+        # bench.py's host stage; sac_fine: examples/mujoco_sac.py (fixed alpha 0.2)
+        from tianshou_tpu_torch.envs.host import HostVectorEnv
+
         env = HalfCheetahStandIn()
         algo = continuous_algo("sac", env.OBS_DIM, env.ACT_DIM, env.action_space, (256, 256), device,
                                auto_alpha=False)
+        host_venvs = (HostVectorEnv([HalfCheetahStandIn] * num_envs),
+                      HostVectorEnv([HalfCheetahStandIn] * cfg.get("test_envs", 2)))
+    elif path == "atari_host":
+        # examples/atari_dqn.py --fake-ale: the DeepMind chain, NatureCNN in bf16
+        from tianshou_tpu_torch.envs.atari import FakeAtariEnv, make_atari_env
+        from tianshou_tpu_torch.networks.conv import ConvQNet
+
+        host_venvs = make_atari_env("ALE/Pong-v5", num_envs, cfg["test_envs"], env_fn=lambda: FakeAtariEnv(seed=0))
+        env = host_venvs[0]
+        net = ConvQNet((4, 84, 84), env.action_space.n, "nature", encoder_kwargs={"compute_dtype": torch.bfloat16})
+        algo = DQN(net, env.action_space, lr=1e-4, gamma=0.99, n_step=3, target_update_freq=500, device=device)
+        buffer_options = dict(stack_num=4, save_only_last_obs=True, ignore_obs_next=True)
+    elif path == "cpp_cartpole":
+        # examples/cpp_pool_dqn.py
+        from tianshou_tpu_torch.envs.cpp_pool import CppVectorEnv
+        from tianshou_tpu_torch.networks.common import QNet
+
+        host_venvs = (CppVectorEnv("CartPole-v1", num_envs, seed=0),
+                      CppVectorEnv("CartPole-v1", cfg["test_envs"], seed=99))
+        env = host_venvs[0]
+        net = QNet(4, (128, 128, 128), 2)
+        dqn = dict(gamma=0.9, n_step=3, target_update_freq=320)
+    elif path == "marl_tictactoe":
+        # tests/test_marl.py:46-77: two DQN agents in self-play
+        from tianshou_tpu_torch.algos.multiagent import MultiAgentPolicyManager
+        from tianshou_tpu_torch.envs.tictactoe import TicTacToe
+        from tianshou_tpu_torch.networks.common import QNet
+
+        env = TicTacToe()
+        algo = MultiAgentPolicyManager([
+            DQN(QNet(19, cfg.get("hidden", (128, 128)), 9), env.action_space, gamma=0.95, n_step=2,
+                target_update_freq=320, device=device) for _ in range(2)])
+        test_envs = 16
     elif path == "redq_pendulum":
         # highlevel/experiment.py:860-883; the rest tests/test_utils_misc.py:127-160
         from tianshou_tpu_torch.algos.redq import REDQ
@@ -613,13 +716,12 @@ def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, **
         buffer = ReplayBuffer(capacity, num_envs, **buffer_options)
     if dqn is not None:
         algo = DQN(net, env.action_space, lr=1e-3, device=device, **dqn)
-    if path in HOST_PATHS:
+    if path in HOST_PATHS + FUSED_PATHS:
         from tianshou_tpu_torch.collect.host_collector import HostCollector
-        from tianshou_tpu_torch.envs.host import HostVectorEnv
 
-        train = HostCollector(algo, HostVectorEnv([HalfCheetahStandIn] * num_envs), buffer, device=device)
-        test = HostCollector(algo, HostVectorEnv([HalfCheetahStandIn] * 2), device=device)
-        episodes = 1
+        train = HostCollector(algo, host_venvs[0], buffer, device=device)
+        test = HostCollector(algo, host_venvs[1], device=device)
+        episodes = cfg.get("episodes", 1)
     else:
         train = Collector(algo, VectorEnv(env, num_envs, device=device), buffer, device=device)
         test = Collector(algo, VectorEnv(env, test_envs, device=device), device=device)
@@ -631,8 +733,8 @@ def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, **
         # the DQN family explores with epsilon 0.1 (Rainbow through its
         # weight noise, ignoring it); TD3 takes its default, its own
         # exploration noise (SAC samples and ignores it)
-        train_param_fn=(lambda epoch, step: 0.1) if path in EPSILON_PATHS else None,
-        warmup_steps=cfg.get("warmup", 0), pipeline_host_updates=pipeline,
+        train_param_fn=_train_param_fn(path, cfg), test_param=cfg.get("eps_test", 0.0),
+        warmup_steps=cfg.get("warmup", 0), pipeline_host_updates=pipeline, fused_fine_host=fused,
     )
     if (trainer.segment_len, trainer.updates_per_segment) != (segment, updates):
         raise AssertionError(f"trainer split {trainer.segment_len} steps / {trainer.updates_per_segment} updates")
@@ -987,6 +1089,9 @@ def phase_superstep(path: str, gather) -> dict:
                      "per write-back": write_back,
                      "per add (one rollout step)": lambda: buffer.add(state[2], held["step"]),
                      "updates incl. sampling": updates}
+        elif not algo.supports_presampled:
+            # each update samples its own batch (the manager: one a agent)
+            parts = {"rollout": rollout, "updates incl. sampling": updates}
         else:
             parts = {"rollout": rollout,
                      "presample": lambda: algo.presample(buffer, state[2], gen, cfg["updates"] * cfg["batch"]),
@@ -1009,6 +1114,14 @@ def check_policy(path: str, algo, ts, obs, gen, env, policy_state=()) -> None:
     from ``policy_state`` (a recurrent policy's carries, which must come out
     finite)."""
     space = env.action_space
+    if path == "marl_tictactoe":
+        # the manager acts for the agent to move, legally under the mask
+        with torch.no_grad():
+            act = algo.act(ts, obs, gen, explore=False)
+        legal = obs["mask"][torch.arange(act.shape[0], device=act.device), act]
+        if tuple(act.shape) != (obs["mask"].shape[0],) or not bool((legal > 0).all()):
+            raise AssertionError(f"{path}: illegal or misshapen actions {act}")
+        return
     q_values = (path in DQN_PATHS and path not in ("bdq_pendulum", "drqn_cartpole")) or path == "discrete_cql_cartpole"
     with torch.no_grad():
         if q_values:
@@ -1095,8 +1208,9 @@ def phase_host(path: str, gather) -> dict:
     copies = TreePacker.copies
     dt, metrics = timed(lambda: hp.device(hp.upload(hp.collect())), n)
     copies = TreePacker.copies - copies
-    if gather.launches != 0 or copies != n + WARMUP:
-        raise AssertionError(f"{path}: {copies} packed copies and {gather.launches} gather launches in {n + WARMUP} "
+    launches = gather.launches
+    if launches != KERNEL_LAUNCHES[path] * (n + WARMUP) or copies != n + WARMUP:
+        raise AssertionError(f"{path}: {copies} packed copies and {launches} gather launches in {n + WARMUP} "
                              "segments")
     _check_metrics(path, metrics)
 
@@ -1134,11 +1248,13 @@ def phase_host(path: str, gather) -> dict:
     parts["device part"] = lambda: hp.device(held["up"])
     result = {"env_steps_per_s": n * steps / dt, "ms_per_segment": dt / n * 1e3, **metrics,
               "updates_per_segment": cfg["updates"], "h2d_copies_per_segment": len(h2d.copies),
+              "gather_rows_cast_per_segment": launches / (n + WARMUP),
               "device_kernels_per_segment": kernels, "device_busy_ms_per_segment_profiled": busy_ms,
               "max_memory_allocated_gib": peak, "breakdown_ms": breakdown(parts)}
     log(f"{path}: {n} segments of {cfg['num_envs']} host envs x {cfg['segment']} steps + {cfg['updates']} updates "
         f"of batch {cfg['batch']}: {result['env_steps_per_s']:.1f} env-steps/s, {result['ms_per_segment']:.2f} ms "
-        f"per segment (stand-in env: env time understated), metrics {metrics}, {copies} packed copies in {n + WARMUP}, "
+        f"per segment, metrics {metrics}, {copies} packed copies and {launches} gather_rows_cast launches in "
+        f"{n + WARMUP}, "
         f"max_memory_allocated {peak:.3f} GiB; the device part under torch.cuda.set_sync_debug_mode('error') raised "
         f"no host sync; one host-to-device copy dispatched in a segment ({floats} floats); {kernels} device kernels "
         f"and device busy {busy_ms:.2f} ms in its device part")
@@ -1146,7 +1262,7 @@ def phase_host(path: str, gather) -> dict:
         result["processing_passes_per_segment"] = _processing_passes(algo, cfg["repeat"])
     log(f"{path} breakdown (median of 3, ms): " + ", ".join(f"{k} {v:.2f}" for k, v in result["breakdown_ms"].items()))
     closing = [trainer]
-    if not onpolicy:
+    if path == "sac_host":
         result["pipeline_ms_per_segment"], piped_trainer = _pipeline_turns(path, hp.loop, n)
         closing.append(piped_trainer)
     for t in closing:
@@ -1206,7 +1322,9 @@ def phase_main_path(path: str, gather) -> int:
     _check_metrics(path, info.last_metrics)
     if not math.isfinite(info.best_reward):
         raise AssertionError(f"{path}: non-finite best reward: {info}")
-    if path in HOST_PATHS:
+    if path in FUSED_PATHS and not trainer.last_run_used_fused:
+        raise AssertionError(f"{path}: run() did not take the fused fine cycle")
+    if path in HOST_PATHS + FUSED_PATHS:
         trainer.train_collector.venv.close()
         trainer.test_collector.venv.close()
     if path == "cql_d4rl":
@@ -1735,13 +1853,32 @@ class _HostToDeviceCopies(TorchDispatchMode):
 
 def _profile_counts(fn) -> tuple[int, float]:
     """``fn`` under ``torch.profiler``: device kernels and the device's busy
-    milliseconds (the union of their intervals).  The window opens with
-    about a second of a busy stream (``torch.cuda._sleep``'s spin kernel)
-    and then ``PROFILE_PADDING`` short spins, all left out of the counts,
-    before ``fn``'s work: the profiler drops the first device records of a
-    window, more of them the longer the process has run (up to 19 of a
-    superstep late in a run), and the spins take the loss.  A window that
-    lost every spin is reported."""
+    milliseconds (the union of their intervals)."""
+    events = _device_records(fn)
+    busy_ns, end = 0, -1
+    for start, stop in sorted((e.start_ns(), e.end_ns()) for e in events):
+        busy_ns += max(0, stop - max(start, end))
+        end = max(end, stop)
+    return len(events), busy_ns / 1e6
+
+
+def _profile_memcpys(fn) -> tuple[int, int]:
+    """``fn`` under ``torch.profiler``: the host-to-device and the
+    device-to-host copies the card ran (its device records; a copy made by
+    ``torch.as_tensor(array, device=...)`` is not a dispatched operation,
+    so only the profiler sees it)."""
+    names = [e.name() for e in _device_records(fn)]
+    return sum("HtoD" in n for n in names), sum("DtoH" in n for n in names)
+
+
+def _device_records(fn) -> list:
+    """The device records of ``fn``'s work under ``torch.profiler``.  The
+    window opens with about a second of a busy stream
+    (``torch.cuda._sleep``'s spin kernel) and then ``PROFILE_PADDING``
+    short spins, all left out, before ``fn``'s work: the profiler drops the
+    first device records of a window, more of them the longer the process
+    has run (up to 19 of a superstep late in a run), and the spins take the
+    loss.  A window that lost every spin is reported."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1758,11 +1895,7 @@ def _profile_counts(fn) -> tuple[int, float]:
     events = [e for e in device if "spin_kernel" not in e.name()]
     if len(device) - len(events) == 0:
         log(f"profiler: every padding spin was dropped; {len(events)} kernels may undercount")
-    busy_ns, end = 0, -1
-    for start, stop in sorted((e.start_ns(), e.end_ns()) for e in events):
-        busy_ns += max(0, stop - max(start, end))
-        end = max(end, stop)
-    return len(events), busy_ns / 1e6
+    return events
 
 
 def phase_reference_onpolicy() -> None:
@@ -2400,6 +2533,242 @@ def phase_reference_offline() -> None:
             f"difference {err:.3e})")
 
 
+# -- slice 9: the host path's latency modes, the env pool, host variants -------
+
+
+def _turns(runs: dict, n: int) -> dict[str, float]:
+    """Each of ``runs`` (name -> ``step()``) for ``n`` steps in turns (a, b,
+    b, a for two), closed by a synchronisation: the mean ms a step of each."""
+    names = list(runs)
+    order = names + names[::-1]
+    times: dict[str, list[float]] = {k: [] for k in names}
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            runs[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / n * 1e3)
+    log("in turns (ms a step, mean of " + f"{len(order) // len(names)} turns of {n}): " + ", ".join(
+        f"{k} {sum(v) / len(v):.2f} ({', '.join(f'{x:.2f}' for x in v)})" for k, v in times.items()))
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def phase_fused(path: str, gather) -> dict:
+    """``sac_fine``: the fused fine host cycle at examples/mujoco_sac.py's
+    defaults (8 envs, one step each and 8 updates of batch 256 a cycle).
+    1 warm-up and 3 timed cycles, its device part (the transition into the
+    ring, the updates, the next action) under the sync guard with the action
+    fetch left out, the synchronisations of a whole cycle counted, one
+    host-to-device copy a cycle, one cycle profiled, then cycles of the
+    fused loop and of the segment path (``fused_fine_host=False``) in
+    turns."""
+    from tianshou_tpu_torch.trainer.offpolicy import FusedHostLoop
+    from tianshou_tpu_torch.utils.transfer import TreePacker
+
+    cfg = PATHS[path]
+    _fresh_memory()
+    env, algo, col, _, trainer = build(path)
+    loop, _ = trainer._host_setup()
+    if not isinstance(loop, FusedHostLoop):
+        raise AssertionError(f"{path}: the trainer did not take the fused fine cycle")
+    loop.prime(0.0)
+    n = TIMED
+    gather.launches = 0
+    copies = TreePacker.copies
+    dt, metrics = timed(lambda: (loop.cycle(0.0), loop.metrics)[1], n)
+    copies = TreePacker.copies - copies
+    if gather.launches != 0 or copies != n + WARMUP:
+        raise AssertionError(f"{path}: {copies} packed copies and {gather.launches} gather launches in "
+                             f"{n + WARMUP} cycles")
+    _check_metrics(path, metrics)
+
+    # the device part makes no host synchronisation; the fetch of the next
+    # action is the cycle's one
+    _, host = loop.step_envs()
+    flat = loop.upload(host)
+    sync_guarded(lambda: loop.device(flat, 0.0))
+    loop.env_act = loop.env_act_device.cpu().numpy()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            loop.cycle(0.0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    if syncs != 1:
+        raise AssertionError(f"{path}: {syncs} host synchronisations in a cycle, not 1: "
+                             f"{[str(w.message) for w in caught]}")
+    _, host = loop.step_envs()
+    floats = sum(np.size(x) for x in host.values())
+    with _HostToDeviceCopies() as h2d:
+        loop.device(loop.upload(host), 0.0)
+    loop.env_act = loop.env_act_device.cpu().numpy()
+    if h2d.copies != [(floats,)]:
+        raise AssertionError(f"{path}: host-to-device copies in a cycle, not one of {floats} floats: {h2d.copies}")
+    _, host = loop.step_envs()
+    kernels, busy_ms = _profile_counts(lambda: loop.device(loop.upload(host), 0.0))
+    loop.env_act = loop.env_act_device.cpu().numpy()
+    check_policy(path, algo, loop.ts, torch.as_tensor(col.obs, device=algo.device), loop.generator, env)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the fused cycle beside the segment path at one step a env
+    _, _, _, _, plain_trainer = build_path(path, "cuda", fused=False)
+    plain, _ = plain_trainer._host_setup()
+
+    def plain_cycle():
+        _, traj = plain.collect(0.0)
+        plain.update(traj)
+        plain.read_metrics()  # the segment path's own read, as the fused cycle's fetch
+
+    turns = _turns({"fused": lambda: loop.cycle(0.0), "segment path": plain_cycle}, 10)
+    result = {"ms_per_cycle": dt / n * 1e3, "env_steps_per_s": n * cfg["num_envs"] / dt, **metrics,
+              "updates_per_cycle": cfg["updates"], "syncs_per_cycle": syncs, "h2d_copies_per_cycle": len(h2d.copies),
+              "device_kernels_per_cycle": kernels, "device_busy_ms_per_cycle_profiled": busy_ms,
+              "max_memory_allocated_gib": peak, "turns_ms_per_cycle": turns}
+    log(f"{path}: {n} fused cycles of {cfg['num_envs']} host envs x 1 step + {cfg['updates']} updates of batch "
+        f"{cfg['batch']}: {result['ms_per_cycle']:.2f} ms a cycle, metrics {metrics}, {copies} packed copies in "
+        f"{n + WARMUP}; the device part under torch.cuda.set_sync_debug_mode('error') raised no host sync, a whole "
+        f"cycle made {syncs} (the action fetch); one host-to-device copy of {floats} floats; {kernels} device "
+        f"kernels and device busy {busy_ms:.2f} ms in its device part; max_memory_allocated {peak:.3f} GiB")
+    for t in (trainer, plain_trainer):
+        t.train_collector.venv.close()
+        t.test_collector.venv.close()
+    return result
+
+
+def phase_cpp_bench(num_envs: int = 16, steps: int = 2000) -> dict[str, float]:
+    """examples/cpp_pool_dqn.py --bench: the native pool's raw step rate,
+    env steps a second, on CartPole-v1 and Reacher2 (the host's CPU, no
+    card)."""
+    from tianshou_tpu_torch.envs.cpp_pool import CppVectorEnv
+
+    rng = np.random.default_rng(0)
+    rows = {}
+    for task, act_fn in (("CartPole-v1", lambda: rng.integers(0, 2, num_envs)),
+                         ("Reacher2", lambda: rng.uniform(-1, 1, (num_envs, 2)).astype(np.float32))):
+        env = CppVectorEnv(task, num_envs, seed=0)
+        env.reset()
+        for _ in range(10):
+            env.step(act_fn())
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            env.step(act_fn())
+        rows[task] = num_envs * steps / (time.perf_counter() - t0)
+        env.close()
+    log(f"cpp pool raw step rate, {num_envs} envs x {steps} steps: "
+        + ", ".join(f"{k} {v:,.0f} env-steps/s" for k, v in rows.items()))
+    return rows
+
+
+@contextlib.contextmanager
+def _farm(num_envs: int):
+    """A port env farm in a subprocess on 127.0.0.1 serving
+    ``HalfCheetahStandIn``; yields its address; killed at exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tianshou_tpu_torch.envs.remote", "--env", "chip_smoke:HalfCheetahStandIn",
+         "--num-envs", str(num_envs), "--port", "0", "--host", "127.0.0.1"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline, line = time.monotonic() + 120, ""
+        while "serving" not in line:
+            ready, _, _ = select.select([proc.stdout], [], [], max(0.0, deadline - time.monotonic()))
+            if not ready:
+                raise TimeoutError("the env farm did not report its port in 120 s")
+            line = proc.stdout.readline()
+            if not line:
+                raise RuntimeError(f"the env farm exited with {proc.wait(timeout=10)}")
+        yield f"127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+        proc.stdout.close()
+
+
+def phase_host_variants(n: int = 3) -> dict:
+    """sac_host's configuration through the host path's variants, each in
+    turns with plain sac_host (plain, variant, variant, plain; ``n``
+    segments a turn): a ``RemoteVectorEnv`` over a farm subprocess,
+    ``AsyncHostCollector`` with ``wait_num`` 4 of 8 (64 transitions into
+    the ring, then the 64 updates), and ``act_on_host=True``.  For each, ms
+    a segment and the copies the card ran each way in one segment."""
+    from tianshou_tpu_torch.collect.async_collector import AsyncHostCollector, AsyncHostVectorEnv
+    from tianshou_tpu_torch.collect.host_collector import HostCollector
+    from tianshou_tpu_torch.envs.host import HostVectorEnv
+    from tianshou_tpu_torch.envs.remote import RemoteVectorEnv
+    from tianshou_tpu_torch.trainer.offpolicy import build_update_scan
+
+    cfg = PATHS["sac_host"]
+    _fresh_memory()
+    opened = []
+
+    def host_loop(venv=None, act_on_host=False):
+        _, algo, col, buffer, trainer = build_path("sac_host", "cuda")
+        if venv is not None or act_on_host:
+            col.venv.close()
+            trainer.train_collector = HostCollector(
+                algo, venv or HostVectorEnv([HalfCheetahStandIn] * cfg["num_envs"]), buffer, device="cuda",
+                act_on_host=act_on_host)
+        opened.append(trainer)
+        loop, _ = trainer._host_setup()
+
+        def segment():
+            _, traj = loop.collect(0.0)
+            loop.update(traj)
+            loop.read_metrics()
+        return segment
+
+    def async_loop():
+        _, algo, _, buffer, trainer = build_path("sac_host", "cuda")
+        opened.append(trainer)
+        loop, _ = trainer._host_setup()
+        venv = AsyncHostVectorEnv([HalfCheetahStandIn] * cfg["num_envs"], wait_num=4)
+        opened.append(venv)
+        acol = AsyncHostCollector(algo, venv, buffer, device="cuda")
+        acol.reset(seed=1)
+        updates = build_update_scan(algo, buffer, cfg["batch"], cfg["updates"])
+
+        def segment():
+            loop.bstate, _ = acol.collect(loop.ts, loop.bstate, cfg["num_envs"] * cfg["segment"], loop.generator)
+            loop.ts, loop.bstate, loop.metrics = updates(loop.ts, loop.bstate, loop.generator)
+            loop.read_metrics()
+        return segment
+
+    results = {}
+    plain = host_loop()
+    try:
+        with _farm(cfg["num_envs"]) as address:
+            variants = {"remote farm": lambda: host_loop(RemoteVectorEnv([address])),
+                        "async wait_num 4 of 8": async_loop,
+                        "act_on_host": lambda: host_loop(act_on_host=True)}
+            for name, make in variants.items():
+                step = make()
+                for fn in (plain, step):
+                    fn()  # warm-up
+                turns = _turns({"plain sac_host": plain, name: step}, n)
+                h2d, d2h = _profile_memcpys(step)
+                results[name] = {"ms_per_segment": turns[name], "plain_ms_per_segment": turns["plain sac_host"],
+                                 "h2d_copies_per_segment": h2d, "d2h_copies_per_segment": d2h}
+                log(f"host variant {name}: {turns[name]:.2f} ms a segment beside plain sac_host's "
+                    f"{turns['plain sac_host']:.2f}; the card ran {h2d} host-to-device and {d2h} device-to-host "
+                    "copies in one segment")
+            h2d, d2h = _profile_memcpys(plain)
+            results["plain sac_host"] = {"h2d_copies_per_segment": h2d, "d2h_copies_per_segment": d2h}
+            log(f"host variant plain sac_host: the card ran {h2d} host-to-device and {d2h} device-to-host copies "
+                "in one segment")
+    finally:
+        for t in opened:
+            if isinstance(t, AsyncHostVectorEnv):
+                t.close()
+            else:
+                t.train_collector.venv.close()
+                t.test_collector.venv.close()
+    return results
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2422,7 +2791,8 @@ def main() -> int:
     results, launches = {}, 0
     for path in PATHS:
         t_path = time.perf_counter()
-        phase = phase_host if path in HOST_PATHS else phase_offline if path in OFFLINE_PATHS else phase_superstep
+        phase = (phase_host if path in HOST_PATHS else phase_fused if path in FUSED_PATHS
+                 else phase_offline if path in OFFLINE_PATHS else phase_superstep)
         results[path] = phase(path, gather_rows_cast)
         if path in HIGHLEVEL_PATHS:
             n, results[path]["main_run"] = phase_main_highlevel(path, gather_rows_cast)
@@ -2432,6 +2802,8 @@ def main() -> int:
         results[path]["phase_s"] = time.perf_counter() - t_path
     kernel["launches"] = launches
     results["hl_atari"]["beside_atari"] = phase_builder_beside_atari()
+    results["cpp_cartpole"]["raw_step_rate"] = phase_cpp_bench()
+    results["sac_host"]["variants"] = phase_host_variants()
     stored, dedup = results["atari"], results["atari_dedup"]
     log("atari memory regime: frames stored once (atari_dedup) beside stored stacks (atari): "
         + ", ".join(f"{k} {dedup[k]:.4f} vs {stored[k]:.4f}" for k in (

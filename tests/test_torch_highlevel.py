@@ -352,8 +352,11 @@ def test_tensorboard_experiment_saves_checkpoint_and_itself(tmp_path):
 
 
 def test_env_factories_raise_for_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 7"):
-        tenv.RemoteEnvFactory(["localhost:1"], ["localhost:2"])
+    # RemoteEnvFactory is ported (slice 9): it builds, and connecting to an
+    # address where no farm listens raises at once
+    factory = tenv.RemoteEnvFactory(["127.0.0.1:1"], ["127.0.0.1:2"])
+    with pytest.raises(ConnectionRefusedError):
+        factory.create_envs(0, 0, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, item 5"):
         tenv.TorchEnvFactory("minatar-seaquest")
     with pytest.raises(KeyError):

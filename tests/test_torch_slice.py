@@ -178,6 +178,11 @@ def test_trainer_stops_on_stop_fn(test_in_train):
 
 def _entry_points():
     from tianshou_tpu_torch.algos.bdq import BDQ
+    from tianshou_tpu_torch.algos.multiagent import MultiAgentPolicyManager
+    from tianshou_tpu_torch.collect.async_collector import AsyncHostCollector, AsyncHostVectorEnv
+    from tianshou_tpu_torch.collect.host_collector import HostCollector
+    from tianshou_tpu_torch.envs.atari import FakeAtariEnv, make_atari_env
+    from tianshou_tpu_torch.envs.tictactoe import TicTacToe
     from tianshou_tpu_torch.algos.c51 import C51
     from tianshou_tpu_torch.algos.drqn import DRQN
     from tianshou_tpu_torch.algos.gail import GAIL
@@ -246,6 +251,11 @@ def _entry_points():
         "PSRL": lambda: PSRL(5, Discrete(2)),
         "ExperimentConfig().run": lambda: DQNExperimentBuilder(TorchEnvFactory("CartPole-v1")).build().run(),
         "experiment_cli": lambda: experiment_cli(["--algo", "dqn", "--task", "CartPole-v1"]),
+        "HostCollector(act_on_host)": lambda: HostCollector(
+            algo, make_atari_env("fake", 1, 1, env_fn=FakeAtariEnv)[0], act_on_host=True),
+        "AsyncHostCollector": lambda: AsyncHostCollector(algo, AsyncHostVectorEnv([FakeAtariEnv])),
+        "TicTacToe VectorEnv": lambda: VectorEnv(TicTacToe(), N_ENVS),
+        "MultiAgentPolicyManager": lambda: MultiAgentPolicyManager([DQN(QNet(19, (8,), 9), Discrete(9))] * 2),
     }
 
 
@@ -253,7 +263,9 @@ def _entry_points():
                                    "PrioritizedReplayBuffer.init", "C51", "QRDQN", "REDQ", "DiscreteSAC", "BDQ",
                                    "DRQN", "OUNoise", "BC", "TD3BC", "BCQ", "CQL", "DiscreteBCQ", "DiscreteCQL",
                                    "DiscreteCRR", "buffer_from_d4rl", "OfflineTrainer", "HERReplayBuffer.init", "ICM",
-                                   "GAIL", "PSRL", "ExperimentConfig().run", "experiment_cli"])
+                                   "GAIL", "PSRL", "ExperimentConfig().run", "experiment_cli",
+                                   "HostCollector(act_on_host)", "AsyncHostCollector", "TicTacToe VectorEnv",
+                                   "MultiAgentPolicyManager"])
 def test_default_device_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -291,13 +303,16 @@ SLICE8_MODULES = ["utils.repr", "data.stats", "utils.logger", "utils.checkpoint"
                   "trainer.onpolicy", "trainer.offline", "highlevel.config", "highlevel.env", "highlevel.module",
                   "highlevel.experiment", "highlevel.cli", "evaluation.aggregate", "evaluation.launcher",
                   "evaluation.plots", "evaluation", "networks.convert"]
+SLICE9_MODULES = ["envs.atari", "envs.cpp_pool", "envs.finite", "envs.remote", "envs.tictactoe",
+                  "envs.pettingzoo_env", "collect.async_collector", "algos.multiagent", "collect.host_collector",
+                  "collect.collector", "trainer.offpolicy", "highlevel.env"]
 OPTIONAL_PACKAGES = ["tensorboard", "cloudpickle", "joblib", "matplotlib", "tqdm", "wandb", "gymnasium", "h5py"]
 
 
 def test_port_imports_slice2_modules_without_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES + SLICE8_MODULES!r}:\n"
+        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES + SLICE8_MODULES + SLICE9_MODULES!r}:\n"
         "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tianshou_tpu'))\n"
@@ -353,6 +368,37 @@ def test_slice8_modules_import_without_optional_packages():
         "else:\n"
         "    raise AssertionError('TensorboardLogger built without tensorboard')\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {OPTIONAL_PACKAGES!r} and sys.modules[m])\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_slice9_modules_import_without_env_packages():
+    """With gymnasium, pettingzoo and cv2 unimportable, every slice-9 module
+    imports, the fake-ALE DeepMind chain runs (the warp is numpy) and
+    TicTacToe steps: those packages are needed only to build a gymnasium
+    env from a task id or to wrap a caller's PettingZoo env."""
+    code = (
+        "import importlib, sys\n"
+        "import numpy as np, torch\n"
+        "for name in ('gymnasium', 'pettingzoo', 'cv2'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {SLICE9_MODULES!r}:\n"
+        "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
+        "from tianshou_tpu_torch.envs.atari import FakeAtariEnv, make_atari_env\n"
+        "train, test = make_atari_env('fake', 2, 1, env_fn=FakeAtariEnv)\n"
+        "obs = train.reset(0)\n"
+        "res, carry = train.step(np.ones(2, np.int64))\n"
+        "assert obs.shape == (2, 4, 84, 84) and res.obs.dtype == np.uint8\n"
+        "from tianshou_tpu_torch.envs.base import VectorEnv\n"
+        "from tianshou_tpu_torch.envs.tictactoe import TicTacToe\n"
+        "v = VectorEnv(TicTacToe(), 2, device='cpu')\n"
+        "s, o = v.reset(torch.Generator())\n"
+        "s, r, o = v.step(s, torch.tensor([4, 4]), torch.Generator())\n"
+        "assert r.reward.shape == (2, 2)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'tianshou_tpu', 'gymnasium', 'pettingzoo', 'cv2') and sys.modules[m])\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

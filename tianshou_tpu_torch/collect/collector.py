@@ -22,7 +22,11 @@ is reset to :meth:`Algorithm.init_policy_state`'s.  A feedforward policy's
 state is ``()``, which costs no launch.  Warm-up acting
 (``random=True``) leaves the state as it is.
 
-Not ported yet: MARL reward metrics.
+A multi-agent env's reward is a per-agent vector ``[N, A]``; the episode
+return then carries that shape and ``reward_metric`` turns the finished
+episodes' per-agent returns ``[K, A]`` into ``[K]`` (default: the first
+agent's column), at episode ends and not per step, so that a metric such
+as the minimum over agents is exact.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ class CollectState:
     env_state: Any
     obs: torch.Tensor
     rng: torch.Generator
-    ep_ret: torch.Tensor  # [N] running episode return
+    ep_ret: torch.Tensor  # [N] (or [N, n_agents]) running episode return
     ep_len: torch.Tensor  # [N] running episode length
     policy_state: Any = ()  # per-env recurrent policy state (LSTM carries)
 
@@ -77,6 +81,12 @@ class CollectStats:
         return float(self.lens.mean()) if self.lens.size else 0.0
 
 
+def _default_reward_metric(ep_rew):
+    """Per-agent episode returns ``[K, A]`` (a tensor or an array) as
+    ``[K]``: the first agent's column (single-agent returns pass through)."""
+    return ep_rew if ep_rew.ndim == 1 else ep_rew[..., 0]
+
+
 def rollout_segment(
     algo: Algorithm,
     venv: VectorEnv,
@@ -85,13 +95,17 @@ def rollout_segment(
     explore: bool,
     random: bool = False,
     record_traj: bool = False,
+    reward_metric=None,
 ):
     """Build ``seg(ts, cstate, bstate, explore_param) -> (cstate, bstate,
     outputs)``; ``outputs`` holds ``[T, N]`` tensors ``done``, ``ep_ret`` and
     ``ep_len`` (the latter two non-zero only where an episode ended), and
     with ``record_traj`` the stacked transitions as ``traj``.  With
-    ``random``, uniform random actions take the place of ``algo``'s."""
+    ``random``, uniform random actions take the place of ``algo``'s.
+    ``reward_metric`` scalarises per-agent episode returns
+    (:func:`_default_reward_metric` by default)."""
     actor = RandomPolicy(algo.action_space, algo.device) if random else algo
+    reward_metric = reward_metric or _default_reward_metric
 
     def seg(ts: TrainState, cstate: CollectState, bstate, explore_param: float):
         obs, env_state = cstate.obs, cstate.env_state
@@ -103,6 +117,10 @@ def rollout_segment(
             env_state, res, carry_obs = venv.step(env_state, algo.map_action(act), cstate.rng)
             done = res.done
             pstate = tree_where(done, init_pstate, pstate)
+            if ep_ret.shape != res.reward.shape:
+                # a per-agent reward: the return carry takes its shape (it
+                # is all zeros here, right after a reset)
+                ep_ret = torch.zeros_like(res.reward)
             ep_ret = ep_ret + res.reward
             ep_len = ep_len + 1
             transition = Batch(
@@ -116,9 +134,9 @@ def rollout_segment(
             if record_traj:
                 steps.append(transition)
             dones.append(done)
-            rets.append(torch.where(done, ep_ret, 0.0))
+            rets.append(torch.where(done, reward_metric(ep_ret), 0.0))
             lens.append(torch.where(done, ep_len, 0))
-            ep_ret = torch.where(done, 0.0, ep_ret)
+            ep_ret = torch.where(done.reshape(done.shape + (1,) * (ep_ret.dim() - 1)), 0.0, ep_ret)
             ep_len = torch.where(done, 0, ep_len)
             obs = carry_obs
         outputs = {
@@ -144,6 +162,7 @@ class Collector:
         venv: VectorEnv,
         buffer: ReplayBuffer | None = None,
         device: str | torch.device = "cuda",
+        reward_metric=None,
     ):
         self.device = resolve_device(device)
         if venv.device != self.device or algo.device != self.device:
@@ -153,6 +172,7 @@ class Collector:
         self.algo = algo
         self.venv = venv
         self.buffer = buffer
+        self.reward_metric = reward_metric
 
     def reset(self, generator: torch.Generator) -> CollectState:
         """Reset every env from ``generator``; the collector's own stream is
@@ -194,7 +214,8 @@ class Collector:
     ) -> tuple[CollectState, ReplayBufferState | None, CollectStats]:
         """Collect ``num_steps`` steps per env; ``random`` acts uniformly at
         random (warm-up)."""
-        seg = rollout_segment(self.algo, self.venv, self.buffer, num_steps, explore, random)
+        seg = rollout_segment(self.algo, self.venv, self.buffer, num_steps, explore, random,
+                              reward_metric=self.reward_metric)
         cstate, bstate, outputs = seg(ts, cstate, bstate, explore_param)
         return cstate, bstate, self.summarize(outputs, self.venv.num_envs * num_steps)
 
@@ -230,7 +251,7 @@ class Collector:
         quota = np.full(n, n_episode // n, np.int64)
         quota[: n_episode % n] += 1
         cstate = self.reset(generator)
-        seg = rollout_segment(self.algo, self.venv, None, chunk_size, explore)
+        seg = rollout_segment(self.algo, self.venv, None, chunk_size, explore, reward_metric=self.reward_metric)
         per_env_returns: list[list[float]] = [[] for _ in range(n)]
         per_env_lens: list[list[int]] = [[] for _ in range(n)]
         counts = np.zeros(n, np.int64)

@@ -5,7 +5,8 @@
 on-device :class:`~tianshou_tpu_torch.envs.base.VectorEnv`\\ s from the
 port's env registry (``backend="torch"``); :class:`GymEnvFactory` builds
 host gymnasium envs (``backend="host"``), with ``gymnasium`` imported only
-when it is given a task name.
+when it is given a task name; :class:`RemoteEnvFactory` connects to env
+farms (``backend="host"``).
 """
 
 from __future__ import annotations
@@ -66,12 +67,33 @@ class TorchEnvFactory(EnvFactory):
 
 
 class RemoteEnvFactory(EnvFactory):
-    """Env farms on other machines (``envs/remote.py`` in the JAX
-    package), not ported yet."""
+    """Env farms on other machines (:mod:`~tianshou_tpu_torch.envs.remote`):
+    ``train_addresses`` and ``test_addresses`` are ``"host:port"``
+    endpoints, and the env counts are the farms' own (``num_train`` and
+    ``num_test`` must match them, or be 0 or less to take them as they
+    are).  A farm serves one learner connection at a time, so the train and
+    test envs come from different farms."""
 
     def __init__(self, train_addresses: list[str], test_addresses: list[str]):
-        raise NotImplementedError(
-            "RemoteEnvFactory needs envs/remote.py, which is not ported yet (ROADMAP.md, item 7)"
+        self.train_addresses = train_addresses
+        self.test_addresses = test_addresses
+
+    def create_envs(self, num_train: int, num_test: int, device: str | torch.device = "cuda") -> Environments:
+        from tianshou_tpu_torch.envs.remote import RemoteVectorEnv
+
+        train = RemoteVectorEnv(self.train_addresses)
+        test = RemoteVectorEnv(self.test_addresses)
+        for venv, want, kind in ((train, num_train, "train"), (test, num_test, "test")):
+            if want > 0 and venv.num_envs != want:
+                train.close()
+                test.close()
+                raise ValueError(f"{kind} farms host {venv.num_envs} envs, the configuration asks for {want}")
+        return Environments(
+            train_venv=train,
+            test_venv=test,
+            observation_space=train.observation_space,
+            action_space=train.action_space,
+            backend="host",
         )
 
 

@@ -18,14 +18,23 @@ ONE packed host-to-device copy of the segment, ``add_trajectory`` and the k
 updates.  ``pipeline_host_updates`` (default off) acts with the actor from
 before the updates in flight, on a side CUDA stream, from a snapshot of it.
 
+When each segment is ONE step of every env, the host path runs the fused
+fine cycle (:class:`FusedHostLoop`, ``fused_fine_host``): per cycle the
+envs step with the pending action, the transition crosses in one packed
+copy, and on the card the transition joins the ring, the k updates run and
+the NEXT action is computed with the updated parameters; fetching that
+action is the cycle's one host synchronisation.  The exploration value is
+the one for the step at which the action executes.  ``fused_fine_host``
+``None`` (default) takes the cycle where it applies, ``True`` demands it
+(``ValueError`` naming each failed condition), ``False`` keeps the segment
+path.
+
 Both loops take a ``logger`` (train data each superstep, from the metrics
 ``run`` already read; the counters at each epoch's end, with
 ``save_checkpoint_fn``; test results), ``resume_from_log`` (the counters
 restored from the logger, epochs continued) and ``profile_dir`` (a device
 trace of the run, :class:`~tianshou_tpu_torch.trainer.hooks.RunContext`).
 None of them adds a launch or a host synchronisation to a superstep.
-
-Not ported yet: the fused fine cycle of the host path.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ import numpy as np
 import torch
 
 from tianshou_tpu_torch.algos.base import Algorithm, TrainState
-from tianshou_tpu_torch.collect.collector import Collector, rollout_segment
+from tianshou_tpu_torch.collect.collector import Collector, CollectStats, rollout_segment
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
@@ -48,7 +57,7 @@ from tianshou_tpu_torch.data.tree import tree_map
 from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext, log_test, log_train, save_epoch
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 
-__all__ = ["HostStep", "OffPolicyTrainer", "build_update_scan"]
+__all__ = ["FusedHostLoop", "HostStep", "OffPolicyTrainer", "build_update_scan"]
 
 
 def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_updates: int):
@@ -88,6 +97,11 @@ def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_
         return ts, bstate, {k: torch.stack(v).mean() for k, v in history.items()}
 
     return updates
+
+
+def _read_metrics(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
+    """Device metrics on the host, in one device-to-host copy."""
+    return dict(zip(metrics.keys(), torch.stack(list(metrics.values())).tolist()))
 
 
 class HostStep:
@@ -160,8 +174,82 @@ class HostLoop:
 
     def read_metrics(self) -> dict[str, float]:
         """The last segment's mean metrics, in one device-to-host copy."""
-        values = torch.stack(list(self.metrics.values())).tolist()
-        return dict(zip(self.metrics.keys(), values))
+        return _read_metrics(self.metrics)
+
+
+class FusedHostLoop:
+    """The fused fine host cycle, for segments of one step per env: the
+    reference's collect-one-step / update order with one host
+    synchronisation a cycle.
+
+    :meth:`step_envs` steps the envs with the pending action (host);
+    :meth:`upload` sends the transition and the next observation in ONE
+    packed copy; :meth:`device` adds the transition to the ring, runs the k
+    updates and acts on the next observation with the updated parameters,
+    all queued without a host synchronisation; :meth:`cycle` does the three
+    and fetches the env action, the cycle's one synchronisation.  The
+    updates and the acting draw from one stream, in order, so a seed fixes
+    the run."""
+
+    def __init__(self, trainer: OffPolicyTrainer, ts, bstate, generator):
+        self.trainer = trainer
+        self.ts, self.bstate = ts, bstate
+        self.generator = generator
+        self.updates_fn = build_update_scan(trainer.algo, trainer.buffer, trainer.batch_size,
+                                            trainer.updates_per_segment)
+        self.metrics: dict[str, torch.Tensor] | None = None
+        self.raw_act: torch.Tensor | None = None  # the pending action, on the device
+        self.env_act_device: torch.Tensor | None = None
+        self.env_act: np.ndarray | None = None  # the pending action, fetched
+        self._packer = None
+
+    def prime(self, explore_param: float) -> None:
+        """The first action, from the current observations."""
+        col, algo = self.trainer.train_collector, self.trainer.algo
+        self.raw_act = algo.act(self.ts, col._device_obs(col.obs), self.generator, True, explore_param)
+        self.env_act = algo.map_action(self.raw_act).cpu().numpy()
+
+    def step_envs(self) -> tuple[CollectStats, dict]:
+        """One step of every env with the pending action: ``(stats, the
+        transition's host leaves and the next observation as "carry")``."""
+        col = self.trainer.train_collector
+        res, carry = col.venv.step(self.env_act)
+        returns, lens = col._track(res)
+        host = {"obs": col.obs, "rew": res.reward, "terminated": res.terminated, "truncated": res.truncated,
+                "obs_next": res.obs, "carry": carry}
+        col.obs = carry
+        stats = CollectStats(n_collected_steps=col.venv.num_envs, n_collected_episodes=len(returns),
+                             returns=np.asarray(returns), lens=np.asarray(lens, np.int64))
+        return stats, host
+
+    def upload(self, host: dict) -> torch.Tensor:
+        """``host`` packed and sent to the card in one copy."""
+        self._packer = self.trainer.train_collector._packer(host)
+        return self._packer.to_device(host)
+
+    def device(self, flat: torch.Tensor, explore_param: float) -> None:
+        """The transition into the ring, the k updates, and the next action
+        from the updated parameters, queued on the card."""
+        algo = self.trainer.algo
+        h = self._packer.unpack(flat)
+        transition = Batch(obs=h["obs"], act=self.raw_act, rew=h["rew"], terminated=h["terminated"],
+                           truncated=h["truncated"], obs_next=h["obs_next"])
+        self.bstate = self.trainer.buffer.add(self.bstate, transition)
+        self.ts, self.bstate, self.metrics = self.updates_fn(self.ts, self.bstate, self.generator)
+        self.raw_act = algo.act(self.ts, h["carry"], self.generator, True, explore_param)
+        self.env_act_device = algo.map_action(self.raw_act)
+
+    def cycle(self, explore_param: float) -> CollectStats:
+        """One cycle; ``explore_param`` is the schedule's value for the step
+        at which the next action executes."""
+        stats, host = self.step_envs()
+        self.device(self.upload(host), explore_param)
+        self.env_act = self.env_act_device.cpu().numpy()  # the cycle's one synchronisation
+        return stats
+
+    def read_metrics(self) -> dict[str, float]:
+        """The last cycle's mean metrics, in one device-to-host copy."""
+        return _read_metrics(self.metrics)
 
 
 class OffPolicyTrainer:
@@ -193,6 +281,7 @@ class OffPolicyTrainer:
         profile_dir: str | None = None,
         smooth_window: int = 1,
         pipeline_host_updates: bool = False,
+        fused_fine_host: bool | None = None,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
@@ -236,6 +325,9 @@ class OffPolicyTrainer:
         # the staleness destabilised TD3's delayed actor in the JAX
         # package's HalfCheetah runs, while SAC and DDPG tolerate it
         self.pipeline_host_updates = pipeline_host_updates
+        # host path: the fused fine cycle (None: where it applies)
+        self.fused_fine_host = fused_fine_host
+        self.last_run_used_fused = False
 
         num_envs = train_collector.venv.num_envs
         # steps per env per collect segment (the reference counts total env steps)
@@ -247,7 +339,8 @@ class OffPolicyTrainer:
         """``superstep(ts, cstate, bstate, generator, explore_param) -> (ts,
         cstate, bstate, outputs, metrics)``."""
         seg = rollout_segment(
-            self.algo, self.train_collector.venv, self.buffer, self.segment_len, explore=True
+            self.algo, self.train_collector.venv, self.buffer, self.segment_len, explore=True,
+            reward_metric=self.train_collector.reward_metric,
         )
         updates_fn = build_update_scan(
             self.algo, self.buffer, self.batch_size, self.updates_per_segment
@@ -264,11 +357,34 @@ class OffPolicyTrainer:
         updates_fn = build_update_scan(self.algo, self.buffer, self.batch_size, self.updates_per_segment)
         return HostStep(self.train_collector, self.buffer, updates_fn)
 
-    def _host_setup(self) -> tuple[HostLoop, int]:
+    def _fused_fine_applicable(self, probe: Batch) -> bool:
+        """Whether the fused fine cycle applies: one step per env a segment,
+        strictly sequential collection, flat observations, no per-step
+        policy extras (``probe`` is a recorded step) and no MARL
+        ``reward_metric``.  With ``fused_fine_host=True`` a failed condition
+        raises ``ValueError`` naming each one."""
+        if self.fused_fine_host is False:
+            return False
+        col = self.train_collector
+        conditions = {
+            "step_per_collect == num_envs (one step per env per cycle)": self.segment_len == 1,
+            "pipeline_host_updates is off": not self.pipeline_host_updates,
+            "flat (non-dict) observations": not isinstance(col.obs, dict),
+            "policy emits no per-step extras": "policy" not in probe,
+            "no MARL reward_metric": col.reward_metric is None,
+        }
+        failed = [name for name, ok in conditions.items() if not ok]
+        if failed and self.fused_fine_host is True:
+            raise ValueError(
+                f"fused_fine_host=True but the fused fine cycle is not applicable; failed condition(s): "
+                f"{'; '.join(failed)}")
+        return not failed
+
+    def _host_setup(self) -> tuple[HostLoop | FusedHostLoop, int]:
         """The host path's start: reset the envs, draw the parameters, take
         the buffer schema from one probe step (which advances the envs and
-        is not stored) and run the warm-up.  Returns the loop and the
-        warm-up's env steps."""
+        is not stored) and run the warm-up.  Returns the loop (the fused
+        fine cycle's where it applies) and the warm-up's env steps."""
         gen = make_generator(self.seed, self.device)
         g_init, g_collect = fork_generator(gen), fork_generator(gen)
         col = self.train_collector
@@ -276,11 +392,14 @@ class OffPolicyTrainer:
         ts = self.algo.init(g_init)
         _, _, probe = col.collect(ts, None, 1, g_collect, explore=True, explore_param=1.0, record_traj=True)
         bstate = self.buffer.init(tree_map(lambda x: x[0, 0], col.to_device(probe)), device=self.device)
+        self.last_run_used_fused = self._fused_fine_applicable(probe)
         env_step = 0
         if self.warmup_steps > 0:
             warm_len = max(1, self.warmup_steps // col.venv.num_envs)
             bstate, stats, _ = col.collect(ts, bstate, warm_len, g_collect, explore=True, random=self.warmup_random)
             env_step += stats.n_collected_steps
+        if self.last_run_used_fused:
+            return FusedHostLoop(self, ts, bstate, gen), env_step
         return HostLoop(self, ts, bstate, gen, g_collect), env_step
 
     def _run_host(self) -> InfoStats:
@@ -306,13 +425,24 @@ class OffPolicyTrainer:
             for epoch in range(start_epoch + 1, self.max_epoch + 1):
                 steps_this_epoch = 0
                 while steps_this_epoch < self.step_per_epoch:
-                    stats, traj = loop.collect(float(self.train_param_fn(epoch, env_step)))
-                    # the previous segment's metrics, read after this
-                    # segment's collection so that it does not wait on them
-                    if loop.metrics is not None and seg_count % metrics_interval == 0:
-                        last_metrics = smooth(loop.read_metrics())
-                    seg_count += 1
-                    loop.update(traj)
+                    explore_param = float(self.train_param_fn(epoch, env_step))
+                    if self.last_run_used_fused:
+                        if loop.env_act is None:
+                            loop.prime(explore_param)
+                        if loop.metrics is not None and seg_count % metrics_interval == 0:
+                            last_metrics = smooth(loop.read_metrics())
+                        seg_count += 1
+                        # the action computed in this cycle executes at the
+                        # next step: its schedule value is that step's
+                        stats = loop.cycle(float(self.train_param_fn(epoch, env_step + self.steps_per_segment)))
+                    else:
+                        stats, traj = loop.collect(explore_param)
+                        # the previous segment's metrics, read after this
+                        # segment's collection so that it does not wait on them
+                        if loop.metrics is not None and seg_count % metrics_interval == 0:
+                            last_metrics = smooth(loop.read_metrics())
+                        seg_count += 1
+                        loop.update(traj)
                     env_step += self.steps_per_segment
                     steps_this_epoch += self.steps_per_segment
                     grad_step += self.updates_per_segment

@@ -158,7 +158,7 @@ class OnPolicyTrainer:
         """``superstep(ts, cstate, generator) -> (ts, cstate, outputs,
         metrics)``."""
         seg = rollout_segment(self.algo, self.train_collector.venv, None, self.segment_len, explore=True,
-                              record_traj=True)
+                              record_traj=True, reward_metric=self.train_collector.reward_metric)
         learn = self._build_learn(permutation)
 
         def superstep(ts, cstate, generator):

@@ -20,6 +20,12 @@ high-level builder: ``DQNExperimentBuilder`` on CartPole with
 update_per_step=0.1)`` and ``DQNParams()`` (MLP (128, 128), gamma 0.99,
 3-step returns, a target copy every 320 updates, epsilon 0.1, 16 envs, a
 ring of 20,000, batch 64), stopping at 195.
+``--config fused_dqn`` is tests/test_fused_host.py
+``test_fused_cycle_dqn_cartpole_learns``: the host path's fused fine cycle
+over 8 gymnasium CartPole-v1 envs, one step each a cycle, ``QNet((128,
+128, 128))``, gamma 0.9, 3-step returns, a target copy every 320 updates,
+a ring of 2,000 x 8 envs, 4 epochs of 10,000 steps, one update of batch 64
+a cycle, epsilon 0.1, 1,000 warm-up steps, stopping at 195.
 
 Each (package, seed) runs in a process of its own, ``--workers`` at a
 time, and prints its best test reward; the last line is a JSON object with
@@ -27,7 +33,7 @@ every result.  The two packages' random streams (Threefry and Philox)
 share nothing, so a seed names a different run in each: compare how many
 seeds reach the threshold, not seed by seed.
 
-    python3 tools/seed_sweep.py [--config per_dqn|fqf|quickstart] [--seeds 0 1 2 3 4] [--workers 4]
+    python3 tools/seed_sweep.py [--config per_dqn|fqf|quickstart|fused_dqn] [--seeds 0 1 2 3 4] [--workers 4]
 
 This script is a comparison between the two packages and imports each in
 its own process; the port itself imports nothing of JAX.
@@ -50,6 +56,8 @@ CONFIGS = {
     "fqf": (180.0, 10, dict(max_epoch=8, step_per_epoch=8000, step_per_collect=100, update_per_step=0.1,
                             batch_size=64, warmup_steps=1000)),
     "quickstart": (195.0, 16, dict(num_epochs=10, step_per_epoch=10000, step_per_collect=100, update_per_step=0.1)),
+    "fused_dqn": (195.0, 8, dict(max_epoch=4, step_per_epoch=10000, step_per_collect=8, update_per_step=0.125,
+                                 batch_size=64, warmup_steps=1000)),
 }
 
 
@@ -86,6 +94,23 @@ def _run_jax(config: str, seed: int) -> float:
 
         return _quickstart((hl_config, hl_experiment), JaxEnvFactory("CartPole-v1"), seed)
     threshold, n, schedule = CONFIGS[config]
+    if config == "fused_dqn":
+        import gymnasium as gym
+
+        from tianshou_tpu.collect.host_collector import HostCollector
+        from tianshou_tpu.envs.host import HostVectorEnv
+
+        algo = DQN(network=QNet((128, 128, 128), 2), action_space=CartPole.action_space, gamma=0.9, n_step=3,
+                   target_update_freq=320)
+        buffer = ReplayBuffer(capacity=2000, num_envs=n)
+        venvs = [HostVectorEnv([lambda: gym.make("CartPole-v1")] * n) for _ in range(2)]
+        trainer = OffPolicyTrainer(algo, HostCollector(algo, venvs[0], buffer), HostCollector(algo, venvs[1]),
+                                   buffer, train_param_fn=lambda e, s: 0.1, stop_fn=lambda rew: rew >= threshold,
+                                   seed=seed, **schedule)
+        info = trainer.run()
+        if not trainer.last_run_used_fused:
+            raise RuntimeError("the fused fine cycle did not apply")
+        return float(info.best_reward)
     env = CartPole()
     if config == "per_dqn":
         algo = DQN(network=QNet((64, 64), 2), action_space=env.action_space, gamma=0.9, n_step=3,
@@ -123,6 +148,24 @@ def _run_torch(config: str, seed: int) -> float:
 
         return _quickstart((hl_config, hl_experiment), TorchEnvFactory("CartPole-v1"), seed, device="cpu")
     threshold, n, schedule = CONFIGS[config]
+    if config == "fused_dqn":
+        import gymnasium as gym
+
+        from tianshou_tpu_torch.collect.host_collector import HostCollector
+        from tianshou_tpu_torch.envs.host import HostVectorEnv
+
+        algo = DQN(QNet(4, (128, 128, 128), 2), CartPole.action_space, gamma=0.9, n_step=3, target_update_freq=320,
+                   device="cpu")
+        buffer = ReplayBuffer(capacity=2000, num_envs=n)
+        venvs = [HostVectorEnv([lambda: gym.make("CartPole-v1")] * n) for _ in range(2)]
+        trainer = OffPolicyTrainer(
+            algo, HostCollector(algo, venvs[0], buffer, device="cpu"), HostCollector(algo, venvs[1], device="cpu"),
+            buffer, train_param_fn=lambda e, s: 0.1, stop_fn=lambda rew: rew >= threshold, seed=seed, device="cpu",
+            **schedule)
+        info = trainer.run()
+        if not trainer.last_run_used_fused:
+            raise RuntimeError("the fused fine cycle did not apply")
+        return float(info.best_reward)
     env = CartPole()
     if config == "per_dqn":
         algo = DQN(QNet(4, (64, 64), 2), env.action_space, gamma=0.9, n_step=3, target_update_freq=100, device="cpu")

@@ -9,9 +9,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build: every kernel under ``tianshou_tpu_torch/csrc`` with ``nvcc``;
 3. kernels: each kernel against its plain PyTorch version on the card
-   (bitwise) at the shapes its paths give it, then timed beside the plain
-   version, the PyTorch library call and the least time the card could take
-   (its bound);
+   (bitwise) at the shapes its paths give it and at edge cases (for
+   ``gather_rows_cast``: an unaligned width and base, one row, unequal
+   persistent runs, rings past 2^32 bytes; every route the inputs allow),
+   then, at each caller's shape, timed L2-cold (8
+   index sets in turn, each with its own output) as device ms a launch
+   (the profiler's kernel records), host issue us a call and wall ms a
+   call: the previous kernel and the new one in turns (old, new, new, old),
+   the plain version and the PyTorch library call, beside the least time
+   the card could take (its bound);
 4. reference: small slices run on the card and on the CPU from the same
    parameters and env phases (the pixel path, and the pixel path with the
    deduplicated frame-stack buffer): identical actions and replay storage,
@@ -399,18 +405,59 @@ class HalfCheetahStandIn:
         pass
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
+def _device_ms(fn, calls: int) -> float:
+    """Device milliseconds of one call of ``fn``: under ``torch.profiler``,
+    the mean duration of each kernel that ``calls`` calls ran, summed over
+    the kernels' names (a call of ``index_select().to()`` runs two).  A mean
+    by name is not biased by the records the profiler drops at a window's
+    start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, list[int]] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and "Memcpy" not in e.name() and "Memset" not in e.name():
+            by_name.setdefault(e.name(), []).append(e.end_ns() - e.start_ns())
+    if not by_name:
+        raise AssertionError("the profiler recorded no kernel")
+    return sum(sum(d) / len(d) for d in by_name.values()) / 1e6
+
+
+def _host_issue_us(fn, calls: int) -> float:
+    """Host microseconds to issue one call of ``fn``: a host clock around
+    ``calls`` calls with no synchronisation between them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def _wall_ms(fn, calls: int) -> float:
+    """Milliseconds a call of ``fn`` over ``calls`` calls issued back to back,
+    by CUDA events around them: the card's time where a call outlasts its
+    issue, the host's issue time where it does not."""
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
+    for _ in range(calls):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / calls
+
+
+def _timings(fn, calls: int, warmup: int = 3) -> dict[str, float]:
+    for _ in range(warmup):
+        fn()
+    return {"device_ms": _device_ms(fn, calls), "host_issue_us": _host_issue_us(fn, calls),
+            "wall_ms": _wall_ms(fn, calls)}
 
 
 def phase_device() -> str:
@@ -431,82 +478,165 @@ def phase_build() -> None:
     log(f"build: {_build.kernel_names()} in {secs:.2f} s into {_build.BUILD_DIR}")
 
 
-def _time_gather(storage, idx, what: str) -> dict:
-    """The kernel, its plain version and the library call on one input, and
-    the bound from the rows these indices read."""
+# phase 3's timings rotate among this many index sets, each with its own
+# output, so that a launch finds its rows and its output cold in the 50 MB L2
+# at every caller shape, as a caller with a ring larger than L2 finds them
+GATHER_SETS, GATHER_CALLS = 8, 24
+# the paths whose presample calls gather_rows_cast, one caller shape each
+GATHER_CALLERS = ("atari", "hl_atari", "atari_dedup", "atari_host")
+
+
+def _gather_storage(gen, rows: int, feat: int, offset: int = 0) -> torch.Tensor:
+    flat = torch.randint(0, 256, (rows * feat + offset,), generator=gen, device="cuda", dtype=torch.uint8)
+    return flat[offset:].view(rows, feat)
+
+
+def _random_idx(gen, rows: int, batch: int) -> torch.Tensor:
+    return torch.randint(0, rows, (batch,), generator=gen, device="cuda")
+
+
+def _stacked_idx(gen, num_envs: int, capacity: int, batch: int, stack: int) -> torch.Tensor:
+    """Rows of ``batch`` frame stacks: each a chain of ``stack`` consecutive
+    slots of one env's ring, flattened oldest first."""
+    env = torch.randint(0, num_envs, (batch, 1), generator=gen, device="cuda")
+    pos = torch.randint(0, capacity, (batch, 1), generator=gen, device="cuda")
+    chain = torch.remainder(pos - torch.arange(stack - 1, -1, -1, device="cuda"), capacity)
+    return (env * capacity + chain).reshape(-1)
+
+
+def _caller_inputs(path: str, gen, sets: int) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The ring and ``sets`` presamples' indices of ``path``'s caller: the
+    stored ``[84, 84, 4]`` stacks of ``atari`` and ``hl_atari`` (random
+    rows), or stacks of 4 single 84x84 frames rebuilt from one env's ring
+    (``atari_dedup``, and ``atari_host``: examples/atari_dqn.py's ring of
+    10 x 10,000 frames)."""
+    cfg = PATHS[path]
+    ring, batch = cfg["num_envs"] * cfg["capacity"], cfg["updates"] * cfg["batch"]
+    if path in ("atari", "hl_atari"):
+        return _gather_storage(gen, ring, 84 * 84 * 4), [_random_idx(gen, ring, batch) for _ in range(sets)]
+    return (_gather_storage(gen, ring, 84 * 84),
+            [_stacked_idx(gen, cfg["num_envs"], cfg["capacity"], batch, 4) for _ in range(sets)])
+
+
+def _gather_bound(feat: int, batch: int, distinct: int) -> tuple[float, str]:
+    """The least time of one launch: the distinct rows read, the bf16 rows
+    written and the indices over the memory rate, or one conversion a byte
+    over the float32 rate."""
+    bytes_ms = (distinct * feat + batch * feat * 2 + batch * 8) / H100_BYTES_PER_S * 1e3
+    ops_ms = batch * feat / H100_FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _time_gather(path: str, storage: torch.Tensor, idx_sets: list[torch.Tensor]) -> dict:
+    """At one caller's shape, each timed as device ms, host issue us and wall
+    ms a call, every call on the next index set: the previous kernel (the
+    simple route) and the new one in turns (old, new, new, old), then the
+    plain version and ``index_select().to()``; the bound per launch from the
+    distinct rows each set reads, averaged over the sets."""
     from tianshou_tpu_torch.ops.gather import gather_rows_cast, gather_rows_cast_plain
 
-    (rows, feat), batch = storage.shape, idx.shape[0]
-    ms = time_ms(lambda: gather_rows_cast(storage, idx))
-    plain_ms = time_ms(lambda: gather_rows_cast_plain(storage, idx))
-    library_ms = time_ms(lambda: torch.index_select(storage, 0, idx).to(torch.bfloat16))
-    unique_rows = int(torch.unique(idx).numel())
-    moved = unique_rows * feat + batch * feat * 2 + batch * 8  # rows read, bf16 written, indices
-    bytes_ms = moved / H100_BYTES_PER_S * 1e3
-    ops_ms = batch * feat / H100_FP32_OPS_PER_S * 1e3  # one conversion per byte
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"gather_rows_cast {what} at R={rows} F={feat} B={batch} ({unique_rows} distinct rows): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select+to {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({moved / 1e9:.3f} GB at 3.35 TB/s); "
-        f"{moved / (ms * 1e-3) / 1e12:.3f} TB/s achieved, {bound_ms / ms:.3f} of the bound")
-    return {"shape": [rows, feat, batch], "distinct_rows": unique_rows, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+    outs, turn = [None] * len(idx_sets), [0]
+
+    def rotating(call):
+        def fn():
+            k = turn[0] % len(idx_sets)
+            turn[0] += 1
+            outs[k] = call(idx_sets[k])
+        return fn
+
+    runs = {"old": rotating(lambda i: gather_rows_cast(storage, i, route="simple")),
+            "new": rotating(lambda i: gather_rows_cast(storage, i)),
+            "plain": rotating(lambda i: gather_rows_cast_plain(storage, i)),
+            "library": rotating(lambda i: torch.index_select(storage, 0, i).to(torch.bfloat16))}
+    measured = {k: [] for k in runs}
+    for name in ("old", "new", "new", "old", "plain", "library"):
+        measured[name].append(_timings(runs[name], GATHER_CALLS))
+    (rows, feat), batch = storage.shape, idx_sets[0].shape[0]
+    distinct = [int(torch.unique(i).numel()) for i in idx_sets]
+    bounds = [_gather_bound(feat, batch, d) for d in distinct]
+    bound_ms = sum(b for b, _ in bounds) / len(bounds)
+
+    def mean(name, key):
+        return sum(m[key] for m in measured[name]) / len(measured[name])
+
+    def said(name):
+        def each(key, digits):
+            return " / ".join(format(m[key], f".{digits}f") for m in measured[name])
+
+        return (f"device {each('device_ms', 4)} ms ({bound_ms / mean(name, 'device_ms'):.3f} of the bound), "
+                f"host issue {each('host_issue_us', 1)} us, wall {each('wall_ms', 4)} ms")
+
+    log(f"gather_rows_cast at {path}'s shape R={rows} F={feat} B={batch} ({len(idx_sets)} index sets in turn, "
+        f"{sum(distinct) / len(distinct):.0f} distinct rows a launch): bound {bound_ms:.4f} ms ({bounds[0][1]}); "
+        f"new {said('new')}; old {said('old')}; plain {said('plain')}; index_select+to {said('library')}")
+    return {"shape": [rows, feat, batch], "distinct_rows": sum(distinct) / len(distinct), "bound_ms": bound_ms,
+            "bound_by": bounds[0][1], "share_of_bound": bound_ms / mean("new", "device_ms"),
+            **{name: {key: [m[key] for m in measured[name]] for key in ("device_ms", "host_issue_us", "wall_ms")}
+               for name in runs}}
 
 
 def phase_kernels() -> dict:
-    from tianshou_tpu_torch.ops.gather import gather_rows_cast, gather_rows_cast_plain
+    """Each kernel bitwise against its plain version at every case, then
+    timed at every caller's shape."""
+    from tianshou_tpu_torch.ops.gather import ROUTES, _sm_count, gather_rows_cast, gather_rows_cast_plain, launch_plan
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = _sm_count(torch.cuda.current_device())
+    # a batch that leaves the output-order pipeline's blocks unequal runs of
+    # more than 64 rows (the producer's index registers refill twice)
+    blocks = launch_plan(4096, 84 * 84, 1 << 30, True, sms).grid
 
-    def storage_of(rows, feat, offset=0):
-        flat = torch.randint(0, 256, (rows * feat + offset,), generator=gen, device=dev, dtype=torch.uint8)
-        return flat[offset:].view(rows, feat)
+    def past_2_32(rows, feat, batch):
+        idx = _random_idx(gen, rows, batch)
+        assert int(idx.max()) * feat >= 2**32, "no index reaches past 2^32 bytes"
+        return _gather_storage(gen, rows, feat), idx
 
-    def random_idx(rows, batch):
-        return torch.randint(0, rows, (batch,), generator=gen, device=dev)
+    def cases():
+        """(what, storage, idx), one at a time: the callers' shapes; an
+        unaligned row width; a batch that fills no round number of blocks
+        with rows wider than one block; a storage base off the 16-byte
+        alignment; one row; unequal runs; rings past 2^32 bytes, at the
+        Atari recipe's frame (4.94 GB) and with the rows the grouped route
+        takes (4.5 GB)."""
+        for path in ("atari", "atari_dedup", "atari_host"):
+            storage, (idx,) = _caller_inputs(path, gen, 1)
+            yield path, storage, idx
+        yield "F=13", _gather_storage(gen, 16, 13), _random_idx(gen, 16, 9)
+        yield "F=4100", _gather_storage(gen, 300, 4100), _random_idx(gen, 300, 1001)
+        yield "offset 3", _gather_storage(gen, 64, 28224, offset=3), _random_idx(gen, 64, 77)
+        yield "B=1", _gather_storage(gen, 1000, 84 * 84), _random_idx(gen, 1000, 1)
+        yield f"{blocks} blocks", _gather_storage(gen, 4096, 84 * 84), _random_idx(gen, 4096, blocks * 70 + 37)
+        yield "idx * F > 2^32", *past_2_32(700_000, 84 * 84, 4096)
+        yield "idx * F > 2^32, grouped", *past_2_32(30_000, 150_000, 7500)
 
-    def stacked_idx(num_envs, capacity, batch, stack):
-        """Rows of ``batch`` frame stacks: each a chain of ``stack``
-        consecutive slots of one env's ring, flattened oldest first."""
-        env = torch.randint(0, num_envs, (batch, 1), generator=gen, device=dev)
-        pos = torch.randint(0, capacity, (batch, 1), generator=gen, device=dev)
-        chain = torch.remainder(pos - torch.arange(stack - 1, -1, -1, device=dev), capacity)
-        return (env * capacity + chain).reshape(-1)
-
-    atari, dedup, host = PATHS["atari"], PATHS["atari_dedup"], PATHS["atari_host"]
-    ring = atari["num_envs"] * atari["capacity"]
-    # (storage, idx): the slice's stored-stack shape; the deduplicated
-    # layout's stacked gather of single 84x84 frames; an unaligned row
-    # width; a batch that fills no round number of blocks with rows wider
-    # than one block; a storage base off the 16-byte alignment
-    cases = [
-        (storage_of(ring, 84 * 84 * 4), random_idx(ring, atari["updates"] * atari["batch"])),
-        (storage_of(ring, 84 * 84), stacked_idx(dedup["num_envs"], dedup["capacity"],
-                                                dedup["updates"] * dedup["batch"], 4)),
-        # atari_host: examples/atari_dqn.py's ring of single frames, one
-        # segment's presample of updates x batch stacks of 4
-        (storage_of(host["num_envs"] * host["capacity"], 84 * 84),
-         stacked_idx(host["num_envs"], host["capacity"], host["updates"] * host["batch"], 4)),
-        (storage_of(16, 13), random_idx(16, 9)),
-        (storage_of(300, 4100), random_idx(300, 1001)),
-        (storage_of(64, 28224, offset=3), random_idx(64, 77)),
-    ]
     max_err = 0.0
-    for storage, idx in cases:
-        got = gather_rows_cast(storage, idx)
-        torch.cuda.synchronize()
+    for what, storage, idx in cases():
+        (rows, feat), batch = storage.shape, idx.shape[0]
+        aligned = storage.data_ptr() % 16 == 0
         ref = gather_rows_cast_plain(storage, idx)
-        what = f"R={storage.shape[0]} F={storage.shape[1]} B={idx.shape[0]} offset={storage.storage_offset()}"
-        if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
-            raise AssertionError(f"gather_rows_cast differs from its plain version at {what}")
-        max_err = max(max_err, float((got.float() - ref.float()).abs().max()))
-        log(f"kernel check gather_rows_cast {what}: bitwise equal")
+        # the plan's own route, then every route these inputs allow
+        routes = [None]
+        for route in ROUTES:
+            with contextlib.suppress(ValueError):
+                launch_plan(rows, feat, batch, aligned, sms, route)
+                routes.append(route)
+        for route in routes:
+            got = gather_rows_cast(storage, idx, route=route)
+            torch.cuda.synchronize()
+            taken = route or f"{launch_plan(rows, feat, batch, aligned, sms).route} (the plan's)"
+            where = f"{what}: R={rows} F={feat} B={batch} offset={storage.storage_offset()}, route {taken}"
+            if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+                raise AssertionError(f"gather_rows_cast differs from its plain version at {where}")
+            max_err = max(max_err, float((got.float() - ref.float()).abs().max()))
+            log(f"kernel check gather_rows_cast {where}: bitwise equal")
+        del storage, idx, ref, got
+    torch.cuda.empty_cache()
 
-    stored = _time_gather(*cases[0], "stored stacks (atari)")
-    stacked = _time_gather(*cases[1], "stacked single frames (atari_dedup)")
-    host_stacks = _time_gather(*cases[2], "stacked single frames (atari_host)")
+    shapes = {}
+    for path in GATHER_CALLERS:
+        shapes[path] = _time_gather(path, *_caller_inputs(path, gen, GATHER_SETS))
+        torch.cuda.empty_cache()
+    atari = shapes["atari"]
     return {
         "name": "gather_rows_cast",
         "route": "cuda",
@@ -514,8 +644,16 @@ def phase_kernels() -> dict:
         "replaces": "tianshou_tpu/ops/pallas_gather.py:38",
         "launches": None,
         "max_abs_err": max_err,
-        **{k: stored[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "shapes": {"atari": stored, "atari_dedup": stacked, "atari_host": host_stacks},
+        "ms": sum(atari["new"]["wall_ms"]) / 2,
+        "plain_ms": atari["plain"]["wall_ms"][0],
+        "bound_ms": atari["bound_ms"],
+        "bound_by": atari["bound_by"],
+        "library_ms": atari["library"]["wall_ms"][0],
+        "device_ms": sum(atari["new"]["device_ms"]) / 2,
+        "plain_device_ms": atari["plain"]["device_ms"][0],
+        "library_device_ms": atari["library"]["device_ms"][0],
+        "host_issue_us": sum(atari["new"]["host_issue_us"]) / 2,
+        "shapes": shapes,
     }
 
 

@@ -74,3 +74,109 @@ def test_build_module_imports_without_nvcc(monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc"):
             build.build()
 
+
+
+# -- the launch plan of the CUDA kernel (computed in Python, checked here) ----
+H100_SMS = 132
+PLAN_CASES = {
+    # the callers' shapes (R, F, B), both base pointers aligned
+    "atari": (8192, 28224, 13312, True, "grouped"),
+    "hl_atari": (8192, 28224, 13312, True, "grouped"),
+    "atari_dedup": (8192, 7056, 53248, True, "grouped"),
+    "atari_host": (100_000, 7056, 1280, True, "pipeline"),
+    # chip_smoke.py's edge cases
+    "F=13, B=9": (16, 13, 9, True, "simple"),
+    "F=4100": (300, 4100, 1001, True, "simple"),
+    "base offset 3": (64, 28224, 77, False, "simple"),
+    "B=1": (1000, 7056, 1, True, "pipeline"),
+    "unequal runs": (4096, 7056, H100_SMS * 70 + 37, True, "grouped"),
+    "idx * F > 2^32": (700_000, 7056, 4096, True, "pipeline"),
+    "idx * F > 2^32, grouped": (30_000, 150_000, 7500, True, "grouped"),
+}
+
+
+def _chunk_spans(feat, chunk):
+    """``(offset, bytes)`` of each bulk copy of one row, as the kernel walks a
+    row (``produce_row`` in csrc/gather_rows_cast.cu)."""
+    return [(off, min(chunk, feat - off)) for off in range(0, feat, chunk)]
+
+
+def _block_rows(batch, grid):
+    """The output rows of each block of the output-order pipeline, as
+    ``gather_rows_cast_pipeline`` walks them."""
+    return [range(k, batch, grid) for k in range(grid)]
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_launch_plan_at_every_caller_shape_and_edge_case(case):
+    from tianshou_tpu_torch.ops import gather as g
+
+    rows, feat, batch, aligned, route = PLAN_CASES[case]
+    plan = g.launch_plan(rows, feat, batch, aligned, H100_SMS)
+    assert plan.route == route
+    assert 1 <= plan.grid <= batch
+    if route == "simple":
+        assert plan.grid == batch
+        return
+    # bulk copies: multiples of 16 bytes on 16-byte boundaries, covering
+    # each row exactly once, in order
+    spans = _chunk_spans(feat, plan.chunk)
+    assert plan.chunk % 16 == 0 and plan.chunk <= g.MAX_CHUNK
+    assert all(off % 16 == 0 and size % 16 == 0 and 0 < size <= plan.chunk for off, size in spans)
+    assert [off for off, _ in spans] == list(np.cumsum([0] + [size for _, size in spans[:-1]]))
+    assert sum(size for _, size in spans) == feat
+    # the ring: at least 3 stages, within a block's shared memory
+    assert 3 <= plan.stages <= g.MAX_STAGES
+    assert plan.smem_bytes >= g.BARRIER_BYTES + plan.stages * plan.chunk
+    assert plan.smem_bytes <= g.SMEM_PER_BLOCK
+    assert plan.warps in g.WARP_CHOICES
+    if route == "grouped":  # the row counts and this block's output rows too
+        assert batch <= 65_536 and 4 * batch >= rows
+        assert plan.smem_bytes >= g.BARRIER_BYTES + plan.stages * plan.chunk + 4 * rows + 2 * batch
+        assert plan.grid <= H100_SMS
+    else:  # every output row in exactly one block's rows
+        rows_of = _block_rows(batch, plan.grid)
+        assert sorted(b for r in rows_of for b in r) == list(range(batch))
+        per_sm = -(-plan.grid // H100_SMS)
+        assert per_sm * (plan.smem_bytes + g.SMEM_RESERVED) <= g.SMEM_PER_SM
+        assert per_sm * (plan.warps + 1) * 32 <= 2048
+
+
+def test_launch_plan_forced_routes():
+    from tianshou_tpu_torch.ops import gather as g
+
+    # the comparison route and the other pipeline, where the inputs allow them
+    assert g.launch_plan(8192, 28224, 13312, True, H100_SMS, "simple").route == "simple"
+    assert g.launch_plan(8192, 28224, 13312, True, H100_SMS, "pipeline").route == "pipeline"
+    assert g.launch_plan(100_000, 7056, 1280, True, H100_SMS).route == "pipeline"
+    with pytest.raises(ValueError, match="16-byte"):
+        g.launch_plan(64, 28224, 77, False, H100_SMS, "pipeline")
+    with pytest.raises(ValueError, match="16-byte"):
+        g.launch_plan(16, 13, 9, True, H100_SMS, "grouped")
+    with pytest.raises(ValueError, match="shared memory"):
+        g.launch_plan(100_000, 7056, 1280, True, H100_SMS, "grouped")
+    with pytest.raises(ValueError, match="unknown"):
+        g.launch_plan(64, 16, 8, True, H100_SMS, "fastest")
+
+
+def test_c_source_declares_every_registered_entry_point():
+    """Each C entry point ``_build._SIGNATURES`` names is defined in its
+    source with as many parameters, pointers and the stream where ctypes
+    passes ``c_void_p`` and 64-bit integers where it passes ``c_int64``."""
+    import ctypes
+    import re
+
+    from tianshou_tpu_torch.ops import _build
+
+    for name, functions in _build._SIGNATURES.items():
+        src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        for fn, (_, argtypes) in functions.items():
+            m = re.search(rf"\bint {fn}\(([^)]*)\)\s*\{{", src)
+            assert m, f"{fn} is not defined in {name}.cu"
+            params = [" ".join(p.split()) for p in m.group(1).split(",")]
+            assert len(params) == len(argtypes), (fn, params)
+            for param, argtype in zip(params, argtypes):
+                if argtype is ctypes.c_void_p:
+                    assert "*" in param or param.startswith("cudaStream_t"), param
+                else:
+                    assert argtype is ctypes.c_int64 and param.startswith("int64_t "), param

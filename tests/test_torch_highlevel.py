@@ -45,6 +45,17 @@ from tianshou_tpu_torch.networks.convert import load_flax_params
 
 CPU = "cpu"
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test, as the threshold copies run: the suite runs in
+    several worker processes, and their threads would share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _SMOKE_ONPOLICY = dict(
     num_epochs=1, step_per_epoch=512, step_per_collect=256,
     repeat_per_collect=1, batch_size=64, num_train_envs=4, num_test_envs=2,

@@ -44,6 +44,16 @@ from tianshou_tpu_torch.networks.convert import params_from_flax
 from tianshou_tpu_torch.trainer.offpolicy import OffPolicyTrainer
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test, as the threshold copies run: the suite runs in
+    several worker processes, and their threads would share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(tree):
     return {k: np.asarray(v) for k, v in tree.items()}
 

@@ -35,8 +35,9 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # Every library also exports ``ts_cuda_error_string(int) -> const char*``.
 _SIGNATURES: dict[str, dict[str, tuple]] = {
     "gather_rows_cast": {
-        # (storage, idx, out, R, F, B, stream) -> cudaError_t
-        "ts_gather_rows_cast": (_INT, [_P, _P, _P, _I64, _I64, _I64, _P]),
+        # (storage, idx, out, R, F, B, route, grid, warps, chunk, stages,
+        #  smem_bytes, device, stream) -> cudaError_t
+        "ts_gather_rows_cast": (_INT, [_P, _P, _P, *[_I64] * 10, _P]),
     },
 }
 

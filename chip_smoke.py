@@ -17,7 +17,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (the profiler's kernel records), host issue us a call and wall ms a
    call: the previous kernel and the new one in turns (old, new, new, old),
    the plain version and the PyTorch library call, beside the least time
-   the card could take (its bound);
+   the card could take (its bound); ``dist_atari``'s shape is the
+   distributed trainer's per-update presample (512 rows of atari's ring);
 4. reference: small slices run on the card and on the CPU from the same
    parameters and env phases (the pixel path, and the pixel path with the
    deduplicated frame-stack buffer): identical actions and replay storage,
@@ -205,6 +206,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    subprocess on 127.0.0.1 (killed at the end), ``AsyncHostCollector``
    with ``wait_num`` 4 of 8, and ``act_on_host=True``; ms a segment and the
    copies the card ran each way.
+6. the distributed trainers (slice 11) on a world-1 NCCL group, each at its
+   plain path's configuration (``DIST_PATHS``: ``dist_atari`` is
+   ``DistributedOffPolicyTrainer`` at ``atari``'s, each of its 26 updates
+   presampling its own 512 rows, 52 ``gather_rows_cast`` launches a
+   segment; ``dist_rainbow_per`` the same trainer on ``rainbow_per``'s
+   prioritized ring; ``dist_ppo_cartpole`` ``DistributedOnPolicyTrainer`` at
+   ``ppo_cartpole``'s): 1 warm-up and 3 timed segments, segments in turns
+   with the plain trainer's, one profiled (device kernels, busy time, NCCL
+   kernels), the all-reduces of a segment (calls, bytes), the per-update
+   presample and gradient all-reduce alone, then ``run()`` for one epoch of
+   two segments, the launches read over exactly that run; ``dist_atari``
+   also holds one distributed update against the plain one on the same
+   batch.  Last, two gloo ranks share the card (this script again, with
+   ``--gloo-rank``, as two subprocesses on CUDA tensors): DQN on the
+   on-device CartPole through ``DistributedOffPolicyTrainer``, their
+   parameters bitwise equal after the run and the losses they read equal.
 
 It then prints a ``paths`` JSON line, the ``kernels`` JSON line and, last,
 the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
@@ -221,6 +238,7 @@ import math
 import os
 import select
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -327,6 +345,19 @@ KERNEL_LAUNCHES = {"atari": 2, "atari_dedup": 2, "cartpole": 0, "minatar": 0, "s
                    "bdq_pendulum": 0, "drqn_cartpole": 0, "cql_d4rl": 0, "discrete_cql_cartpole": 0,
                    "gail_pendulum": 0, "icm_cartpole": 0, "hl_cartpole": 0, "hl_atari": 2, "atari_host": 2,
                    "cpp_cartpole": 0, "sac_fine": 0, "marl_tictactoe": 0}
+# slice 11: the distributed trainers, each at its plain path's configuration
+# (PATHS) on a world-1 NCCL group (the card's machine has one GPU), in turns
+# with the plain trainer
+DIST_PATHS = {"dist_atari": "atari", "dist_rainbow_per": "rainbow_per", "dist_ppo_cartpole": "ppo_cartpole"}
+# launches of gather_rows_cast a segment of the distributed trainer: each of
+# atari's 26 updates presamples its own 512 rows (obs and obs_next), as the
+# JAX distributed trainer does
+DIST_KERNEL_LAUNCHES = {"dist_atari": 52, "dist_rainbow_per": 0, "dist_ppo_cartpole": 0}
+# two gloo ranks on the one card: DQN on the on-device CartPole at
+# tests/_dist_trainer_worker.py's widths (QNet (64, 64), n 3, 8 envs a rank,
+# batch 64 global), 3 segments of 10 steps a env after 1,000 warm-up steps
+GLOO_RANKS = dict(num_envs=8, segment=10, batch=64, update_per_step=0.1, capacity=1000, warmup=1000, segments=3)
+GLOO_RANK_TIMEOUT = 300
 # short spin kernels that open a profiled window after the long one (see
 # _device_records)
 PROFILE_PADDING = 64
@@ -483,7 +514,7 @@ def phase_build() -> None:
 # at every caller shape, as a caller with a ring larger than L2 finds them
 GATHER_SETS, GATHER_CALLS = 8, 24
 # the paths whose presample calls gather_rows_cast, one caller shape each
-GATHER_CALLERS = ("atari", "hl_atari", "atari_dedup", "atari_host")
+GATHER_CALLERS = ("atari", "hl_atari", "atari_dedup", "atari_host", "dist_atari")
 
 
 def _gather_storage(gen, rows: int, feat: int, offset: int = 0) -> torch.Tensor:
@@ -509,10 +540,13 @@ def _caller_inputs(path: str, gen, sets: int) -> tuple[torch.Tensor, list[torch.
     stored ``[84, 84, 4]`` stacks of ``atari`` and ``hl_atari`` (random
     rows), or stacks of 4 single 84x84 frames rebuilt from one env's ring
     (``atari_dedup``, and ``atari_host``: examples/atari_dqn.py's ring of
-    10 x 10,000 frames)."""
-    cfg = PATHS[path]
-    ring, batch = cfg["num_envs"] * cfg["capacity"], cfg["updates"] * cfg["batch"]
-    if path in ("atari", "hl_atari"):
+    10 x 10,000 frames); ``dist_atari`` presamples each update's 512 rows
+    of atari's ring on its own."""
+    base = DIST_PATHS.get(path, path)
+    cfg = PATHS[base]
+    ring = cfg["num_envs"] * cfg["capacity"]
+    batch = cfg["batch"] if path in DIST_PATHS else cfg["updates"] * cfg["batch"]
+    if base in ("atari", "hl_atari"):
         return _gather_storage(gen, ring, 84 * 84 * 4), [_random_idx(gen, ring, batch) for _ in range(sets)]
     return (_gather_storage(gen, ring, 84 * 84),
             [_stacked_idx(gen, cfg["num_envs"], cfg["capacity"], batch, 4) for _ in range(sets)])
@@ -598,7 +632,7 @@ def phase_kernels() -> dict:
         alignment; one row; unequal runs; rings past 2^32 bytes, at the
         Atari recipe's frame (4.94 GB) and with the rows the grouped route
         takes (4.5 GB)."""
-        for path in ("atari", "atari_dedup", "atari_host"):
+        for path in ("atari", "atari_dedup", "atari_host", "dist_atari"):
             storage, (idx,) = _caller_inputs(path, gen, 1)
             yield path, storage, idx
         yield "F=13", _gather_storage(gen, 16, 13), _random_idx(gen, 16, 9)
@@ -1791,7 +1825,7 @@ def pendulum_expert_ring(device, num_envs: int, capacity: int):
         buf = ReplayBuffer(capacity, num_envs)
         col = Collector(policy, VectorEnv(env, num_envs, device=device), buf, device=device)
         _, ts, cstate, bstate = init_states(policy, col, buf, seed=3)
-        _, bstate, _ = col.collect(ts, cstate, bstate, capacity, random=True)
+        _, bstate, _, _ = col.collect(ts, cstate, bstate, capacity, random=True)
         _DATA[key] = (buf, bstate)
     return _DATA[key]
 
@@ -1814,7 +1848,7 @@ def cartpole_offline_ring(device, num_envs: int, capacity: int):
         buf = ReplayBuffer(capacity, num_envs)
         col = Collector(policy, VectorEnv(env, num_envs, device=device), buf, device=device)
         _, ts, cstate, bstate = init_states(policy, col, buf, seed=9)
-        _, bstate, _ = col.collect(ts, cstate, bstate, capacity, explore=True, explore_param=0.1)
+        _, bstate, _, _ = col.collect(ts, cstate, bstate, capacity, explore=True, explore_param=0.1)
         _DATA[key] = (buf, bstate)
     return _DATA[key]
 
@@ -1989,15 +2023,21 @@ class _HostToDeviceCopies(TorchDispatchMode):
         return out
 
 
-def _profile_counts(fn) -> tuple[int, float]:
-    """``fn`` under ``torch.profiler``: device kernels and the device's busy
-    milliseconds (the union of their intervals)."""
-    events = _device_records(fn)
+def _busy_ms(events) -> float:
+    """The device's busy milliseconds over ``events`` (the union of their
+    intervals)."""
     busy_ns, end = 0, -1
     for start, stop in sorted((e.start_ns(), e.end_ns()) for e in events):
         busy_ns += max(0, stop - max(start, end))
         end = max(end, stop)
-    return len(events), busy_ns / 1e6
+    return busy_ns / 1e6
+
+
+def _profile_counts(fn) -> tuple[int, float]:
+    """``fn`` under ``torch.profiler``: device kernels and the device's busy
+    milliseconds."""
+    events = _device_records(fn)
+    return len(events), _busy_ms(events)
 
 
 def _profile_memcpys(fn) -> tuple[int, int]:
@@ -2906,12 +2946,300 @@ def phase_host_variants(n: int = 3) -> dict:
     return results
 
 
+def _free_port() -> int:
+    with contextlib.closing(socket.socket()) as sock:
+        sock.settimeout(5.0)
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_nccl_world1() -> None:
+    """The default process group over NCCL at world size 1, as a launch on
+    the one card would start it (``init_distributed`` starts nothing for
+    one process)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300))
+    log(f"process group: backend {dist.get_backend()}, world size {dist.get_world_size()}")
+
+
+def build_dist_path(path: str):
+    """A distributed path at its plain path's full width: ``(algo, buffer or
+    None, plain trainer, distributed trainer)``, the two trainers sharing the
+    algorithm, collectors and buffer (their states are their own)."""
+    from tianshou_tpu_torch.trainer.distributed import DistributedOffPolicyTrainer, DistributedOnPolicyTrainer
+
+    base = DIST_PATHS[path]
+    cfg = PATHS[base]
+    _, algo, train, buffer, plain = build(base)
+    steps = cfg["num_envs"] * cfg["segment"]
+    common = dict(max_epoch=1, step_per_epoch=2 * steps, step_per_collect=steps, batch_size=cfg["batch"],
+                  episode_per_test=plain.episode_per_test, device="cuda")
+    if buffer is None:
+        trainer = DistributedOnPolicyTrainer(algo, train, plain.test_collector, repeat_per_collect=cfg["repeat"],
+                                             **common)
+    else:
+        trainer = DistributedOffPolicyTrainer(
+            algo, train, plain.test_collector, buffer, update_per_step=plain.update_per_step,
+            train_param_fn=plain.train_param_fn, test_param=plain.test_param, warmup_steps=plain.warmup_steps,
+            **common)
+    if (trainer.segment_len, trainer.updates_per_segment) != (plain.segment_len, plain.updates_per_segment):
+        raise AssertionError(f"{path}: distributed split {trainer.segment_len} / {trainer.updates_per_segment}")
+    return algo, buffer, plain, trainer
+
+
+def dist_superstep_of(trainer, state: list, generators):
+    """The distributed trainer's segment over ``state`` (``[ts, cstate,
+    bstate]``, updated in place; ``bstate`` None on-policy), its metrics
+    averaged over the ranks on the device, as ``run()`` averages them:
+    ``step() -> device metrics``."""
+    from tianshou_tpu_torch.parallel.distributed import average_metrics
+
+    fn = trainer._build_superstep()
+
+    def step():
+        if state[2] is None:
+            state[0], state[1], _, metrics = fn(state[0], state[1], generators)
+        else:
+            state[0], state[1], state[2], _, metrics = fn(*state, generators, 0.1)
+        return average_metrics(metrics, trainer.group)
+
+    return step
+
+
+def _all_reduces(fn) -> list[int]:
+    """The bytes of each ``torch.distributed.all_reduce`` that ``fn()``
+    calls."""
+    import torch.distributed as dist
+
+    sizes, original = [], dist.all_reduce
+
+    def counting(tensor, *args, **kwargs):
+        sizes.append(tensor.numel() * tensor.element_size())
+        return original(tensor, *args, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        fn()
+    finally:
+        dist.all_reduce = original
+    return sizes
+
+
+def phase_dist_update_check(algo, buffer, bstate, group) -> float:
+    """``dist_atari``: one update of the distributed trainer (gradients
+    all-reduced over the NCCL group) against the plain trainer's update,
+    from the same parameters and the same presampled batch: losses and
+    parameters within the card-vs-CPU update tolerance (rtol 1e-4 / atol
+    1e-5).  Returns the largest parameter difference."""
+    from tianshou_tpu_torch.parallel.distributed import data_parallel
+    from tianshou_tpu_torch.utils.device import make_generator
+
+    batch = PATHS["atari"]["batch"]
+    sampled = algo.presample(buffer, bstate, make_generator(6, "cuda"), batch)
+    runs = []
+    for distributed in (False, True):
+        ts = algo.init(make_generator(5, "cuda"))
+        with data_parallel(algo, group if distributed else None, batch):
+            ts, _, metrics = algo.update_sampled(ts, buffer, bstate, sampled, make_generator(7, "cuda"))
+        runs.append((ts, _read(metrics)))
+    (plain, pm), (dist_ts, dm) = runs
+    for k in pm:
+        if not math.isclose(pm[k], dm[k], rel_tol=1e-4, abs_tol=1e-5):
+            raise AssertionError(f"dist_atari update: {k} plain {pm[k]} vs distributed {dm[k]}")
+    err = max(_assert_close(f"dist_atari update {k}", v, plain.online.state_dict()[k])
+              for k, v in dist_ts.online.state_dict().items())
+    log(f"dist_atari: one distributed update (NCCL all-reduce) equals the plain update on the same batch of "
+        f"{batch}: loss {dm['loss']:.6f} vs {pm['loss']:.6f}, largest parameter difference {err:.3e}")
+    return err
+
+
+def phase_distributed(path: str, gather) -> dict:
+    """A distributed path on the world-1 NCCL group: 1 warm-up and 3 timed
+    segments of the distributed trainer (the launches of the kernel counted
+    over them), its segments in turns with the plain trainer's (plain, dist,
+    dist, plain; ms a segment), one under the profiler (device kernels, busy
+    time, the NCCL kernels and their device ms), the all-reduces of one
+    segment (calls and bytes, the gradient bucket of an update) and the peak
+    memory.  ``dist_atari`` also holds one distributed update against the
+    plain one."""
+    base = DIST_PATHS[path]
+    cfg = PATHS[base]
+    _fresh_memory()
+    algo, buffer, plain, trainer = build_dist_path(path)
+    gen, *plain_state = init_states(algo, plain.train_collector, buffer)
+    plain_step = superstep_of(plain, plain_state, gen)
+    if buffer is None:
+        generators, *dist_state = init_states(algo, trainer.train_collector, None, seed=1)
+    else:
+        ts, cstate, bstate, generators, _ = trainer.init_states()
+        dist_state = [ts, cstate, bstate]
+    dist_step = dist_superstep_of(trainer, dist_state, generators)
+    gather.launches = 0
+    dt, metrics = timed(dist_step, TIMED)
+    launches = gather.launches
+    if launches != DIST_KERNEL_LAUNCHES[path] * (TIMED + WARMUP):
+        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in {TIMED + WARMUP} segments, "
+                             f"not {DIST_KERNEL_LAUNCHES[path] * (TIMED + WARMUP)}")
+    _check_metrics(base, metrics)
+    timed(plain_step, 0)
+    turns = _turns({"plain": plain_step, "distributed": dist_step}, TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    records = _device_records(dist_step)
+    nccl = [e for e in records if "nccl" in e.name().lower()]
+    sizes = _all_reduces(dist_step)
+    updates = trainer.updates_per_segment
+    grad_bytes = (sum(p.numel() * p.element_size() for p in algo.act_params(dist_state[0]).parameters())
+                  if buffer is not None else 0)
+    result = {"ms_per_segment": dt / TIMED * 1e3, "turns_ms": turns, **metrics, "updates_per_segment": updates,
+              "gather_rows_cast_per_segment": launches / (TIMED + WARMUP),
+              "device_kernels_per_segment": len(records), "device_busy_ms_per_segment_profiled": _busy_ms(records),
+              "nccl_kernels_per_segment": len(nccl), "nccl_device_ms_per_segment": _busy_ms(nccl),
+              "nccl_kernel_names": sorted({e.name() for e in nccl}),
+              "all_reduce_calls_per_segment": len(sizes), "all_reduce_bytes_per_segment": sum(sizes),
+              "gradient_bytes_per_update": grad_bytes, "max_memory_allocated_gib": peak}
+    result["device_busy_share"] = result["device_busy_ms_per_segment_profiled"] / turns["distributed"]
+    if buffer is not None:
+        # the two parts the distributed segment adds per update, each alone
+        from tianshou_tpu_torch.algos.base import sync_gradients
+
+        ts, bstate = dist_state[0], dist_state[2]
+        result["breakdown_ms"] = breakdown({
+            "presample (one update)": lambda: algo.presample(buffer, bstate, generators[1], trainer.batch_local),
+            "gradient all-reduce (one update)": lambda: sync_gradients(ts.optimizer, trainer.group)})
+        log(f"{path} breakdown (median of 3, ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in result["breakdown_ms"].items()))
+    log(f"{path}: {cfg['num_envs']} envs x {cfg['segment']} steps + {updates} updates of batch {cfg['batch']} "
+        f"(world 1, NCCL): {result['ms_per_segment']:.2f} ms a segment, metrics {metrics}; in turns with the plain "
+        f"trainer: plain {turns['plain']:.2f} ms, distributed {turns['distributed']:.2f} ms; gather_rows_cast "
+        f"{launches} launches in {TIMED + WARMUP} segments; profiled segment: {len(records)} device kernels, busy "
+        f"{result['device_busy_ms_per_segment_profiled']:.2f} ms ({result['device_busy_share']:.3f}), {len(nccl)} "
+        f"NCCL kernels {result['nccl_device_ms_per_segment']:.4f} ms {result['nccl_kernel_names']}; all_reduce "
+        f"{len(sizes)} calls {sum(sizes)} bytes a segment (gradients {grad_bytes} bytes an update); "
+        f"max_memory_allocated {peak:.3f} GiB")
+    if path == "dist_atari":
+        result["update_check_max_abs_err"] = phase_dist_update_check(algo, buffer, dist_state[2], trainer.group)
+    result["trainer"] = trainer
+    return result
+
+
+def phase_dist_main(path: str, trainer, gather) -> int:
+    """The distributed trainer's ``run()`` for one epoch of two segments with
+    a test phase; the kernel's launches are read over exactly that run."""
+    cfg = PATHS[DIST_PATHS[path]]
+    gather.launches = 0
+    info = trainer.run()
+    launches = gather.launches
+    log(f"{path} {type(trainer).__name__}.run(): {info}")
+    if launches != DIST_KERNEL_LAUNCHES[path] * 2:
+        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in run(), "
+                             f"not {DIST_KERNEL_LAUNCHES[path] * 2}")
+    warmup = cfg.get("warmup", 0) // cfg["num_envs"] * cfg["num_envs"]
+    if info.env_step != warmup + 2 * cfg["num_envs"] * cfg["segment"] or info.gradient_step != 2 * cfg["updates"]:
+        raise AssertionError(f"{path}: counters env_step={info.env_step} gradient_step={info.gradient_step}")
+    _check_metrics(DIST_PATHS[path], info.last_metrics)
+    if not math.isfinite(info.best_reward):
+        raise AssertionError(f"{path}: non-finite best reward: {info}")
+    return launches
+
+
+def gloo_rank_main(rank: int, port: int, out: str) -> int:
+    """One of two gloo ranks sharing the card (``--gloo-rank``): DQN on the
+    on-device CartPole through ``DistributedOffPolicyTrainer`` on CUDA
+    tensors (``GLOO_RANKS``); saves the parameters and the run's result."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tianshou_tpu_torch.algos.dqn import DQN
+    from tianshou_tpu_torch.collect.collector import Collector
+    from tianshou_tpu_torch.data.buffer import ReplayBuffer
+    from tianshou_tpu_torch.envs.base import VectorEnv
+    from tianshou_tpu_torch.envs.classic import CartPole
+    from tianshou_tpu_torch.networks.common import QNet
+    from tianshou_tpu_torch.trainer.distributed import DistributedOffPolicyTrainer
+
+    cfg = GLOO_RANKS
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=GLOO_RANK_TIMEOUT))
+    try:
+        env = CartPole()
+        algo = DQN(QNet(4, (64, 64), 2), env.action_space, lr=1e-3, gamma=0.9, n_step=3, target_update_freq=320,
+                   device="cuda")
+        buffer = ReplayBuffer(cfg["capacity"], cfg["num_envs"])
+        steps = 2 * cfg["num_envs"] * cfg["segment"]
+        trainer = DistributedOffPolicyTrainer(
+            algo, Collector(algo, VectorEnv(env, cfg["num_envs"], device="cuda"), buffer, device="cuda"),
+            Collector(algo, VectorEnv(env, cfg["num_envs"], device="cuda"), device="cuda"), buffer, max_epoch=1,
+            step_per_epoch=cfg["segments"] * steps, step_per_collect=steps, update_per_step=cfg["update_per_step"],
+            batch_size=cfg["batch"], episode_per_test=5, train_param_fn=lambda epoch, step: 0.1,
+            warmup_steps=cfg["warmup"], seed=0, device="cuda")
+        t0 = time.perf_counter()
+        info = trainer.run()
+        torch.save({"params": {k: v.cpu() for k, v in trainer.train_state.online.state_dict().items()},
+                    "metrics": info.last_metrics, "env_step": info.env_step, "gradient_step": info.gradient_step,
+                    "best_reward": info.best_reward, "seconds": time.perf_counter() - t0,
+                    "backend": dist.get_backend()}, out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_gloo_ranks() -> dict:
+    """Two ranks on the one card over gloo, each a subprocess of this script
+    on CUDA tensors: after the run their parameters must be bitwise equal
+    and the losses they read equal.  Every process is killed in a
+    ``finally``; each wait is bounded."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": root}
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+        procs, logs = [], []
+        try:
+            for r in range(2):
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r), "--port", str(port),
+                     "--out", outs[r]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=root, env=env))
+            for p in procs:
+                logs.append(p.communicate(timeout=GLOO_RANK_TIMEOUT)[0].decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"gloo rank {r} failed (rc {p.returncode}):\n{out[-4000:]}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+    a, b = ranks
+    unequal = [k for k in a["params"] if not torch.equal(a["params"][k], b["params"][k])]
+    if unequal or a["metrics"] != b["metrics"]:
+        raise AssertionError(f"the two gloo ranks differ: parameters {unequal}, metrics {a['metrics']} vs "
+                             f"{b['metrics']}")
+    if not all(math.isfinite(v) for v in a["metrics"].values()):
+        raise AssertionError(f"gloo ranks: non-finite metrics {a['metrics']}")
+    result = {k: a[k] for k in ("metrics", "env_step", "gradient_step", "best_reward", "backend")}
+    result["seconds"] = [r["seconds"] for r in ranks]
+    log(f"two gloo ranks on one card (CUDA tensors): parameters bitwise equal, losses read equal {a['metrics']}; "
+        f"env_step {a['env_step']}, gradient_step {a['gradient_step']}, best {a['best_reward']}, run() "
+        f"{result['seconds'][0]:.1f} / {result['seconds'][1]:.1f} s")
+    return result
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if "--gloo-rank" in sys.argv:  # one of phase_gloo_ranks' two subprocesses
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return gloo_rank_main(int(args["--gloo-rank"]), int(args["--port"]), args["--out"])
     from tianshou_tpu_torch.ops.gather import gather_rows_cast
 
     t0 = time.perf_counter()
@@ -2938,10 +3266,20 @@ def main() -> int:
         else:
             launches += phase_main_path(path, gather_rows_cast)
         results[path]["phase_s"] = time.perf_counter() - t_path
-    kernel["launches"] = launches
     results["hl_atari"]["beside_atari"] = phase_builder_beside_atari()
     results["cpp_cartpole"]["raw_step_rate"] = phase_cpp_bench()
     results["sac_host"]["variants"] = phase_host_variants()
+    # slice 11: the distributed trainers over NCCL at world size 1, then two
+    # gloo ranks sharing the card
+    start_nccl_world1()
+    for path in DIST_PATHS:
+        t_path = time.perf_counter()
+        results[path] = phase_distributed(path, gather_rows_cast)
+        launches += phase_dist_main(path, results[path].pop("trainer"), gather_rows_cast)
+        results[path]["phase_s"] = time.perf_counter() - t_path
+    torch.distributed.destroy_process_group()
+    results["gloo_two_ranks"] = phase_gloo_ranks()
+    kernel["launches"] = launches
     stored, dedup = results["atari"], results["atari_dedup"]
     log("atari memory regime: frames stored once (atari_dedup) beside stored stacks (atari): "
         + ", ".join(f"{k} {dedup[k]:.4f} vs {stored[k]:.4f}" for k in (

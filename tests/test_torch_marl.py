@@ -157,7 +157,7 @@ def test_reward_metric_in_the_device_collector():
     for name, metric in (("first", None), ("second", lambda r: r[..., 1]), ("min", lambda r: r.min(-1).values)):
         col = Collector(algo, VectorEnv(env, 8, device="cpu"), device="cpu", reward_metric=metric)
         cstate = col.reset(torch.Generator().manual_seed(0))
-        _, _, stats[name] = col.collect(ts, cstate, None, 30)
+        _, _, stats[name], _ = col.collect(ts, cstate, None, 30)
     assert stats["first"].n_collected_episodes > 0
     # the same games: the second agent's return is minus the first's
     np.testing.assert_array_equal(stats["second"].returns, -stats["first"].returns)

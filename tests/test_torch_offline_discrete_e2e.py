@@ -56,7 +56,7 @@ def cartpole_data():
     assert info.stop_triggered
     col = Collector(algo, VectorEnv(env, 10, device="cpu"), buffer, device="cpu")
     cstate = col.reset(torch.Generator().manual_seed(9))
-    _, bstate, _ = col.collect(trainer.train_state, cstate, trainer.buffer_state, num_steps=200, explore=True,
+    _, bstate, _, _ = col.collect(trainer.train_state, cstate, trainer.buffer_state, num_steps=200, explore=True,
                                explore_param=0.1)
     return buffer, bstate
 

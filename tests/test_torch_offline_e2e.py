@@ -57,7 +57,7 @@ def pendulum_data(tmp_path_factory):
     assert info.stop_triggered
     col = Collector(algo, VectorEnv(env, 10, device="cpu"), buffer, device="cpu")
     cstate = col.reset(torch.Generator().manual_seed(7))
-    _, bstate, _ = col.collect(trainer.train_state, cstate, trainer.buffer_state, num_steps=240, explore=True)
+    _, bstate, _, _ = col.collect(trainer.train_state, cstate, trainer.buffer_state, num_steps=240, explore=True)
     path = str(tmp_path_factory.mktemp("data") / "pendulum.h5")
     save_buffer_hdf5(path, bstate)
     return buffer, load_buffer_hdf5(path, device="cpu")

@@ -12,7 +12,9 @@ NatureCNN in float32 (so that argmax ties and bf16 rounding cannot differ),
 (d) The port imports nothing of JAX or of tianshou_tpu, the modules of
     each slice checked by name (slice 5: segtree, PER and the
     distributional family; slice 6: the noise processes, REDQ,
-    DiscreteSAC, BDQ, DRQN and the recurrent hooks).
+    DiscreteSAC, BDQ, DRQN and the recurrent hooks; slice 11: the process
+    groups, meshes and distributed trainers), and without CUDA the
+    distributed entry points raise too.
 (e) The same comparison as (a) on the paths of slice 2: a greedy CartPole
     segment (QNet, float32; storage within atol 1e-6), a MinAtar Breakout
     segment (sticky actions off) and a deduplicated stacked pixel segment
@@ -206,6 +208,9 @@ def _entry_points():
     from tianshou_tpu_torch.networks.conv import ConvQRDQNNet
     from tianshou_tpu_torch.networks.discrete import C51Net, QRDQNNet
     from tianshou_tpu_torch.trainer.offline import OfflineTrainer
+    from tianshou_tpu_torch.parallel.distributed import global_mesh, init_distributed
+    from tianshou_tpu_torch.parallel.mesh import make_mesh
+    from tianshou_tpu_torch.trainer.distributed import DistributedOffPolicyTrainer, DistributedOnPolicyTrainer
 
     env = SyntheticPixelEnv(H, W, C, num_actions=A)
     algo = DQN(ConvQNet((H, W, C), A), env.action_space, device="cpu")
@@ -256,6 +261,13 @@ def _entry_points():
         "AsyncHostCollector": lambda: AsyncHostCollector(algo, AsyncHostVectorEnv([FakeAtariEnv])),
         "TicTacToe VectorEnv": lambda: VectorEnv(TicTacToe(), N_ENVS),
         "MultiAgentPolicyManager": lambda: MultiAgentPolicyManager([DQN(QNet(19, (8,), 9), Discrete(9))] * 2),
+        "init_distributed": lambda: init_distributed("127.0.0.1:1", 2, 0),
+        "make_mesh": lambda: make_mesh(1),
+        "global_mesh": lambda: global_mesh(),
+        "DistributedOffPolicyTrainer": lambda: DistributedOffPolicyTrainer(
+            algo, col, col, ReplayBuffer(CAP, N_ENVS), max_epoch=1, step_per_epoch=1, step_per_collect=1),
+        "DistributedOnPolicyTrainer": lambda: DistributedOnPolicyTrainer(
+            algo, col, col, max_epoch=1, step_per_epoch=1, step_per_collect=1),
     }
 
 
@@ -265,7 +277,8 @@ def _entry_points():
                                    "DiscreteCRR", "buffer_from_d4rl", "OfflineTrainer", "HERReplayBuffer.init", "ICM",
                                    "GAIL", "PSRL", "ExperimentConfig().run", "experiment_cli",
                                    "HostCollector(act_on_host)", "AsyncHostCollector", "TicTacToe VectorEnv",
-                                   "MultiAgentPolicyManager"])
+                                   "MultiAgentPolicyManager", "init_distributed", "make_mesh", "global_mesh",
+                                   "DistributedOffPolicyTrainer", "DistributedOnPolicyTrainer"])
 def test_default_device_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -303,6 +316,8 @@ SLICE8_MODULES = ["utils.repr", "data.stats", "utils.logger", "utils.checkpoint"
                   "trainer.onpolicy", "trainer.offline", "highlevel.config", "highlevel.env", "highlevel.module",
                   "highlevel.experiment", "highlevel.cli", "evaluation.aggregate", "evaluation.launcher",
                   "evaluation.plots", "evaluation", "networks.convert"]
+SLICE11_MODULES = ["parallel", "parallel.mesh", "parallel.distributed", "trainer.distributed", "algos.base",
+                   "algos.dqn", "algos.c51", "algos.qrdqn", "algos.ddpg", "algos.sac", "algos.redq", "collect.collector"]
 SLICE9_MODULES = ["envs.atari", "envs.cpp_pool", "envs.finite", "envs.remote", "envs.tictactoe",
                   "envs.pettingzoo_env", "collect.async_collector", "algos.multiagent", "collect.host_collector",
                   "collect.collector", "trainer.offpolicy", "highlevel.env"]
@@ -312,7 +327,7 @@ OPTIONAL_PACKAGES = ["tensorboard", "cloudpickle", "joblib", "matplotlib", "tqdm
 def test_port_imports_slice2_modules_without_jax():
     code = (
         "import importlib, sys\n"
-        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES + SLICE8_MODULES + SLICE9_MODULES!r}:\n"
+        f"for m in {SLICE2_MODULES + SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES + SLICE7_MODULES + SLICE8_MODULES + SLICE9_MODULES + SLICE11_MODULES!r}:\n"
         "    importlib.import_module('tianshou_tpu_torch.' + m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tianshou_tpu'))\n"

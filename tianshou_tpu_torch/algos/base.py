@@ -20,6 +20,18 @@ implement :meth:`Algorithm.process_rollout`, :meth:`Algorithm.update_rollout_sta
 and :meth:`Algorithm.learn`.
 :class:`RandomPolicy` acts uniformly at random, for warm-up collection.
 :func:`polyak_update` is the soft target update.
+
+Data parallelism (``trainer/distributed.py``) reaches an update through
+two attributes the distributed trainers set and clear: ``process_group``,
+over which every optimizer step averages its gradients
+(:func:`sync_gradients`, one ``all_reduce`` a step), and ``row_block``,
+``(offset, global_rows)``, this rank's rows of the global batch: a draw
+made per batch row (SAC's and TD3's action noise, IQN's fractions) is drawn
+for the whole global batch from the generator every rank holds in lockstep,
+and each rank takes its own rows (:meth:`Algorithm.draw_rows`), so that two
+ranks compute what one process computes on the concatenated batch.  Alone,
+both are ``None`` and cost nothing.  :meth:`Algorithm.priority_scores`
+recomputes the PER priority an update writes back.
 """
 
 from __future__ import annotations
@@ -29,6 +41,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from tianshou_tpu_torch.data.batch import Batch
@@ -38,7 +51,8 @@ from tianshou_tpu_torch.data.tree import tree_leaves, tree_map
 from tianshou_tpu_torch.envs.spaces import Box, Discrete, Space
 from tianshou_tpu_torch.utils.device import make_generator, resolve_device
 
-__all__ = ["TrainState", "Algorithm", "RandomPolicy", "polyak_update", "uniform_legal_action", "write_back"]
+__all__ = ["TrainState", "Algorithm", "RandomPolicy", "polyak_update", "sync_gradients", "uniform_legal_action",
+           "write_back"]
 
 
 @torch.no_grad()
@@ -46,6 +60,28 @@ def polyak_update(target: nn.Module, online: nn.Module, tau: float) -> None:
     """``target <- (1 - tau) * target + tau * online`` in place, as one
     ``torch._foreach_lerp_`` over all of ``target``'s parameters."""
     torch._foreach_lerp_(list(target.parameters()), list(online.parameters()), tau)
+
+
+def sync_gradients(optimizer: torch.optim.Optimizer, group) -> None:
+    """Average the gradients of ``optimizer``'s parameters over the process
+    ``group`` (``None``: nothing to do): the gradients of a dtype flattened
+    into one bucket, one ``all_reduce`` (sum) of it, divided by the group's
+    size and copied back.  Every rank then steps from the same gradients;
+    the losses are means over rows, so the average of the ranks' gradients
+    is the gradient over the global batch."""
+    if group is None:
+        return
+    grads = [p.grad for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for grad in grads:
+        by_dtype.setdefault(grad.dtype, []).append(grad)
+    size = dist.get_world_size(group)
+    for same in by_dtype.values():
+        flat = torch.cat([grad.reshape(-1) for grad in same])
+        dist.all_reduce(flat, group=group)
+        flat.div_(size)
+        torch._foreach_copy_(same, [part.view_as(grad) for part, grad in zip(flat.split([g.numel() for g in same]),
+                                                                               same)])
 
 
 def uniform_legal_action(mask: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -93,6 +129,13 @@ class Algorithm:
     #: the update factors into :meth:`presample` + :meth:`update_sampled`,
     #: so the trainer gathers all of a superstep's samples in one call
     supports_presampled = False
+    #: the process group every optimizer step averages its gradients over
+    #: (set by the distributed trainers; ``None``: no synchronisation)
+    process_group = None
+    #: ``(offset, global_rows)`` of this rank's rows in the global batch, for
+    #: per-row draws (set by the distributed off-policy trainer; ``None``:
+    #: the local batch is the whole batch)
+    row_block: tuple[int, int] | None = None
 
     def init(self, generator: torch.Generator) -> TrainState:
         raise NotImplementedError
@@ -237,6 +280,29 @@ class Algorithm:
         smoothing) draws from ``generator``, the counterpart of the key the
         JAX package splits off for each update."""
         raise NotImplementedError
+
+    def draw_rows(self, draw, rows: int, block: tuple[int, int] | None = None) -> torch.Tensor:
+        """A per-row draw for ``rows`` local rows: ``draw(n)`` returns ``[n,
+        ...]``.  Under a row block ``(offset, global_rows)`` (``block``, else
+        :attr:`row_block`) the draw is made for all ``global_rows`` rows and
+        rows ``[offset, offset + rows)`` are taken, so that each row's values
+        depend on its place in the global batch, not on how the batch is
+        split over ranks (the counterpart of the JAX package's ``fold_in``
+        of each global row)."""
+        offset, total = block or self.row_block or (0, rows)
+        if (offset, total) == (0, rows):
+            return draw(rows)
+        return draw(total)[offset:offset + rows]
+
+    def priority_scores(self, ts: TrainState, sampled: tuple, generator: torch.Generator | None = None):
+        """The per-sample priority :meth:`update_sampled` writes back for a
+        :meth:`presample` tuple, under ``ts`` (the parameters before the
+        update).  ``generator`` in the state the update drew from makes the
+        recompute exact for updates that draw (SAC's next actions, TD3's
+        smoothing, REDQ's subset, noisy nets).  An algorithm without one
+        raises, and the distributed trainer refuses it under prioritized
+        replay."""
+        raise NotImplementedError(f"{type(self).__name__} does not implement priority_scores()")
 
     def update(
         self,

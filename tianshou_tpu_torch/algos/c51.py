@@ -99,6 +99,32 @@ class C51(DQN):
         m.scatter_add_(1, high.to(torch.int64), target_probs * frac_h)
         return m
 
+    def _cross_entropy(self, ts: TrainState, sampled: tuple, noise) -> torch.Tensor:
+        """The per-sample cross-entropy of the taken action's distribution
+        (with its gradient) against the projected n-step target; ``noise``
+        the ``(target, online)`` pair (``(None, None)``: mean weights)."""
+        env_idx, pos, weight, batch, rew_chain, done_chain, term = sampled
+        n_target, n_online = noise
+        mask = 1.0 - term["terminated"].to(torch.float32)
+        returns, discount = nstep_return_components(rew_chain, done_chain, self.gamma)
+        with torch.no_grad():
+            p_target = self.probs(ts.target, term["obs_next"], n_target)
+            if self.is_double:
+                a_star = self.q_from_probs(self.probs(ts.online, term["obs_next"], n_online)).argmax(dim=-1)
+            else:
+                a_star = self.q_from_probs(p_target).argmax(dim=-1)
+            p_star = take_action(p_target, a_star)
+            m = self._project(p_star, returns, discount, mask)
+        p_a = take_action(self.probs(ts.online, batch["obs"], n_online), batch["act"])
+        return -(m * torch.log(torch.clamp(p_a, min=1e-8))).sum(dim=-1)
+
+    def _draw_noise(self, ts: TrainState, generator) -> tuple:
+        """A noisy net's ``(target, online)`` noise: two draws from
+        ``generator``, the target net's first (no noise for a plain net)."""
+        if not self.noisy_net:
+            return None, None
+        return draw_noise(ts.target, generator), draw_noise(ts.online, generator)
+
     def update_sampled(
         self,
         ts: TrainState,
@@ -110,27 +136,23 @@ class C51(DQN):
     ) -> tuple[TrainState, ReplayBufferState, dict[str, torch.Tensor]]:
         """``noise``: a noisy net's ``(target, online)`` pair of
         :func:`draw_noise` lists, in place of two draws from ``generator``."""
-        env_idx, pos, weight, batch, rew_chain, done_chain, term = sampled
-        if self.noisy_net and noise is None:
-            noise = (draw_noise(ts.target, generator), draw_noise(ts.online, generator))
-        n_target, n_online = noise if noise is not None else (None, None)
-        mask = 1.0 - term["terminated"].to(torch.float32)
-        returns, discount = nstep_return_components(rew_chain, done_chain, self.gamma)
-        with torch.no_grad():
-            p_target = self.probs(ts.target, term["obs_next"], n_target)
-            if self.is_double:
-                a_star = self.q_from_probs(self.probs(ts.online, term["obs_next"], n_online)).argmax(dim=-1)
-            else:
-                a_star = self.q_from_probs(p_target).argmax(dim=-1)
-            p_star = take_action(p_target, a_star)
-            m = self._project(p_star, returns, discount, mask)
-
-        p_a = take_action(self.probs(ts.online, batch["obs"], n_online), batch["act"])
-        ce = -(m * torch.log(torch.clamp(p_a, min=1e-8))).sum(dim=-1)
+        env_idx, pos, weight = sampled[:3]
+        ce = self._cross_entropy(ts, sampled, noise if noise is not None else self._draw_noise(ts, generator))
         loss = (weight * ce).mean()
         bstate = write_back(buffer, bstate, env_idx, pos, ce)
         self._finish_update(ts, loss)
         return ts, bstate, {"loss": loss.detach()}
+
+    @torch.no_grad()
+    def priority_scores(self, ts: TrainState, sampled: tuple, generator: torch.Generator | None = None,
+                        noise: tuple | None = None):
+        """The per-sample cross-entropy :meth:`update_sampled` writes back.
+        A noisy net takes ``noise``, or draws it from ``generator`` as the
+        update does (the same state gives the same noise); with neither it
+        uses the mean weights, as the JAX package does without a key."""
+        if noise is None:
+            noise = self._draw_noise(ts, generator) if generator is not None else (None, None)
+        return self._cross_entropy(ts, sampled, noise)
 
 
 class Rainbow(C51):

@@ -20,7 +20,10 @@ Noise comes from the ``generator`` the trainer passes to each update, or,
 for the parity tests, is injected through ``noise`` (the JAX package's own
 draws).  ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`` is the
 counterpart of ``optax.adam(lr)``.  The update writes the ``|td|`` averaged
-over the critics back to a prioritized buffer.
+over the critics back to a prioritized buffer (:meth:`DDPG.priority_scores`
+recomputes it).  TD3's smoothing noise is drawn per row of the global batch
+(:meth:`Algorithm.draw_rows`), and every step of :func:`apply_loss` averages
+its gradients over the algorithm's ``process_group`` when it has one.
 """
 
 from __future__ import annotations
@@ -31,12 +34,12 @@ import dataclasses
 import torch
 from torch import nn
 
-from tianshou_tpu_torch.algos.base import Algorithm, polyak_update, write_back
+from tianshou_tpu_torch.algos.base import Algorithm, polyak_update, sync_gradients, write_back
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.envs.spaces import Box
 from tianshou_tpu_torch.ops.dist import standard_normal
 from tianshou_tpu_torch.ops.returns import nstep_return
-from tianshou_tpu_torch.utils.device import resolve_device
+from tianshou_tpu_torch.utils.device import make_generator, resolve_device
 
 __all__ = ["ACTrainState", "DDPG", "TD3", "adam", "apply_loss"]
 
@@ -63,13 +66,15 @@ def adam(params, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def apply_loss(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+def apply_loss(optimizer: torch.optim.Optimizer, loss: torch.Tensor, group=None) -> None:
     """One optimizer step on ``loss``'s gradient with respect to the
     optimizer's own parameters only (an actor loss through the critic
-    computes no gradient for the critic)."""
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    computes no gradient for the critic); with a process ``group`` the
+    gradients are averaged over it first (:func:`sync_gradients`)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
     for p, g in zip(params, torch.autograd.grad(loss, params)):
         p.grad = g
+    sync_gradients(optimizer, group)
     optimizer.step()
 
 
@@ -150,6 +155,15 @@ class DDPG(Algorithm):
         a_next = self._target_action(ts, obs_next, generator, noise)
         return torch.amin(ts.target_critic(obs_next, a_next), dim=0) * value_mask
 
+    def _td(self, ts: ACTrainState, sampled: tuple, generator, noise) -> torch.Tensor:
+        """Every critic's TD error ``[K, B]``, with the critic's gradient."""
+        env_idx, pos, weight, batch, rew_chain, done_chain, term = sampled
+        mask = 1.0 - term["terminated"].to(torch.float32)
+        with torch.no_grad():
+            q_term = self._target_q(ts, term["obs_next"], mask, generator, noise)
+            target = nstep_return(rew_chain, done_chain, q_term, self.gamma)
+        return ts.critic(batch["obs"], batch["act"]) - target[None, :]
+
     def _actor_loss(self, ts: ACTrainState, batch) -> torch.Tensor:
         """``-Q_0(s, pi(s))`` averaged over the batch (TD3+BC adds its
         behaviour-cloning term here)."""
@@ -158,7 +172,7 @@ class DDPG(Algorithm):
 
     def _update_actor(self, ts: ACTrainState, batch) -> torch.Tensor:
         loss = self._actor_loss(ts, batch)
-        apply_loss(ts.actor_optimizer, loss)
+        apply_loss(ts.actor_optimizer, loss, self.process_group)
         polyak_update(ts.target_actor, ts.actor, self.tau)
         polyak_update(ts.target_critic, ts.critic, self.tau)
         return loss.detach()
@@ -177,18 +191,24 @@ class DDPG(Algorithm):
     ) -> tuple[ACTrainState, ReplayBufferState, dict[str, torch.Tensor]]:
         """``noise``: TD3's ``[B, action_dim]`` standard normal draw for the
         target smoothing, in place of one from ``generator``."""
-        env_idx, pos, weight, batch, rew_chain, done_chain, term = sampled
-        mask = 1.0 - term["terminated"].to(torch.float32)
-        with torch.no_grad():
-            q_term = self._target_q(ts, term["obs_next"], mask, generator, noise)
-            target = nstep_return(rew_chain, done_chain, q_term, self.gamma)
-        td = ts.critic(batch["obs"], batch["act"]) - target[None, :]
+        env_idx, pos, weight, batch = sampled[:4]
+        td = self._td(ts, sampled, generator, noise)
         critic_loss = (weight[None, :] * td.pow(2)).mean()
         bstate = write_back(buffer, bstate, env_idx, pos, td.detach().abs().mean(dim=0))
-        apply_loss(ts.critic_optimizer, critic_loss)
+        apply_loss(ts.critic_optimizer, critic_loss, self.process_group)
         ts.step += 1
         actor_loss = self._maybe_update_actor(ts, batch)
         return ts, bstate, {"critic_loss": critic_loss.detach(), "actor_loss": actor_loss}
+
+    @torch.no_grad()
+    def priority_scores(self, ts: ACTrainState, sampled: tuple, generator: torch.Generator | None = None,
+                        noise: torch.Tensor | None = None):
+        """The ``|td|`` averaged over the critics that :meth:`update_sampled`
+        writes back.  TD3's smoothing noise is ``noise``, else drawn from
+        ``generator`` in the state the update drew from (a fresh seed-0
+        generator without one, as the JAX package takes key 0)."""
+        generator = generator if generator is not None else make_generator(0, self.device)
+        return self._td(ts, sampled, generator, noise).abs().mean(dim=0)
 
 
 class TD3(DDPG):
@@ -212,8 +232,10 @@ class TD3(DDPG):
 
     def _target_action(self, ts, obs_next, generator, noise):
         a = ts.target_actor(obs_next)
-        eps = standard_normal(generator, a) if noise is None else noise
-        smoothing = torch.clamp(self.policy_noise * eps, -self.noise_clip, self.noise_clip)
+        if noise is None:
+            noise = self.draw_rows(lambda n: torch.randn((n,) + a.shape[1:], generator=generator, device=a.device,
+                                                         dtype=a.dtype), a.shape[0])
+        smoothing = torch.clamp(self.policy_noise * noise, -self.noise_clip, self.noise_clip)
         return torch.clamp(a + smoothing, -1.0, 1.0)
 
     def _maybe_update_actor(self, ts: ACTrainState, batch) -> torch.Tensor:

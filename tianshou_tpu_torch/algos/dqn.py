@@ -3,11 +3,14 @@
 One :meth:`DQN.update_sampled` is the JAX package's fused update: the
 bootstrap at the n-step terminal states (double-Q unless
 ``is_double=False``), :func:`nstep_return`, a weighted MSE or Huber loss,
-an Adam step, and the periodic target copy when
-``step % target_update_freq == 0`` (steps counted from 1).
-``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`` is the counterpart of
-``optax.adam(lr)``, and ``F.huber_loss(delta=1)`` of ``optax.huber_loss``.
-The update writes ``|td|`` back to a prioritized buffer.
+an optimizer step, and the periodic target copy when
+``step % target_update_freq == 0`` (steps counted from 1).  The optimizer
+is ``optimizer(params)``, a factory the caller may pass (as an optax
+transform is passed to the JAX package's ``DQN``), by default
+``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``, the counterpart of
+``optax.adam(lr)``; ``F.huber_loss(delta=1)`` is that of
+``optax.huber_loss``.  The update writes ``|td|`` back to a prioritized
+buffer, and :meth:`DQN.priority_scores` recomputes it.
 
 Observations may be dicts ``{"obs": ..., "mask": [B, A]}``: the network
 reads ``obs``, illegal actions get Q = -1e9, and exploration draws
@@ -17,12 +20,13 @@ uniformly over the legal actions.
 from __future__ import annotations
 
 import copy
+from collections.abc import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tianshou_tpu_torch.algos.base import Algorithm, TrainState, uniform_legal_action, write_back
+from tianshou_tpu_torch.algos.base import Algorithm, TrainState, sync_gradients, uniform_legal_action, write_back
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.envs.spaces import Discrete
 from tianshou_tpu_torch.ops.returns import nstep_return
@@ -31,11 +35,14 @@ from tianshou_tpu_torch.utils.device import resolve_device
 __all__ = ["DQN", "optimizer_step", "take_action"]
 
 
-def optimizer_step(ts: TrainState, loss: torch.Tensor, target_update_freq: int = 0) -> None:
+def optimizer_step(ts: TrainState, loss: torch.Tensor, target_update_freq: int = 0, group=None) -> None:
     """The optimizer step on ``loss``, ``step += 1``, and the target copy
-    when ``target_update_freq > 0`` and ``step % target_update_freq == 0``."""
+    when ``target_update_freq > 0`` and ``step % target_update_freq == 0``.
+    With a process ``group`` the gradients are averaged over it first
+    (:func:`sync_gradients`)."""
     ts.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    sync_gradients(ts.optimizer, group)
     ts.optimizer.step()
     ts.step += 1
     if target_update_freq > 0 and ts.step % target_update_freq == 0:
@@ -54,6 +61,7 @@ class DQN(Algorithm):
         self,
         network: nn.Module,
         action_space: Discrete,
+        optimizer: Callable[[list[nn.Parameter]], torch.optim.Optimizer] | None = None,
         lr: float = 1e-3,
         gamma: float = 0.99,
         n_step: int = 1,
@@ -63,9 +71,11 @@ class DQN(Algorithm):
         device: str | torch.device = "cuda",
     ):
         """``network`` is a template: :meth:`init` copies it onto
-        ``device`` and draws its parameters."""
+        ``device`` and draws its parameters.  ``optimizer`` maps the online
+        parameters to their optimizer (default: Adam at ``lr``)."""
         self.network = network
         self.action_space = action_space
+        self.make_optimizer = optimizer
         self.lr = lr
         self.gamma = gamma
         self.n_step = n_step
@@ -82,9 +92,10 @@ class DQN(Algorithm):
             target = copy.deepcopy(online).requires_grad_(False)
         else:
             target = online
-        optimizer = torch.optim.Adam(
-            online.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8
-        )
+        if self.make_optimizer is not None:
+            optimizer = self.make_optimizer(list(online.parameters()))
+        else:
+            optimizer = torch.optim.Adam(online.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
         return TrainState(online=online, target=target, optimizer=optimizer)
 
     @property
@@ -136,6 +147,17 @@ class DQN(Algorithm):
             q = q_t.max(dim=-1).values
         return q * value_mask
 
+    def _q_and_target(self, ts: TrainState, sampled: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+        """The taken actions' Q-values (with their gradient) and the n-step
+        targets."""
+        env_idx, pos, weight, batch, rew_chain, done_chain, term = sampled
+        # bootstrap unless terminated
+        mask = 1.0 - term["terminated"].to(torch.float32)
+        q_term = self._target_q(ts, term["obs_next"], mask)
+        target = nstep_return(rew_chain, done_chain, q_term, self.gamma)
+        q = self.q_values(ts.online, batch["obs"])
+        return q.gather(-1, batch["act"].to(torch.int64)[:, None]).squeeze(-1), target
+
     def update_sampled(
         self,
         ts: TrainState,
@@ -145,14 +167,8 @@ class DQN(Algorithm):
         generator: torch.Generator | None = None,
     ) -> tuple[TrainState, ReplayBufferState, dict[str, torch.Tensor]]:
         """``generator`` is unused: the DQN update draws nothing."""
-        env_idx, pos, weight, batch, rew_chain, done_chain, term = sampled
-        # bootstrap unless terminated
-        mask = 1.0 - term["terminated"].to(torch.float32)
-        q_term = self._target_q(ts, term["obs_next"], mask)
-        target = nstep_return(rew_chain, done_chain, q_term, self.gamma)
-
-        q = self.q_values(ts.online, batch["obs"])
-        q = q.gather(-1, batch["act"].to(torch.int64)[:, None]).squeeze(-1)
+        env_idx, pos, weight = sampled[:3]
+        q, target = self._q_and_target(ts, sampled)
         td = q - target
         if self.huber:
             loss = (weight * F.huber_loss(q, target, reduction="none", delta=1.0)).mean()
@@ -163,5 +179,12 @@ class DQN(Algorithm):
         self._finish_update(ts, loss)
         return ts, bstate, {"loss": loss.detach(), "td_abs_mean": td_abs.mean()}
 
+    @torch.no_grad()
+    def priority_scores(self, ts: TrainState, sampled: tuple, generator: torch.Generator | None = None):
+        """``|td|`` under ``ts``, what :meth:`update_sampled` writes back
+        (``generator`` is unused: nothing is drawn)."""
+        q, target = self._q_and_target(ts, sampled)
+        return (q - target).abs()
+
     def _finish_update(self, ts: TrainState, loss: torch.Tensor) -> None:
-        optimizer_step(ts, loss, self.target_update_freq)
+        optimizer_step(ts, loss, self.target_update_freq, self.process_group)

@@ -13,7 +13,11 @@ components ``(returns, discount)`` with the bootstrap mask.
 - IQN: fractions drawn per forward, ``torch.rand([B, K])``: one draw for the
   target net, one for the online net, and with double-Q a third for the
   online net's pick of ``a*``.  They come from the trainer's generator, or
-  are injected through ``taus`` for the parity tests.
+  are injected through ``taus`` for the parity tests.  Under data
+  parallelism each block is drawn for the global batch and sliced to the
+  rank's rows (:meth:`Algorithm.draw_rows`), so a row's fractions depend on
+  its global row alone, as the JAX package's ``_rowwise_taus`` makes them;
+  :meth:`IQN.priority_scores` with ``row_offset`` regenerates them.
 - FQF: fractions proposed by :class:`FractionProposalNetwork` from the
   detached state features, its own RMSprop step (optax's form,
   :class:`RMSprop`) on the FQF paper's fraction loss with an entropy bonus;
@@ -32,7 +36,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from tianshou_tpu_torch.algos.base import TrainState, write_back
+from tianshou_tpu_torch.algos.base import TrainState, sync_gradients, write_back
 from tianshou_tpu_torch.algos.dqn import DQN, take_action
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.envs.spaces import Discrete
@@ -105,15 +109,8 @@ class QRDQN(DQN):
     def _target(self, returns, discount, mask, theta_star) -> torch.Tensor:
         return returns[:, None] + (discount * mask)[:, None] * theta_star
 
-    def update_sampled(
-        self,
-        ts: TrainState,
-        buffer: ReplayBuffer,
-        bstate: ReplayBufferState,
-        sampled: tuple,
-        generator: torch.Generator | None = None,
-    ) -> tuple[TrainState, ReplayBufferState, dict[str, torch.Tensor]]:
-        """``generator`` is unused: the QRDQN update draws nothing."""
+    def _quantile_td(self, ts: TrainState, sampled: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(per-sample loss [B] with its gradient, mean |u| [B])``."""
         env_idx, pos, weight, batch, term, mask, returns, discount = sampled
         with torch.no_grad():
             theta_t = self.quantiles(ts.target, term["obs_next"])  # [B, A, K]
@@ -123,11 +120,29 @@ class QRDQN(DQN):
                 a_star = theta_t.mean(dim=-1).argmax(dim=-1)
             target = self._target(returns, discount, mask, take_action(theta_t, a_star))
         theta_a = take_action(self.quantiles(ts.online, batch["obs"]), batch["act"])
-        per_sample, td_abs = quantile_huber_loss(theta_a, target, self.tau_hats.expand_as(theta_a))
+        return quantile_huber_loss(theta_a, target, self.tau_hats.expand_as(theta_a))
+
+    def update_sampled(
+        self,
+        ts: TrainState,
+        buffer: ReplayBuffer,
+        bstate: ReplayBufferState,
+        sampled: tuple,
+        generator: torch.Generator | None = None,
+    ) -> tuple[TrainState, ReplayBufferState, dict[str, torch.Tensor]]:
+        """``generator`` is unused: the QRDQN update draws nothing."""
+        env_idx, pos, weight = sampled[:3]
+        per_sample, td_abs = self._quantile_td(ts, sampled)
         loss = (weight * per_sample).mean()
         bstate = write_back(buffer, bstate, env_idx, pos, td_abs)
         self._finish_update(ts, loss)
         return ts, bstate, {"loss": loss.detach()}
+
+    @torch.no_grad()
+    def priority_scores(self, ts: TrainState, sampled: tuple, generator: torch.Generator | None = None):
+        """The quantile ``|u|`` :meth:`update_sampled` writes back (nothing
+        is drawn)."""
+        return self._quantile_td(ts, sampled)[1]
 
 
 class IQN(QRDQN):
@@ -171,6 +186,30 @@ class IQN(QRDQN):
             return greedy
         return self._epsilon_greedy(greedy, generator, explore_param)
 
+    def _update_taus(self, generator, rows: int, block: tuple[int, int] | None = None) -> tuple:
+        """The update's ``(target, online, double-Q pick)`` fractions for
+        ``rows`` rows, each drawn per global row (:meth:`draw_rows`)."""
+        def draw(k):
+            return self.draw_rows(lambda n: self._draw_taus(generator, n, k), rows, block)
+
+        return (draw(self.target_sample_size), draw(self.online_sample_size),
+                draw(self.target_sample_size) if self.is_double else None)
+
+    def _quantile_td(self, ts: TrainState, sampled: tuple, taus: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(per-sample loss [B] with its gradient, mean |u| [B])`` at the
+        fractions ``taus``."""
+        env_idx, pos, weight, batch, term, mask, returns, discount = sampled
+        tau_target, tau_online, tau_double = taus
+        with torch.no_grad():
+            theta_t = self._quantiles_at(ts.target, term["obs_next"], tau_target)
+            if self.is_double:
+                a_star = self._quantiles_at(ts.online, term["obs_next"], tau_double).mean(dim=-1).argmax(dim=-1)
+            else:
+                a_star = theta_t.mean(dim=-1).argmax(dim=-1)
+            target = self._target(returns, discount, mask, take_action(theta_t, a_star))
+        theta_a = take_action(self._quantiles_at(ts.online, batch["obs"], tau_online), batch["act"])
+        return quantile_huber_loss(theta_a, target, tau_online)
+
     def update_sampled(
         self,
         ts: TrainState,
@@ -183,27 +222,30 @@ class IQN(QRDQN):
         """``taus``: the ``(target, online, double-Q pick)`` fractions,
         ``[B, target_sample_size]``, ``[B, online_sample_size]`` and ``[B,
         target_sample_size]`` (the last unused without double-Q), in place
-        of draws from ``generator``."""
-        env_idx, pos, weight, batch, term, mask, returns, discount = sampled
-        bsz = weight.shape[0]
+        of draws from ``generator``, each made for the global batch and
+        sliced to this rank's rows under a :attr:`row_block`."""
+        env_idx, pos, weight = sampled[:3]
         if taus is None:
-            taus = (self._draw_taus(generator, bsz, self.target_sample_size),
-                    self._draw_taus(generator, bsz, self.online_sample_size),
-                    self._draw_taus(generator, bsz, self.target_sample_size) if self.is_double else None)
-        tau_target, tau_online, tau_double = taus
-        with torch.no_grad():
-            theta_t = self._quantiles_at(ts.target, term["obs_next"], tau_target)
-            if self.is_double:
-                a_star = self._quantiles_at(ts.online, term["obs_next"], tau_double).mean(dim=-1).argmax(dim=-1)
-            else:
-                a_star = theta_t.mean(dim=-1).argmax(dim=-1)
-            target = self._target(returns, discount, mask, take_action(theta_t, a_star))
-        theta_a = take_action(self._quantiles_at(ts.online, batch["obs"], tau_online), batch["act"])
-        per_sample, td_abs = quantile_huber_loss(theta_a, target, tau_online)
+            taus = self._update_taus(generator, weight.shape[0])
+        per_sample, td_abs = self._quantile_td(ts, sampled, taus)
         loss = (weight * per_sample).mean()
         bstate = write_back(buffer, bstate, env_idx, pos, td_abs)
         self._finish_update(ts, loss)
         return ts, bstate, {"loss": loss.detach()}
+
+    @torch.no_grad()
+    def priority_scores(self, ts: TrainState, sampled: tuple, generator: torch.Generator | None = None,
+                        row_offset: int = 0, global_rows: int | None = None, taus: tuple | None = None):
+        """The quantile ``|u|`` :meth:`update_sampled` writes back: from
+        ``taus``, or from fractions drawn from ``generator`` in the state the
+        update drew from, for a shard whose rows sit at ``row_offset`` of a
+        global batch of ``global_rows`` (default: the shard ends the batch)
+        so that each row gets the fractions it had in the update."""
+        if taus is None:
+            rows = sampled[2].shape[0]
+            block = (row_offset, global_rows if global_rows is not None else row_offset + rows)
+            taus = self._update_taus(generator, rows, block)
+        return self._quantile_td(ts, sampled, taus)[1]
 
 
 @dataclasses.dataclass
@@ -293,18 +335,9 @@ class FQF(QRDQN):
         generator: torch.Generator | None = None,
     ) -> tuple[FQFTrainState, ReplayBufferState, dict[str, torch.Tensor]]:
         """``generator`` is unused: the FQF update draws nothing."""
-        env_idx, pos, weight, batch, term, mask, returns, discount = sampled
+        env_idx, pos, weight, batch = sampled[:4]
         act = batch["act"]
-        with torch.no_grad():
-            taus_t, _, vals_t, _, _ = self._forward(ts.target, ts.fraction, term["obs_next"])
-            a_star = self._expected(taus_t, vals_t).argmax(dim=-1)
-            target = self._target(returns, discount, mask, take_action(vals_t, a_star))
-
-        # the quantile loss: the fraction proposals are constants to it
-        feat = ts.online.features(batch["obs"])
-        taus, tau_hats, entropy = ts.fraction(feat.detach())
-        theta_a = take_action(ts.online.quantiles(feat, tau_hats.detach()).transpose(1, 2), act)
-        per_sample, td_abs = quantile_huber_loss(theta_a, target, tau_hats.detach())
+        per_sample, td_abs, feat, taus, tau_hats, entropy = self._quantile_td(ts, sampled)
         loss = (weight * per_sample).mean()
         bstate = write_back(buffer, bstate, env_idx, pos, td_abs)
 
@@ -321,5 +354,30 @@ class FQF(QRDQN):
         self._finish_update(ts, loss)
         ts.fraction_optimizer.zero_grad(set_to_none=True)
         fraction_loss.backward()
+        sync_gradients(ts.fraction_optimizer, self.process_group)
         ts.fraction_optimizer.step()
         return ts, bstate, {"loss": loss.detach(), "fraction_loss": fraction_loss.detach()}
+
+    def _quantile_td(self, ts: FQFTrainState, sampled: tuple) -> tuple:
+        """``(per-sample loss with its gradient, mean |u|, features,
+        fractions, their midpoints, entropy)``: the quantile loss, to which
+        the fraction proposals are constants."""
+        env_idx, pos, weight, batch, term, mask, returns, discount = sampled
+        with torch.no_grad():
+            taus_t, _, vals_t, _, _ = self._forward(ts.target, ts.fraction, term["obs_next"])
+            a_star = self._expected(taus_t, vals_t).argmax(dim=-1)
+            target = self._target(returns, discount, mask, take_action(vals_t, a_star))
+        feat = ts.online.features(batch["obs"])
+        taus, tau_hats, entropy = ts.fraction(feat.detach())
+        theta_a = take_action(ts.online.quantiles(feat, tau_hats.detach()).transpose(1, 2), batch["act"])
+        per_sample, td_abs = quantile_huber_loss(theta_a, target, tau_hats.detach())
+        return per_sample, td_abs, feat, taus, tau_hats, entropy
+
+    @torch.no_grad()
+    def priority_scores(self, ts: FQFTrainState, sampled: tuple, generator: torch.Generator | None = None,
+                        row_offset: int = 0, global_rows: int | None = None):
+        """The quantile ``|u|`` :meth:`update_sampled` writes back.  The
+        fractions are proposals, functions of each row's features, so the
+        recompute is exact for any split of the batch: ``row_offset`` and
+        ``global_rows`` are accepted as IQN's and unused."""
+        return self._quantile_td(ts, sampled)[1]

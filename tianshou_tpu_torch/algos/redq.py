@@ -14,7 +14,8 @@ SAC's update (:class:`~tianshou_tpu_torch.algos.sac.SAC`) over an N-critic
 4. the Polyak update of the target critics, every update.
 
 The subset is the first M of a random permutation of the N critics, drawn
-on the device as the argsort of N uniforms (no host sync), or injected
+on the device as the argsort of N uniforms (no host sync; the same on every
+rank, whose update generators run in lockstep), or injected
 through ``subset`` (an ``[M]`` index tensor) for the parity tests, as the
 two normal draws are through ``noise``.
 """
@@ -27,6 +28,7 @@ from tianshou_tpu_torch.algos.base import polyak_update
 from tianshou_tpu_torch.algos.ddpg import ACTrainState
 from tianshou_tpu_torch.algos.sac import SAC
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
+from tianshou_tpu_torch.utils.device import make_generator
 
 __all__ = ["REDQ"]
 
@@ -57,6 +59,15 @@ class REDQ(SAC):
         u = torch.rand((self.ensemble_size,), generator=generator, device=generator.device)
         return u.argsort()[: self.subset_size]
 
+    def _reduce_subset(self, subset: torch.Tensor):
+        """The target's reduction over the critics: the minimum (or the mean)
+        over ``subset``."""
+        def reduce(q):
+            q = q.index_select(0, subset)
+            return torch.amin(q, dim=0) if self.target_mode == "min" else q.mean(dim=0)
+
+        return reduce
+
     def update_sampled(
         self,
         ts: ACTrainState,
@@ -74,14 +85,24 @@ class REDQ(SAC):
         if subset is None:
             subset = self.draw_subset(generator)
         alpha = ts.log_alpha.detach().exp()
-
-        def reduce_subset(q):
-            q = q.index_select(0, subset)
-            return torch.amin(q, dim=0) if self.target_mode == "min" else q.mean(dim=0)
-
-        critic_loss, bstate = self._critic_step(ts, buffer, bstate, sampled, eps_target, alpha, reduce_subset)
+        critic_loss, bstate = self._critic_step(ts, buffer, bstate, sampled, eps_target, alpha,
+                                                self._reduce_subset(subset))
         ts.step += 1
         if ts.step % self.actor_delay == 0:
             self._actor_step(ts, sampled[3]["obs"], eps_actor, alpha, lambda q: q.mean(dim=0))
         polyak_update(ts.target_critic, ts.critic, self.tau)
         return ts, bstate, {"critic_loss": critic_loss, "alpha": ts.log_alpha.detach().exp()}
+
+    @torch.no_grad()
+    def priority_scores(self, ts: ACTrainState, sampled: tuple, generator: torch.Generator | None = None,
+                        noise: tuple | None = None, subset: torch.Tensor | None = None):
+        """The ``|td|`` averaged over the ensemble that :meth:`update_sampled`
+        writes back: the normals and then the subset from ``noise`` and
+        ``subset``, else drawn from ``generator`` as the update draws them (a
+        fresh seed-0 one without it)."""
+        generator = generator if generator is not None else make_generator(0, self.device)
+        eps_target, _ = self._noise(generator, sampled[2], noise)
+        if subset is None:
+            subset = self.draw_subset(generator)
+        td = self._td(ts, sampled, eps_target, ts.log_alpha.detach().exp(), self._reduce_subset(subset))
+        return td.abs().mean(dim=0)

@@ -20,7 +20,10 @@ critics.
 ``log_alpha`` is a 0-d tensor on the device and is never read on the host.
 Deterministic evaluation acts with ``tanh(mu)``.  The two normal draws of an
 update (target, then actor) come from the trainer's ``generator``, or are
-injected through ``noise`` for the parity tests.  :class:`DiscreteSAC`
+injected through ``noise`` for the parity tests; under data parallelism
+each is drawn for the global batch and sliced to the rank's rows
+(:meth:`Algorithm.draw_rows`).  ``priority_scores`` recomputes the
+priority an update writes back.  :class:`DiscreteSAC`
 takes the same steps with expectations under a categorical policy in place
 of the sampled actions.
 """
@@ -45,7 +48,7 @@ from tianshou_tpu_torch.ops.dist import (
     tanh_normal_sample_and_log_prob,
 )
 from tianshou_tpu_torch.ops.returns import nstep_return
-from tianshou_tpu_torch.utils.device import resolve_device
+from tianshou_tpu_torch.utils.device import make_generator, resolve_device
 
 __all__ = ["SAC", "DiscreteSAC"]
 
@@ -127,17 +130,18 @@ class SAC(Algorithm):
     def _noise(self, generator, weight, noise):
         """The ``(target, actor)`` standard normal pair of an update:
         ``noise`` if given, else two ``[B, action_dim]`` draws from
-        ``generator``."""
+        ``generator``, each made for the global batch and sliced to this
+        rank's rows under a row block (:meth:`Algorithm.draw_rows`)."""
         if noise is not None:
             return noise
-        shape = weight.shape + tuple(self.action_space.shape)
-        return tuple(torch.randn(shape, generator=generator, device=weight.device) for _ in range(2))
+        rest = tuple(self.action_space.shape)
+        return tuple(self.draw_rows(lambda n: torch.randn((n,) + rest, generator=generator, device=weight.device),
+                                    weight.shape[0]) for _ in range(2))
 
-    def _critic_step(self, ts, buffer, bstate, sampled, eps_target, alpha, reduce_next):
-        """Steps 1 and 2: the target from the current actor's sampled next
-        action and ``reduce_next`` over the target critics' ``[K, B]``
-        values, then the critic's Adam step.  Returns ``(critic_loss,
-        bstate)``."""
+    def _td(self, ts, sampled, eps_target, alpha, reduce_next) -> torch.Tensor:
+        """Step 1: every critic's TD error ``[K, B]`` (with the critic's
+        gradient) against the target from the current actor's sampled next
+        action and ``reduce_next`` over the target critics' values."""
         env_idx, pos, weight, batch, rew_chain, done_chain, term = sampled
         mask = 1.0 - term["terminated"].to(torch.float32)
         with torch.no_grad():
@@ -145,10 +149,16 @@ class SAC(Algorithm):
             a_next, logp_next = tanh_normal_sample_and_log_prob(*ts.actor(obs_next), eps_target)
             q_next = reduce_next(ts.target_critic(obs_next, a_next))
             target = nstep_return(rew_chain, done_chain, (q_next - alpha * logp_next) * mask, self.gamma)
-        td = ts.critic(batch["obs"], batch["act"]) - target[None, :]
+        return ts.critic(batch["obs"], batch["act"]) - target[None, :]
+
+    def _critic_step(self, ts, buffer, bstate, sampled, eps_target, alpha, reduce_next):
+        """Steps 1 and 2: the TD errors (:meth:`_td`), then the critic's
+        Adam step.  Returns ``(critic_loss, bstate)``."""
+        env_idx, pos, weight = sampled[:3]
+        td = self._td(ts, sampled, eps_target, alpha, reduce_next)
         critic_loss = (weight[None, :] * td.pow(2)).mean()
         bstate = write_back(buffer, bstate, env_idx, pos, td.detach().abs().mean(dim=0))
-        apply_loss(ts.critic_optimizer, critic_loss)
+        apply_loss(ts.critic_optimizer, critic_loss, self.process_group)
         return critic_loss.detach(), bstate
 
     def _actor_step(self, ts, obs, eps_actor, alpha, reduce_q):
@@ -157,7 +167,7 @@ class SAC(Algorithm):
         loss.  Returns ``(actor_loss, alpha_loss)``."""
         a, logp = tanh_normal_sample_and_log_prob(*ts.actor(obs), eps_actor)
         actor_loss = (alpha * logp - reduce_q(ts.critic(obs, a))).mean()
-        apply_loss(ts.actor_optimizer, actor_loss)
+        apply_loss(ts.actor_optimizer, actor_loss, self.process_group)
         return actor_loss.detach(), self._alpha_step(ts, logp.detach() + self.target_entropy, -1.0)
 
     def _alpha_step(self, ts, gap: torch.Tensor, sign: float) -> torch.Tensor:
@@ -167,8 +177,20 @@ class SAC(Algorithm):
         if not self.auto_alpha:
             return torch.zeros((), device=self.device)
         alpha_loss = sign * (ts.log_alpha * gap).mean()
-        apply_loss(ts.alpha_optimizer, alpha_loss)
+        apply_loss(ts.alpha_optimizer, alpha_loss, self.process_group)
         return alpha_loss.detach()
+
+    @torch.no_grad()
+    def priority_scores(self, ts: ACTrainState, sampled: tuple, generator: torch.Generator | None = None,
+                        noise: tuple | None = None):
+        """The ``|td|`` averaged over the critics that :meth:`update_sampled`
+        writes back, the next actions from ``noise`` or from the update's
+        draws from ``generator`` (a fresh seed-0 one without it, as the JAX
+        package takes key 0)."""
+        generator = generator if generator is not None else make_generator(0, self.device)
+        eps_target, _ = self._noise(generator, sampled[2], noise)
+        td = self._td(ts, sampled, eps_target, ts.log_alpha.detach().exp(), _min_over_critics)
+        return td.abs().mean(dim=0)
 
     def update_sampled(
         self,
@@ -224,22 +246,12 @@ class DiscreteSAC(SAC):
         generator: torch.Generator | None = None,
     ) -> tuple[ACTrainState, ReplayBufferState, dict[str, torch.Tensor]]:
         """``generator`` is unused: the update draws nothing."""
-        env_idx, pos, weight, batch, rew_chain, done_chain, term = sampled
-        mask = 1.0 - term["terminated"].to(torch.float32)
+        env_idx, pos, weight, batch = sampled[:4]
         alpha = ts.log_alpha.detach().exp()
-        with torch.no_grad():
-            logits_next = ts.actor(term["obs_next"])
-            pi_next, logpi_next = F.softmax(logits_next, dim=-1), F.log_softmax(logits_next, dim=-1)
-            q_next = torch.amin(ts.target_critic(term["obs_next"]), dim=0)
-            v_next = (pi_next * (q_next - alpha * logpi_next)).sum(dim=-1)
-            target = nstep_return(rew_chain, done_chain, v_next * mask, self.gamma)
-        act = batch["act"].to(torch.int64)
-        q_all = ts.critic(batch["obs"])  # [K, B, A]
-        q = q_all.gather(-1, act[None, :, None].expand(q_all.shape[0], -1, 1)).squeeze(-1)
-        td = q - target[None, :]
+        td = self._discrete_td(ts, sampled, alpha)
         critic_loss = (weight[None, :] * td.pow(2)).mean()
         bstate = write_back(buffer, bstate, env_idx, pos, td.detach().abs().mean(dim=0))
-        apply_loss(ts.critic_optimizer, critic_loss)
+        apply_loss(ts.critic_optimizer, critic_loss, self.process_group)
 
         logits = ts.actor(batch["obs"])
         pi, logpi = F.softmax(logits, dim=-1), F.log_softmax(logits, dim=-1)
@@ -247,7 +259,7 @@ class DiscreteSAC(SAC):
             q = torch.amin(ts.critic(batch["obs"]), dim=0)
         entropy = -(pi * logpi).sum(dim=-1)
         actor_loss = -((pi * q).sum(dim=-1) + alpha * entropy).mean()
-        apply_loss(ts.actor_optimizer, actor_loss)
+        apply_loss(ts.actor_optimizer, actor_loss, self.process_group)
         alpha_loss = self._alpha_step(ts, entropy.detach() - self.target_entropy, 1.0)
         polyak_update(ts.target_critic, ts.critic, self.tau)
         ts.step += 1
@@ -257,3 +269,25 @@ class DiscreteSAC(SAC):
             "alpha": ts.log_alpha.detach().exp(),
             "alpha_loss": alpha_loss,
         }
+
+    def _discrete_td(self, ts: ACTrainState, sampled: tuple, alpha: torch.Tensor) -> torch.Tensor:
+        """Every critic's TD error ``[K, B]`` at the taken actions (with the
+        critic's gradient) against the expectation-based soft target."""
+        env_idx, pos, weight, batch, rew_chain, done_chain, term = sampled
+        mask = 1.0 - term["terminated"].to(torch.float32)
+        with torch.no_grad():
+            logits_next = ts.actor(term["obs_next"])
+            pi_next, logpi_next = F.softmax(logits_next, dim=-1), F.log_softmax(logits_next, dim=-1)
+            q_next = torch.amin(ts.target_critic(term["obs_next"]), dim=0)
+            v_next = (pi_next * (q_next - alpha * logpi_next)).sum(dim=-1)
+            target = nstep_return(rew_chain, done_chain, v_next * mask, self.gamma)
+        act = batch["act"].to(torch.int64)
+        q_all = ts.critic(batch["obs"])  # [K, B, A]
+        q = q_all.gather(-1, act[None, :, None].expand(q_all.shape[0], -1, 1)).squeeze(-1)
+        return q - target[None, :]
+
+    @torch.no_grad()
+    def priority_scores(self, ts: ACTrainState, sampled: tuple, generator: torch.Generator | None = None):
+        """The ``|td|`` averaged over the critics that :meth:`update_sampled`
+        writes back (nothing is drawn)."""
+        return self._discrete_td(ts, sampled, ts.log_alpha.detach().exp()).abs().mean(dim=0)

@@ -210,14 +210,20 @@ class Collector:
         num_steps: int,
         explore: bool = True,
         explore_param: float = 0.0,
+        record_traj: bool = False,
+        *,
         random: bool = False,
-    ) -> tuple[CollectState, ReplayBufferState | None, CollectStats]:
-        """Collect ``num_steps`` steps per env; ``random`` acts uniformly at
-        random (warm-up)."""
-        seg = rollout_segment(self.algo, self.venv, self.buffer, num_steps, explore, random,
+    ) -> tuple[CollectState, ReplayBufferState | None, CollectStats, Batch | None]:
+        """Collect ``num_steps`` steps per env: ``(cstate, bstate, stats,
+        traj)``, ``traj`` the segment's ``[T, N, ...]`` transitions with
+        ``record_traj``, else ``None`` (the JAX package's signature and
+        result).  ``random`` (keyword only) acts uniformly at random
+        (warm-up)."""
+        seg = rollout_segment(self.algo, self.venv, self.buffer, num_steps, explore, random, record_traj,
                               reward_metric=self.reward_metric)
         cstate, bstate, outputs = seg(ts, cstate, bstate, explore_param)
-        return cstate, bstate, self.summarize(outputs, self.venv.num_envs * num_steps)
+        stats = self.summarize(outputs, self.venv.num_envs * num_steps)
+        return cstate, bstate, stats, outputs.get("traj")
 
     @staticmethod
     def summarize(outputs: dict, n_steps: int) -> CollectStats:

@@ -1,0 +1,403 @@
+"""Multi-process trainers (port of ``tianshou_tpu/trainer/distributed.py``):
+the standard off-policy and on-policy pipelines over the ranks of a
+``torch.distributed`` process group, one device a rank.
+
+Both keep the JAX trainers' invariants:
+
+- every rank steps its OWN shard of envs (the caller sizes the collectors
+  at ``total / ranks``, cf. :func:`process_env_slice`); ``batch_size`` and
+  ``step_per_collect`` are GLOBAL quantities;
+- the generators follow the JAX package's key splits: initialisation,
+  learning and testing draw from one generator seeded alike on every rank
+  and advanced in lockstep, so the ranks start from the same parameters and
+  draw the same parameter noise (Rainbow's, REDQ's subset); env resets,
+  exploration and replay sampling draw from streams seeded from ``(seed,
+  rank)`` (:func:`rank_seed`), so the ranks gather disjoint experience;
+- the test phase evaluates on every rank and averages the mean and std of
+  the returns over the ranks (one ``all_reduce``), so every rank takes the
+  same stop decision.
+
+:class:`DistributedOffPolicyTrainer`: each rank collects into its own
+buffer and, for each gradient step, presamples ``batch_size // ranks``
+rows from it (n-step chains, PER weights, frame stacks through
+``gather_rows_cast``, exactly as one process does) and runs
+``update_sampled`` on them against its real buffer.  Each optimizer step
+averages its gradients over the group (one ``all_reduce`` a step, no
+``DistributedDataParallel``: an update steps several modules with several
+backward passes), and per-row draws are made for the global batch, each
+rank taking its rows (``Algorithm.row_block``).  The off-policy losses are
+means over rows, so this equals one process's update on the concatenated
+batch.  A prioritized buffer takes the priorities the rank's own update
+writes for its rows, under the parameters before the step: what the JAX
+trainer recomputes through ``priority_scores``, which an algorithm must
+still implement (a ``TypeError`` otherwise, as in the JAX package).  The
+metrics are averaged over a segment's updates on the device and over the
+ranks once a segment, when they are read.
+
+:class:`DistributedOnPolicyTrainer`: each rank records its segment
+(``Collector.collect(record_traj=True)``), the global env-major trajectory
+is assembled on every rank (:func:`gather_env_axis`) and every rank runs
+the one-process learn (:func:`build_rollout_learn`) on it from the
+lockstep generator.  Its reductions (the return statistics, the advantage
+normalisation of a minibatch from a global permutation, the gradient
+clipping, NPG's and TRPO's Fisher products) are then global and exact; the
+learn compute is replicated where XLA would shard it.
+"""
+
+from __future__ import annotations
+
+import inspect
+import time
+from collections.abc import Callable
+from typing import Any
+
+import numpy as np
+import torch
+
+from tianshou_tpu_torch.algos.base import Algorithm
+from tianshou_tpu_torch.collect.collector import Collector, rollout_segment
+from tianshou_tpu_torch.data.buffer import ReplayBuffer
+from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
+from tianshou_tpu_torch.data.stats import InfoStats
+from tianshou_tpu_torch.parallel.distributed import (
+    average_metrics,
+    data_parallel,
+    gather_env_axis,
+    group_of,
+    mean_over_ranks,
+    process_count,
+    process_index,
+    rank_seed,
+)
+from tianshou_tpu_torch.trainer.hooks import log_test, log_train
+from tianshou_tpu_torch.trainer.onpolicy import build_rollout_learn
+from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
+
+__all__ = ["DistributedOffPolicyTrainer", "DistributedOnPolicyTrainer"]
+
+
+def _check_devices(device: torch.device, **parts) -> None:
+    for what, dev in parts.items():
+        if dev != device:
+            raise ValueError(f"trainer on {device} but {what.replace('_', ' ')} on {dev}")
+
+
+def _test(collector: Collector, ts, generator, episodes: int, test_param: float, group, device) -> tuple[float, float]:
+    """The lockstep test phase: every rank's mean and std of the returns,
+    averaged over the ranks."""
+    stats = collector.collect_episodes(ts, generator, episodes, explore=False, explore_param=test_param)
+    rew, rew_std = mean_over_ranks([stats.returns_mean, stats.returns_std], group, device)
+    return rew, rew_std
+
+
+def _global_metrics(metrics: dict[str, torch.Tensor], group) -> dict[str, float]:
+    """Device metrics averaged over the ranks and read on the host, in one
+    ``all_reduce`` and one copy."""
+    if not metrics:
+        return {}
+    return dict(zip(metrics, torch.stack(list(average_metrics(metrics, group).values())).tolist()))
+
+
+class DistributedOffPolicyTrainer:
+    """Off-policy training over the ranks of a process group (see the
+    module docstring).  ``train_collector``, ``test_collector`` and
+    ``buffer`` are this rank's; ``batch_size`` and ``step_per_collect`` are
+    global.  ``mesh`` (a ``DeviceMesh``) names the group, else the default
+    group is used; without a process group it trains as one process."""
+
+    def __init__(
+        self,
+        algo: Algorithm,
+        train_collector: Collector,
+        test_collector: Collector,
+        buffer: ReplayBuffer,
+        *,
+        max_epoch: int,
+        step_per_epoch: int,
+        step_per_collect: int,
+        update_per_step: float = 1.0,
+        batch_size: int = 64,
+        episode_per_test: int = 10,
+        train_param_fn: Callable[[int, int], float] | None = None,
+        test_param: float = 0.0,
+        stop_fn: Callable[[float], bool] | None = None,
+        warmup_steps: int = 0,
+        warmup_random: bool = True,
+        logger: Any | None = None,
+        seed: int = 0,
+        mesh=None,
+        axis_name: str = "dp",
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        _check_devices(self.device, algorithm=algo.device, train_collector=train_collector.device,
+                       test_collector=test_collector.device)
+        if not getattr(algo, "supports_presampled", False):
+            raise ValueError("DistributedOffPolicyTrainer needs the presample/update_sampled split "
+                             "(algo.supports_presampled)")
+        self.algo = algo
+        self.train_collector = train_collector
+        self.test_collector = test_collector
+        self.buffer = buffer
+        self.max_epoch = max_epoch
+        self.step_per_epoch = step_per_epoch
+        self.step_per_collect = step_per_collect
+        self.update_per_step = update_per_step
+        self.batch_size = batch_size
+        self.episode_per_test = episode_per_test
+        if train_param_fn is None:
+            default_param = float(getattr(algo, "exploration_noise", 0.0))
+            train_param_fn = lambda epoch, step: default_param  # noqa: E731
+        self.train_param_fn = train_param_fn
+        self.test_param = test_param
+        self.stop_fn = stop_fn
+        self.warmup_steps = warmup_steps
+        self.warmup_random = warmup_random
+        self.logger = logger
+        self.seed = seed
+        self.mesh = mesh
+        self.axis_name = axis_name
+
+        self.group = group_of(mesh, axis_name)
+        n_proc = process_count(self.group)
+        self.global_envs = train_collector.venv.num_envs * n_proc
+        self.segment_len = max(1, step_per_collect // self.global_envs)
+        self.steps_per_segment = self.segment_len * self.global_envs
+        self.updates_per_segment = max(1, round(update_per_step * self.steps_per_segment))
+        self.batch_local = max(1, batch_size // n_proc)
+
+    def _check_priorities(self) -> None:
+        """Prioritized replay needs ``priority_scores``: an algorithm that
+        does not implement it is refused up front, as in the JAX package."""
+        if not isinstance(self.buffer, PrioritizedReplayBuffer):
+            return
+        if inspect.unwrap(type(self.algo).priority_scores) is inspect.unwrap(Algorithm.priority_scores):
+            raise TypeError(
+                f"{type(self.algo).__name__} does not implement priority_scores(), which distributed PER "
+                "requires for process-local priority write-back; use a uniform ReplayBuffer or implement "
+                "priority_scores on the algorithm (see algos/base.py).")
+
+    def _build_superstep(self):
+        """``superstep(ts, cstate, bstate, generators, explore_param) -> (ts,
+        cstate, bstate, outputs, metrics)``: this rank's rollout segment into
+        its buffer, then the segment's updates, each on ``batch_size //
+        ranks`` rows presampled from the rank's buffer with the sampling
+        generator and updated with the lockstep one (``generators = (learn,
+        sample)``).  ``metrics`` are this rank's means over the updates, on
+        the device."""
+        algo, buffer = self.algo, self.buffer
+        seg = rollout_segment(algo, self.train_collector.venv, buffer, self.segment_len, explore=True,
+                              reward_metric=self.train_collector.reward_metric)
+        n_updates, rows, group = self.updates_per_segment, self.batch_local, self.group
+
+        def superstep(ts, cstate, bstate, generators, explore_param):
+            g_learn, g_sample = generators
+            cstate, bstate, outputs = seg(ts, cstate, bstate, explore_param)
+            history: dict[str, list[torch.Tensor]] = {}
+            with data_parallel(algo, group, rows):
+                for _ in range(n_updates):
+                    sampled = algo.presample(buffer, bstate, g_sample, rows)
+                    ts, bstate, metrics = algo.update_sampled(ts, buffer, bstate, sampled, g_learn)
+                    for k, v in metrics.items():
+                        history.setdefault(k, []).append(v)
+            return ts, cstate, bstate, outputs, {k: torch.stack(v).mean() for k, v in history.items()}
+
+        return superstep
+
+    def init_states(self):
+        """``(ts, cstate, bstate, (learn, sample) generators, test
+        generator)`` at the start of a run: the parameters from the lockstep
+        generator, the envs reset and the replay sampled from this rank's
+        own streams."""
+        gen = make_generator(self.seed, self.device)
+        g_init, g_test = fork_generator(gen), fork_generator(gen)
+        local = make_generator(rank_seed(self.seed, process_index(self.group)), self.device)
+        g_reset, g_sample = fork_generator(local), fork_generator(local)
+        cstate = self.train_collector.reset(g_reset)
+        ts = self.algo.init(g_init)
+        bstate = self.buffer.init(self.train_collector.example_transition(ts, cstate), device=self.device)
+        return ts, cstate, bstate, (gen, g_sample), g_test
+
+    def run(self) -> InfoStats:
+        t_start = time.time()
+        self._check_priorities()
+        group, pid = self.group, process_index(self.group)
+        n_proc = process_count(group)
+        col = self.train_collector
+        ts, cstate, bstate, generators, g_test = self.init_states()
+
+        env_step = grad_step = 0
+        best_reward, best_reward_std = -np.inf, 0.0
+        last_metrics: dict = {}
+        train_time = 0.0
+        if self.warmup_steps > 0:
+            warm_len = max(1, self.warmup_steps // self.global_envs)
+            cstate, bstate, stats, _ = col.collect(ts, cstate, bstate, warm_len, explore=True,
+                                                   random=self.warmup_random)
+            env_step += stats.n_collected_steps * n_proc
+
+        superstep = self._build_superstep()
+        stop_triggered = False
+        epoch = 0
+        for epoch in range(1, self.max_epoch + 1):
+            steps_this_epoch = 0
+            while steps_this_epoch < self.step_per_epoch:
+                explore_param = float(self.train_param_fn(epoch, env_step))
+                t0 = time.time()
+                ts, cstate, bstate, outputs, metrics = superstep(ts, cstate, bstate, generators, explore_param)
+                last_metrics = _global_metrics(metrics, group)  # the one read of the segment
+                train_time += time.time() - t0
+                env_step += self.steps_per_segment
+                steps_this_epoch += self.steps_per_segment
+                grad_step += self.updates_per_segment
+                if pid == 0:
+                    log_train(self.logger, env_step, Collector.summarize(outputs, self.steps_per_segment),
+                              last_metrics)
+            rew, rew_std = _test(self.test_collector, ts, g_test, self.episode_per_test, self.test_param, group,
+                                 self.device)
+            if rew > best_reward:
+                best_reward, best_reward_std = rew, rew_std
+            if pid == 0:
+                log_test(self.logger, rew, rew_std, env_step)
+            if self.stop_fn is not None and self.stop_fn(rew):
+                stop_triggered = True
+                break
+
+        self.train_state = ts
+        self.collect_state = cstate
+        self.buffer_state = bstate
+        return InfoStats(
+            gradient_step=grad_step,
+            env_step=env_step,
+            epoch=epoch,
+            best_reward=float(best_reward),
+            best_reward_std=float(best_reward_std),
+            duration=time.time() - t_start,
+            train_time=train_time,
+            stop_triggered=stop_triggered,
+            last_metrics=last_metrics,
+        )
+
+
+class DistributedOnPolicyTrainer:
+    """On-policy training over the ranks of a process group (see the module
+    docstring): each rank records its own env shard, the global trajectory
+    is assembled on every rank and learned from, replicated.  The
+    collectors are this rank's; ``step_per_collect`` and ``batch_size`` are
+    global."""
+
+    def __init__(
+        self,
+        algo: Algorithm,
+        train_collector: Collector,
+        test_collector: Collector,
+        *,
+        max_epoch: int,
+        step_per_epoch: int,
+        step_per_collect: int,
+        repeat_per_collect: int = 1,
+        batch_size: int = 64,
+        episode_per_test: int = 10,
+        stop_fn: Callable[[float], bool] | None = None,
+        logger: Any | None = None,
+        seed: int = 0,
+        mesh=None,
+        axis_name: str = "dp",
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        _check_devices(self.device, algorithm=algo.device, train_collector=train_collector.device,
+                       test_collector=test_collector.device)
+        self.algo = algo
+        self.train_collector = train_collector
+        self.test_collector = test_collector
+        self.max_epoch = max_epoch
+        self.step_per_epoch = step_per_epoch
+        self.step_per_collect = step_per_collect
+        self.repeat_per_collect = repeat_per_collect
+        self.batch_size = batch_size
+        self.episode_per_test = episode_per_test
+        self.stop_fn = stop_fn
+        self.logger = logger
+        self.seed = seed
+        self.mesh = mesh
+        self.axis_name = axis_name
+
+        self.group = group_of(mesh, axis_name)
+        self.global_envs = train_collector.venv.num_envs * process_count(self.group)
+        self.segment_len = max(1, step_per_collect // self.global_envs)
+        self.steps_per_segment = self.segment_len * self.global_envs
+        bs = min(batch_size, self.steps_per_segment)
+        self.updates_per_segment = repeat_per_collect * max(1, self.steps_per_segment // bs)
+
+    def _build_global_learn(self):
+        """``(ts, traj, generator) -> (ts, metrics)``: the one-process learn
+        over the global ``[T, N_global]`` trajectory."""
+        return build_rollout_learn(self.algo, self.steps_per_segment, self.batch_size, self.repeat_per_collect)
+
+    def _build_superstep(self):
+        """``superstep(ts, cstate, generator) -> (ts, cstate, stats,
+        metrics)``: this rank's recorded segment, the global trajectory
+        assembled, the learn; ``metrics`` on the device, the same on every
+        rank."""
+        learn = self._build_global_learn()
+        col, group = self.train_collector, self.group
+
+        def superstep(ts, cstate, generator):
+            cstate, _, stats, traj = col.collect(ts, cstate, None, self.segment_len, explore=True,
+                                                 record_traj=True)
+            ts, metrics = learn(ts, gather_env_axis(traj, group), generator)
+            return ts, cstate, stats, metrics
+
+        return superstep
+
+    def run(self) -> InfoStats:
+        t_start = time.time()
+        group, pid = self.group, process_index(self.group)
+        gen = make_generator(self.seed, self.device)
+        g_init, g_test = fork_generator(gen), fork_generator(gen)
+        local = make_generator(rank_seed(self.seed, pid), self.device)
+        cstate = self.train_collector.reset(fork_generator(local))
+        ts = self.algo.init(g_init)
+        superstep = self._build_superstep()
+
+        env_step = grad_step = 0
+        best_reward, best_reward_std = -np.inf, 0.0
+        last_metrics: dict = {}
+        train_time = 0.0
+        stop_triggered = False
+        epoch = 0
+        for epoch in range(1, self.max_epoch + 1):
+            steps_this_epoch = 0
+            while steps_this_epoch < self.step_per_epoch:
+                t0 = time.time()
+                ts, cstate, stats, metrics = superstep(ts, cstate, gen)
+                last_metrics = _global_metrics(metrics, None)  # replicated: the same on every rank
+                train_time += time.time() - t0
+                env_step += self.steps_per_segment
+                steps_this_epoch += self.steps_per_segment
+                grad_step += self.updates_per_segment
+                if pid == 0:
+                    log_train(self.logger, env_step, stats, last_metrics)
+            rew, rew_std = _test(self.test_collector, ts, g_test, self.episode_per_test, 0.0, group, self.device)
+            if rew > best_reward:
+                best_reward, best_reward_std = rew, rew_std
+            if pid == 0:
+                log_test(self.logger, rew, rew_std, env_step)
+            if self.stop_fn is not None and self.stop_fn(rew):
+                stop_triggered = True
+                break
+
+        self.train_state = ts
+        self.collect_state = cstate
+        return InfoStats(
+            gradient_step=grad_step,
+            env_step=env_step,
+            epoch=epoch,
+            best_reward=float(best_reward),
+            best_reward_std=float(best_reward_std),
+            duration=time.time() - t_start,
+            train_time=train_time,
+            stop_triggered=stop_triggered,
+            last_metrics=last_metrics,
+        )

@@ -518,7 +518,7 @@ class OffPolicyTrainer:
         # warm-up collection (reference start_timesteps)
         if self.warmup_steps > 0:
             warm_len = max(1, self.warmup_steps // self.train_collector.venv.num_envs)
-            cstate, bstate, stats = self.train_collector.collect(
+            cstate, bstate, stats, _ = self.train_collector.collect(
                 ts, cstate, bstate, warm_len, explore=True, random=self.warmup_random,
             )
             env_step += stats.n_collected_steps

@@ -75,6 +75,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      1024 envs x 64 steps, batch 1024, 410 updates a superstep;
    - ``minatar``: MinAtar Breakout, the MinAtar CNN in bf16, 256 envs x 32
      steps, batch 512, 102 updates a superstep;
+   - ``minatar_space_invaders``, ``minatar_freeway``, ``minatar_asterix``,
+     ``minatar_seaquest`` (slice 12): MinAtar's other four games at the
+     ``minatar`` path's configuration, the CNN at each game's channel
+     count; no kernel (float32 grids);
    - ``sac_pendulum``: the JAX package's SAC threshold configuration on the
      on-device Pendulum: 10 envs x 10 steps, 12 updates of batch 256 a
      superstep, GaussianActor and twin critics (128, 128), automatic alpha,
@@ -222,6 +226,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``--gloo-rank``, as two subprocesses on CUDA tensors): DQN on the
    on-device CartPole through ``DistributedOffPolicyTrainer``, their
    parameters bitwise equal after the run and the losses they read equal.
+   Between the two, ``redq_ep`` (slice 12, ``REDQ_EP``): REDQ at
+   ``redq_pendulum``'s configuration with its 10 critics sharded over the
+   ``"ep"`` axis of a ``make_mesh2`` mesh.  At world size 1 on the NCCL
+   group (``dp 1 x ep 1``) one sharded update equals the plain one
+   bitwise; then two gloo ranks share the card (``--redq-ep-rank``
+   subprocesses, ``dp 1 x ep 2``, 5 critics each): REDQ's first update
+   (its critics' step) sharded against the one-process update from the
+   same parameters, batch and draws (losses rtol 1e-5, gathered parameters
+   rtol 2e-5 / atol 1e-6, float32, TF32 off; an update that steps the
+   actor too is measured beside it), ms a segment of ``DistributedOffPolicyTrainer`` in
+   turns with the plain ``redq_pendulum`` superstep (plain, ep, ep, plain;
+   the plain one on rank 0 alone), the all-reduces and ensemble gathers of
+   a segment with their bytes, rank 0's kernels a segment, and ``run()``
+   for 3 segments after the warm-up, after which the ranks' parameters
+   (replicated, and the critics gathered) are bitwise equal;
+7. ``Batch`` on the card: ``cat``, ``stack``, ``split``, index reads and
+   slice assignment on CUDA tensors equal the same calls on the CPU.
 
 It then prints a ``paths`` JSON line, the ``kernels`` JSON line and, last,
 the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
@@ -257,6 +278,11 @@ PATHS = {
     "atari_dedup": dict(num_envs=128, segment=16, batch=512, updates=26, capacity=64),
     "cartpole": dict(num_envs=1024, segment=64, batch=1024, updates=410, capacity=64),
     "minatar": dict(num_envs=256, segment=32, batch=512, updates=102, capacity=64),
+    # slice 12: MinAtar's other four games at the minatar path's configuration
+    "minatar_space_invaders": dict(num_envs=256, segment=32, batch=512, updates=102, capacity=64),
+    "minatar_freeway": dict(num_envs=256, segment=32, batch=512, updates=102, capacity=64),
+    "minatar_asterix": dict(num_envs=256, segment=32, batch=512, updates=102, capacity=64),
+    "minatar_seaquest": dict(num_envs=256, segment=32, batch=512, updates=102, capacity=64),
     "sac_pendulum": dict(num_envs=10, segment=10, batch=256, updates=12, capacity=2000, warmup=1000,
                          update_per_step=0.125),
     "td3_pendulum": dict(num_envs=10, segment=10, batch=256, updates=12, capacity=2000, warmup=1000,
@@ -317,8 +343,12 @@ PATHS = {
     "marl_tictactoe": dict(num_envs=16, segment=10, batch=128, updates=16, capacity=2000, warmup=2000, eps=0.2),
 }
 HIGHLEVEL_PATHS = ("hl_cartpole", "hl_atari")
-DQN_PATHS = HIGHLEVEL_PATHS + ("atari", "atari_dedup", "cartpole", "minatar", "rainbow_per", "qrdqn_minatar",
-                               "bdq_pendulum", "drqn_cartpole", "atari_host", "cpp_cartpole")
+# the MinAtar paths' games
+MINATAR_GAMES = {"minatar": "breakout", "minatar_space_invaders": "space_invaders", "minatar_freeway": "freeway",
+                 "minatar_asterix": "asterix", "minatar_seaquest": "seaquest"}
+DQN_PATHS = HIGHLEVEL_PATHS + tuple(MINATAR_GAMES) + (
+    "atari", "atari_dedup", "cartpole", "rainbow_per", "qrdqn_minatar", "bdq_pendulum", "drqn_cartpole",
+    "atari_host", "cpp_cartpole")
 PER_PATHS = ("rainbow_per",)
 HOST_PATHS = ("sac_host", "ppo_host", "atari_host", "cpp_cartpole")
 FUSED_PATHS = ("sac_fine",)
@@ -339,7 +369,8 @@ FAMILY_METRICS = {"dqn": ("loss",), "continuous": ("critic_loss", "actor_loss"),
                   "marl": ("agent0/loss", "agent1/loss")}
 # launches of gather_rows_cast a superstep: obs and obs_next of the presample;
 # the on-policy paths use no replay buffer
-KERNEL_LAUNCHES = {"atari": 2, "atari_dedup": 2, "cartpole": 0, "minatar": 0, "sac_pendulum": 0,
+KERNEL_LAUNCHES = {"atari": 2, "atari_dedup": 2, "cartpole": 0, "minatar": 0, "minatar_space_invaders": 0,
+                   "minatar_freeway": 0, "minatar_asterix": 0, "minatar_seaquest": 0, "sac_pendulum": 0,
                    "td3_pendulum": 0, "sac_host": 0, "ppo_cartpole": 0, "trpo_pendulum": 0, "ppo_host": 0,
                    "rainbow_per": 0, "qrdqn_minatar": 0, "redq_pendulum": 0, "discrete_sac_cartpole": 0,
                    "bdq_pendulum": 0, "drqn_cartpole": 0, "cql_d4rl": 0, "discrete_cql_cartpole": 0,
@@ -358,6 +389,11 @@ DIST_KERNEL_LAUNCHES = {"dist_atari": 52, "dist_rainbow_per": 0, "dist_ppo_cartp
 # batch 64 global), 3 segments of 10 steps a env after 1,000 warm-up steps
 GLOO_RANKS = dict(num_envs=8, segment=10, batch=64, update_per_step=0.1, capacity=1000, warmup=1000, segments=3)
 GLOO_RANK_TIMEOUT = 300
+# slice 12: redq_pendulum's configuration (PATHS) on DistributedOffPolicyTrainer
+# over a dp 1 x ep 2 mesh, two gloo ranks sharing the card, 5 critics each:
+# one sharded update held against the one-process update (the JAX test's
+# limits), then run() for 3 segments after the path's warm-up
+REDQ_EP = dict(base="redq_pendulum", ranks=2, ep=2, segments=3, loss_rtol=1e-5, param_rtol=2e-5, param_atol=1e-6)
 # short spin kernels that open a profiled window after the long one (see
 # _device_records)
 PROFILE_PADDING = 64
@@ -752,11 +788,11 @@ def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, fu
         env = CartPole()
         net = QNet(env.observation_space.shape, (128, 128, 128), env.action_space.n)
         dqn = dict(gamma=0.9, n_step=3, target_update_freq=320)
-    elif path == "minatar":
+    elif path in MINATAR_GAMES:
         from tianshou_tpu_torch.envs.minatar import make_minatar
         from tianshou_tpu_torch.networks.conv import ConvQNet
 
-        env = make_minatar("breakout")
+        env = make_minatar(MINATAR_GAMES[path])
         net = ConvQNet(env.observation_space.shape, env.action_space.n, "minatar",
                        encoder_kwargs={"compute_dtype": torch.bfloat16})
         dqn = dict(gamma=0.99, n_step=3, target_update_freq=1000)
@@ -3232,6 +3268,333 @@ def phase_gloo_ranks() -> dict:
     return result
 
 
+def _redq_ep_sampled(batch: int, seed: int = 3) -> tuple:
+    """A presample tuple of ``batch`` Pendulum-shaped rows made from a seed,
+    on the card."""
+    from tianshou_tpu_torch.data.batch import Batch
+
+    rng = np.random.default_rng(seed)
+
+    def on(x):
+        return torch.from_numpy(x).to("cuda")
+
+    zeros = torch.zeros(batch, dtype=torch.int64, device="cuda")
+    return (zeros, zeros, on(rng.uniform(0.5, 1.5, batch).astype(np.float32)),
+            Batch(obs=on(rng.normal(size=(batch, 3)).astype(np.float32)),
+                  act=on(rng.uniform(-1, 1, (batch, 1)).astype(np.float32))),
+            on(rng.normal(size=(batch, 1)).astype(np.float32)), on((rng.random((batch, 1)) < 0.05).astype(np.int32)),
+            Batch(obs_next=on(rng.normal(size=(batch, 3)).astype(np.float32)),
+                  terminated=on(rng.random(batch) < 0.05)))
+
+
+def _redq_state(ts) -> dict[str, torch.Tensor]:
+    """A REDQ train state's parameters on the host, its ensembles gathered
+    (every rank of a sharded one calls it)."""
+    from tianshou_tpu_torch.networks.common import full_state_dict
+
+    out = {f"actor.{k}": v.detach().cpu().clone() for k, v in ts.actor.state_dict().items()}
+    out.update({f"critic.{k}": v.detach().cpu().clone() for k, v in full_state_dict(ts.critic).items()})
+    out.update({f"target.{k}": v.detach().cpu().clone() for k, v in full_state_dict(ts.target_critic).items()})
+    out["log_alpha"] = ts.log_alpha.detach().cpu().clone()
+    return out
+
+
+def _redq_ep_update(mesh, actor_step: bool):
+    """One REDQ update at ``redq_pendulum``'s widths from the seed-5
+    parameters on ``_redq_ep_sampled``'s batch with the update generator
+    seeded alike, once in one process and once with the critics sharded
+    over the mesh's ``"ep"`` axis (rows and gradients over ``"dp"``);
+    ``actor_step``: the update is the actor delay's, so the actor and alpha
+    step too.  Float32, TF32 off.  Returns both runs' gathered parameters
+    and metrics and the critics a rank holds."""
+    from tianshou_tpu_torch.parallel.distributed import average_metrics, data_parallel
+    from tianshou_tpu_torch.parallel.mesh import shard_ensemble_modules
+    from tianshou_tpu_torch.utils.device import make_generator
+
+    cfg = PATHS[REDQ_EP["base"]]
+    _, algo, _, _, _ = build(REDQ_EP["base"])
+    sampled = _redq_ep_sampled(cfg["batch"])
+    dp, ep = mesh.get_group("dp"), mesh.get_group("ep")
+    runs = []
+    torch.backends.cuda.matmul.allow_tf32, saved = False, torch.backends.cuda.matmul.allow_tf32
+    try:
+        for sharded in (False, True):
+            ts = algo.init(make_generator(5, "cuda"))
+            if sharded:
+                shard_ensemble_modules(ts, ep)
+            if actor_step:
+                ts.step = algo.actor_delay - 1
+            with data_parallel(algo, dp if sharded else None, cfg["batch"]):
+                ts, _, metrics = algo.update_sampled(ts, None, None, sampled, make_generator(7, "cuda"))
+            runs.append((_redq_state(ts), _read(average_metrics(metrics, dp) if sharded else metrics),
+                         ts.critic.weights[0].shape[0]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return runs
+
+
+def _hold_redq_ep(what: str, one, sharded, bitwise: bool) -> float:
+    """A sharded update's gathered parameters and metrics against the
+    one-process update's: bitwise (``bitwise``) or within ``REDQ_EP``'s
+    limits (the JAX test's).  Returns the largest parameter difference."""
+    (ref, ref_m, _), (got, got_m, _) = one, sharded
+    err = 0.0
+    for k, v in ref.items():
+        diff = float((got[k] - v).abs().max())
+        err = max(err, diff)
+        ok = torch.equal(got[k], v) if bitwise else torch.allclose(
+            got[k], v, rtol=REDQ_EP["param_rtol"], atol=REDQ_EP["param_atol"])
+        if not ok:
+            raise AssertionError(f"redq_ep {what}: {k} differs by {diff:.3e} (bitwise={bitwise})")
+    for k, v in ref_m.items():
+        if (got_m[k] != v) if bitwise else not math.isclose(got_m[k], v, rel_tol=REDQ_EP["loss_rtol"], abs_tol=1e-7):
+            raise AssertionError(f"redq_ep {what}: {k} {got_m[k]} vs one process {v} (bitwise={bitwise})")
+    return err
+
+
+def redq_ep_update_check(mesh, bitwise: bool) -> dict:
+    """REDQ's first update (its critics' step) and an update that steps the
+    actor and alpha too, each with the critics sharded against the
+    one-process update: the losses and the gathered parameters bitwise
+    (``bitwise``, ``ep = 1``) or within ``REDQ_EP``'s limits (the JAX
+    test's).  Only the actor step runs the input operator's backward (the
+    critics' input has no gradient in their own step)."""
+    one, sharded = _redq_ep_update(mesh, actor_step=False)
+    k_full, k_local = one[2], sharded[2]
+    if k_local * torch.distributed.get_world_size(mesh.get_group("ep")) != k_full:
+        raise AssertionError(f"redq_ep: a rank holds {k_local} of {k_full} critics")
+    err = _hold_redq_ep("update", one, sharded, bitwise)
+    one_a, sharded_a = _redq_ep_update(mesh, actor_step=True)
+    err_a = _hold_redq_ep("update with an actor step", one_a, sharded_a, bitwise)
+    (ref, _, _), (got, _, _) = one_a, sharded_a
+    actor = {k: float((got[k] - v).abs().max()) for k, v in ref.items()}
+    return {"metrics": sharded[1], "one_process_metrics": one[1], "max_abs_err": err, "critics_a_rank": k_local,
+            "bitwise": bitwise, "bitwise_equal": all(torch.equal(sharded[0][k], v) for k, v in one[0].items()),
+            "actor_step_max_abs_err": err_a, "actor_step_worst": max(actor, key=actor.get),
+            "actor_step_metrics": [sharded_a[1], one_a[1]]}
+
+
+class _Collectives:
+    """Counts, while on, the ``torch.distributed.all_reduce`` calls and bytes
+    and, among them, the ensembles' gathers (``EnsembleShard.gather``)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from tianshou_tpu_torch.networks.common import EnsembleShard
+
+        self.all_reduce, self.gathers = [], []
+        self._saved = dist.all_reduce, EnsembleShard.gather
+        reduce, gather = self._saved
+
+        def counting_reduce(tensor, *args, **kwargs):
+            self.all_reduce.append(tensor.numel() * tensor.element_size())
+            return reduce(tensor, *args, **kwargs)
+
+        def counting_gather(shard, local):
+            out = gather(shard, local)
+            self.gathers.append(out.numel() * out.element_size())
+            return out
+
+        dist.all_reduce, EnsembleShard.gather = counting_reduce, counting_gather
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        from tianshou_tpu_torch.networks.common import EnsembleShard
+
+        dist.all_reduce, EnsembleShard.gather = self._saved
+
+
+def redq_ep_rank_main(rank: int, port: int, out: str) -> int:
+    """One of the two gloo ranks of ``redq_ep`` (``--redq-ep-rank``) on CUDA
+    tensors: the update check, then the ep segments in turns with the plain
+    ``redq_pendulum`` superstep (the plain one on rank 0 alone, rank 1 at a
+    barrier), their collectives and kernels, then ``run()`` for
+    ``REDQ_EP["segments"]`` segments; saves what it measured and its
+    parameters."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tianshou_tpu_torch.parallel.mesh import make_mesh2
+    from tianshou_tpu_torch.trainer.distributed import DistributedOffPolicyTrainer
+
+    cfg = PATHS[REDQ_EP["base"]]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=REDQ_EP["ranks"], rank=rank,
+                            timeout=datetime.timedelta(seconds=GLOO_RANK_TIMEOUT))
+    try:
+        mesh = make_mesh2(REDQ_EP["ranks"], second_size=REDQ_EP["ep"], device="cuda")
+        result = {"update_check": redq_ep_update_check(mesh, bitwise=False), "backend": dist.get_backend()}
+        _, algo, train, buffer, plain = build(REDQ_EP["base"])
+        steps = cfg["num_envs"] * cfg["segment"]
+
+        def trainer(segments):
+            return DistributedOffPolicyTrainer(
+                algo, train, plain.test_collector, buffer, max_epoch=1, step_per_epoch=segments * steps,
+                step_per_collect=steps, update_per_step=plain.update_per_step, batch_size=cfg["batch"],
+                episode_per_test=plain.episode_per_test, warmup_steps=plain.warmup_steps, mesh=mesh, device="cuda")
+
+        ep_trainer = trainer(REDQ_EP["segments"])
+        ts, cstate, bstate, generators, _ = ep_trainer.init_states()
+        ep_step = dist_superstep_of(ep_trainer, [ts, cstate, bstate], generators)
+        gen, *plain_state = init_states(algo, plain.train_collector, buffer)
+        plain_step = superstep_of(plain, plain_state, gen)
+        turns = {"plain": [], "ep": []}
+        for kind in ("plain", "ep", "ep", "plain"):
+            dist.barrier()
+            if kind == "ep" or rank == 0:
+                dt, _ = timed(ep_step if kind == "ep" else plain_step, TIMED)
+                turns[kind].append(dt / TIMED * 1e3)
+            dist.barrier()
+        with _Collectives() as coll:
+            metrics = _read(ep_step())
+        if rank == 0:
+            kernels, busy_ms = _profile_counts(ep_step)
+        else:  # its peer's segment, unprofiled
+            ep_step()
+            kernels, busy_ms = 0, 0.0
+        result.update(turns_ms=turns, metrics=metrics, all_reduce_calls_per_segment=len(coll.all_reduce),
+                      all_reduce_bytes_per_segment=sum(coll.all_reduce), gathers_per_segment=len(coll.gathers),
+                      gather_bytes_per_segment=sum(coll.gathers), device_kernels_per_segment=kernels,
+                      device_busy_ms_per_segment_profiled=busy_ms,
+                      updates_per_segment=ep_trainer.updates_per_segment)
+        # the main path: run() for the configured segments after the warm-up
+        t0 = time.perf_counter()
+        main = trainer(REDQ_EP["segments"])
+        info = main.run()
+        result.update(run_seconds=time.perf_counter() - t0, env_step=info.env_step, gradient_step=info.gradient_step,
+                      best_reward=info.best_reward, last_metrics=info.last_metrics,
+                      params=_redq_state(main.train_state),
+                      critics_a_rank=main.train_state.critic.weights[0].shape[0])
+        torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_redq_ep() -> dict:
+    """``redq_ep``: at world size 1 over NCCL (``dp 1 x ep 1``; the default
+    group must be up) the sharded update equals the plain one bitwise; then
+    two gloo ranks share the card as ``dp 1 x ep 2`` (this script again,
+    with ``--redq-ep-rank``, as two subprocesses): the sharded update within
+    the JAX test's limits, ms a segment in turns with the plain superstep,
+    the segment's all-reduces and gathers with their bytes, its kernels, and
+    after ``run()`` the two ranks' parameters (replicated and gathered)
+    bitwise equal.  Every process is killed in a ``finally``."""
+    import tempfile
+
+    from tianshou_tpu_torch.parallel.mesh import make_mesh2
+
+    world1 = redq_ep_update_check(make_mesh2(1, second_size=1, device="cuda"), bitwise=True)
+    log(f"redq_ep at world size 1 over NCCL (dp 1 x ep 1): the sharded update equals the plain one bitwise, "
+        f"with an actor step too, metrics {world1['metrics']}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": root}
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(REDQ_EP["ranks"])]
+        procs, logs = [], []
+        try:
+            for r in range(REDQ_EP["ranks"]):
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--redq-ep-rank", str(r), "--port", str(port),
+                     "--out", outs[r]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=root, env=env))
+            for p in procs:
+                logs.append(p.communicate(timeout=GLOO_RANK_TIMEOUT)[0].decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"redq_ep rank {r} failed (rc {p.returncode}):\n{out[-4000:]}")
+        a, b = [torch.load(o, weights_only=False) for o in outs]
+    unequal = [k for k in a["params"] if not torch.equal(a["params"][k], b["params"][k])]
+    if unequal or a["last_metrics"] != b["last_metrics"]:
+        raise AssertionError(f"redq_ep: the two ranks differ after run(): {unequal}, {a['last_metrics']} vs "
+                             f"{b['last_metrics']}")
+    cfg = PATHS[REDQ_EP["base"]]
+    warmup = cfg["warmup"] // cfg["num_envs"] * cfg["num_envs"]
+    if (a["env_step"] != warmup + REDQ_EP["segments"] * cfg["num_envs"] * cfg["segment"]
+            or a["gradient_step"] != REDQ_EP["segments"] * cfg["updates"] or a["critics_a_rank"] != 5):
+        raise AssertionError(f"redq_ep: env_step {a['env_step']}, gradient_step {a['gradient_step']}, "
+                             f"{a['critics_a_rank']} critics a rank")
+    _check_metrics(REDQ_EP["base"], a["last_metrics"])
+    turns = {k: sum(v) / len(v) for k, v in a["turns_ms"].items()}
+    result = {"world1_update_check": world1, "update_check": a["update_check"],
+              "ms_per_segment_turns": a["turns_ms"], "ms_per_segment": turns["ep"], "plain_ms_per_superstep": turns["plain"],
+              **{k: a[k] for k in ("metrics", "all_reduce_calls_per_segment", "all_reduce_bytes_per_segment",
+                                   "gathers_per_segment", "gather_bytes_per_segment", "device_kernels_per_segment",
+                                   "device_busy_ms_per_segment_profiled", "updates_per_segment", "run_seconds",
+                                   "env_step", "gradient_step", "best_reward", "last_metrics", "backend")},
+              "critics_a_rank": a["critics_a_rank"], "gather_rows_cast_launches": 0}
+    log(f"redq_ep (dp 1 x ep 2, two gloo ranks on one card, {a['critics_a_rank']} critics a rank): one sharded "
+        f"update vs one process: largest parameter difference {a['update_check']['max_abs_err']:.3e} (bitwise "
+        f"{a['update_check']['bitwise_equal']}), metrics {a['update_check']['metrics']} vs "
+        f"{a['update_check']['one_process_metrics']}; an update with an actor step, held alike: largest "
+        f"difference {a['update_check']['actor_step_max_abs_err']:.3e} in {a['update_check']['actor_step_worst']}; "
+        f"in turns: plain "
+        f"{a['turns_ms']['plain']} ms, ep {a['turns_ms']['ep']} ms a segment of {cfg['num_envs']} envs x "
+        f"{cfg['segment']} steps + {a['updates_per_segment']} updates; a segment: {a['gathers_per_segment']} gathers "
+        f"({a['gather_bytes_per_segment']} bytes), {a['all_reduce_calls_per_segment']} all-reduces "
+        f"({a['all_reduce_bytes_per_segment']} bytes, the gathers' included), rank 0's {a['device_kernels_per_segment']} "
+        f"device kernels busy {a['device_busy_ms_per_segment_profiled']:.2f} ms; run(): env_step {a['env_step']}, "
+        f"gradient_step {a['gradient_step']}, best {a['best_reward']:.2f}, {a['run_seconds']:.1f} s; the two ranks' "
+        f"parameters bitwise equal")
+    return result
+
+
+def phase_batch_cuda() -> dict:
+    """``Batch`` on the card: ``cat`` (a key missing from one batch
+    zero-filled), ``stack``, ``split`` (no shuffle, and a generator on the
+    card), index reads and slice assignment on CUDA tensors equal the same
+    calls on the CPU, bitwise."""
+    from tianshou_tpu_torch.data.batch import Batch
+
+    rng = np.random.default_rng(0)
+
+    def make(n, extra):
+        b = Batch(obs=torch.from_numpy(rng.normal(size=(n, 4)).astype(np.float32)),
+                  info=Batch(p=torch.from_numpy(rng.integers(0, 9, n))))
+        if extra:
+            b.info.q = torch.from_numpy(rng.random((n, 2)).astype(np.float32))
+        return b
+
+    cpu = [make(5, True), make(3, False)]
+    card = [b.to_torch("cuda") for b in cpu]
+    idx = np.array([4, 0, 2])
+
+    def ops(bs, dev):
+        c = Batch.cat(bs)
+        s = Batch.stack([bs[0], bs[0]])
+        parts = c.split(3, shuffle=False, merge_last=True)
+        w = Batch(c)
+        w.obs, w.info = c.obs.clone(), Batch(p=c.info.p.clone(), q=c.info.q.clone())
+        w[1:3] = c[5:7]
+        g = torch.Generator(device=dev).manual_seed(0)
+        shuffled = Batch.cat(c.split(3, generator=g))
+        return {"cat": c, "stack": s, "split": Batch.cat(parts), "index": c[idx], "row": c[2], "assign": w,
+                "shuffled_sorted": Batch(p=shuffled.info.p.sort().values)}
+
+    got, ref = ops(card, "cuda"), ops(cpu, "cpu")
+    for name in ref:
+        for (k, a), (_, b) in zip(_flat_items(got[name]), _flat_items(ref[name])):
+            if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+                raise AssertionError(f"Batch on the card: {name}.{k} differs from the CPU's")
+    log(f"Batch on the card: cat, stack, split, index, slice assignment and a shuffled split equal the CPU's "
+        f"({len(ref)} operations)")
+    return {"operations": sorted(ref)}
+
+
+def _flat_items(b, prefix: str = ""):
+    for k in sorted(b):
+        v = b[k]
+        yield from (_flat_items(v, f"{prefix}{k}.") if isinstance(v, dict) else [(prefix + k, v)])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -3240,6 +3603,9 @@ def main() -> int:
     if "--gloo-rank" in sys.argv:  # one of phase_gloo_ranks' two subprocesses
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         return gloo_rank_main(int(args["--gloo-rank"]), int(args["--port"]), args["--out"])
+    if "--redq-ep-rank" in sys.argv:  # one of phase_redq_ep's two subprocesses
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return redq_ep_rank_main(int(args["--redq-ep-rank"]), int(args["--port"]), args["--out"])
     from tianshou_tpu_torch.ops.gather import gather_rows_cast
 
     t0 = time.perf_counter()
@@ -3277,8 +3643,17 @@ def main() -> int:
         results[path] = phase_distributed(path, gather_rows_cast)
         launches += phase_dist_main(path, results[path].pop("trainer"), gather_rows_cast)
         results[path]["phase_s"] = time.perf_counter() - t_path
+    # slice 12: the ensemble axis, at world size 1 on the NCCL group, then
+    # as two gloo ranks sharing the card
+    t_path = time.perf_counter()
+    gather_rows_cast.launches = 0
+    results["redq_ep"] = phase_redq_ep()
+    if gather_rows_cast.launches:
+        raise AssertionError(f"redq_ep: gather_rows_cast launched {gather_rows_cast.launches} times")
+    results["redq_ep"]["phase_s"] = time.perf_counter() - t_path
     torch.distributed.destroy_process_group()
     results["gloo_two_ranks"] = phase_gloo_ranks()
+    results["batch_cuda"] = phase_batch_cuda()
     kernel["launches"] = launches
     stored, dedup = results["atari"], results["atari_dedup"]
     log("atari memory regime: frames stored once (atari_dedup) beside stored stacks (atari): "

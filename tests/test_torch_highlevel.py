@@ -368,8 +368,11 @@ def test_env_factories_raise_for_what_is_not_ported():
     factory = tenv.RemoteEnvFactory(["127.0.0.1:1"], ["127.0.0.1:2"])
     with pytest.raises(ConnectionRefusedError):
         factory.create_envs(0, 0, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, item 5"):
-        tenv.TorchEnvFactory("minatar-seaquest")
+    # the four later MinAtar games are ported (slice 12): they build
+    from tianshou_tpu_torch.envs.minatar import Seaquest
+
+    envs = tenv.TorchEnvFactory("minatar-seaquest").create_envs(2, 1, device=CPU)
+    assert isinstance(envs.train_venv.env, Seaquest) and envs.observation_space.shape == (10, 10, 9)
     with pytest.raises(KeyError):
         tenv.TorchEnvFactory("NoSuchEnv-v0")
 

@@ -14,8 +14,8 @@ tests (two ranks in place of 8 virtual devices; each rank a subprocess,
   distributed supersteps reach a test mean >= 120.
 
 The two ensemble-axis tests (``test_dryrun_multichip_two_axis_mesh``,
-``test_ensemble_sharded_update_matches_replicated``) wait with
-``make_mesh2`` and ``shard_ensemble_axis``.
+``test_ensemble_sharded_update_matches_replicated``) are copied in
+``tests/test_torch_ensemble_axis.py``.
 """
 
 from __future__ import annotations

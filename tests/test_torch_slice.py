@@ -15,6 +15,10 @@ NatureCNN in float32 (so that argmax ties and bf16 rounding cannot differ),
     DiscreteSAC, BDQ, DRQN and the recurrent hooks; slice 11: the process
     groups, meshes and distributed trainers), and without CUDA the
     distributed entry points raise too.
+(f) Completeness: every public top-level name of every module of the JAX
+    package (read with ``ast``, not imported) has a counterpart in the
+    port's module of the same path, but for an explicit list of exceptions,
+    each with its reason.
 (e) The same comparison as (a) on the paths of slice 2: a greedy CartPole
     segment (QNet, float32; storage within atol 1e-6), a MinAtar Breakout
     segment (sticky actions off) and a deduplicated stacked pixel segment
@@ -209,7 +213,9 @@ def _entry_points():
     from tianshou_tpu_torch.networks.discrete import C51Net, QRDQNNet
     from tianshou_tpu_torch.trainer.offline import OfflineTrainer
     from tianshou_tpu_torch.parallel.distributed import global_mesh, init_distributed
-    from tianshou_tpu_torch.parallel.mesh import make_mesh
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.envs.minatar import Seaquest
+    from tianshou_tpu_torch.parallel.mesh import make_mesh, make_mesh2
     from tianshou_tpu_torch.trainer.distributed import DistributedOffPolicyTrainer, DistributedOnPolicyTrainer
 
     env = SyntheticPixelEnv(H, W, C, num_actions=A)
@@ -263,7 +269,10 @@ def _entry_points():
         "MultiAgentPolicyManager": lambda: MultiAgentPolicyManager([DQN(QNet(19, (8,), 9), Discrete(9))] * 2),
         "init_distributed": lambda: init_distributed("127.0.0.1:1", 2, 0),
         "make_mesh": lambda: make_mesh(1),
+        "make_mesh2": lambda: make_mesh2(2),
         "global_mesh": lambda: global_mesh(),
+        "Batch.to_torch": lambda: Batch(x=np.zeros(2)).to_torch(),
+        "MinAtar VectorEnv": lambda: VectorEnv(Seaquest(), N_ENVS),
         "DistributedOffPolicyTrainer": lambda: DistributedOffPolicyTrainer(
             algo, col, col, ReplayBuffer(CAP, N_ENVS), max_epoch=1, step_per_epoch=1, step_per_collect=1),
         "DistributedOnPolicyTrainer": lambda: DistributedOnPolicyTrainer(
@@ -278,7 +287,8 @@ def _entry_points():
                                    "GAIL", "PSRL", "ExperimentConfig().run", "experiment_cli",
                                    "HostCollector(act_on_host)", "AsyncHostCollector", "TicTacToe VectorEnv",
                                    "MultiAgentPolicyManager", "init_distributed", "make_mesh", "global_mesh",
-                                   "DistributedOffPolicyTrainer", "DistributedOnPolicyTrainer"])
+                                   "DistributedOffPolicyTrainer", "DistributedOnPolicyTrainer", "make_mesh2",
+                                   "Batch.to_torch", "MinAtar VectorEnv"])
 def test_default_device_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid here")
@@ -433,6 +443,101 @@ def test_port_sources_name_no_jax_import():
                 continue
             for name in names:
                 assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "optax", "orbax", "tianshou_tpu"), (path, name)
+
+
+# -- (f) completeness ----------------------------------------------------------
+# the JAX package's names (by module, relative to the package) that the port
+# has under another name or module, or not at all, with the reason
+RENAMED = {("envs/base.py", "JaxEnv"): "TorchEnv", ("envs/__init__.py", "JaxEnv"): "TorchEnv",
+           ("highlevel/env.py", "JaxEnvFactory"): "TorchEnvFactory"}  # the port's envs are torch envs
+NOT_PORTED = {("algos/offline.py", "DiscreteBCQTrainState"):  # defined and used nowhere, not even in JAX
+              "unused in the JAX package"}
+MOVED_MODULES = {"ops/pallas_gather.py": "ops/gather.py"}  # the Pallas kernel's wrapper beside the .cu kernel
+SKIPPED_MODULES = {"utils/aot_cache.py": "XLA's compilation cache on the TPU backend has no H100 counterpart"}
+
+
+def _public_names(path: pathlib.Path) -> set[str]:
+    """The public top-level names a module defines (functions, classes and
+    assignments not starting with ``_``) and those its ``__all__`` lists."""
+    names = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in node.targets if isinstance(node, ast.Assign) else [node.target]:
+                if isinstance(target, ast.Name):
+                    names.add(target.id)
+                    if target.id == "__all__":
+                        names.update(ast.literal_eval(node.value))
+    return {n for n in names if not n.startswith("_")}
+
+
+def _bound_names(path: pathlib.Path) -> set[str]:
+    """Every name a module binds at its top level, imports included, and the
+    names a package's ``__getattr__`` imports on first use (the keys of its
+    ``_EXPORTS``; the test below resolves each)."""
+    names = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in node.targets if isinstance(node, ast.Assign) else [node.target]:
+                if isinstance(target, ast.Name):
+                    names.add(target.id)
+                    if target.id == "_EXPORTS":
+                        names.update(ast.literal_eval(node.value))
+        elif isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, ast.Import):
+            names.update(a.asname or a.name.split(".")[0] for a in node.names)
+    return names
+
+
+def test_every_jax_module_and_name_has_a_counterpart():
+    jax_root, port_root = REPO / "tianshou_tpu", REPO / "tianshou_tpu_torch"
+    missing, checked = [], 0
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        if rel in SKIPPED_MODULES:
+            continue
+        port = port_root / MOVED_MODULES.get(rel, rel)
+        if not port.exists():
+            missing.append((rel, "<module>"))
+            continue
+        have = _bound_names(port)
+        for name in sorted(_public_names(path)):
+            checked += 1
+            if (rel, name) in NOT_PORTED:
+                continue
+            if RENAMED.get((rel, name), name) not in have:
+                missing.append((rel, name))
+    assert not missing, missing
+    assert checked > 350, checked
+    # every exception is still needed: the JAX name exists, the port's does
+    for (rel, name), new in RENAMED.items():
+        assert name in _public_names(jax_root / rel) and new in _bound_names(port_root / rel), (rel, name)
+    for rel, name in NOT_PORTED:
+        assert name in _public_names(jax_root / rel) and name not in _bound_names(port_root / rel)
+    for rel in SKIPPED_MODULES:
+        assert (jax_root / rel).exists() and not (port_root / rel).exists()
+    for rel, new in MOVED_MODULES.items():
+        assert (jax_root / rel).exists() and not (port_root / rel).exists() and (port_root / new).exists()
+
+
+@pytest.mark.parametrize("package", ["algos", "collect", "data", "envs", "networks", "trainer"])
+def test_package_names_resolve_like_jax(package):
+    """Each subpackage lists the JAX subpackage's names and resolves every
+    one to the object its module defines."""
+    import importlib
+
+    port = importlib.import_module(f"tianshou_tpu_torch.{package}")
+    ref = importlib.import_module(f"tianshou_tpu.{package}")
+    assert sorted(RENAMED.get((f"{package}/__init__.py", n), n) for n in ref.__all__) == sorted(port.__all__)
+    for name in port.__all__:
+        obj = getattr(port, name)
+        assert getattr(importlib.import_module(obj.__module__), name) is obj, name
+    with pytest.raises(AttributeError):
+        port.no_such_name  # noqa: B018
 
 
 # -- (e) the paths of slice 2 -------------------------------------------------

@@ -9,4 +9,8 @@ hand-written CUDA kernel (``csrc/gather_rows_cast.cu``), built with ``nvcc``
 at first use (``ops/_build.py``).
 """
 
-__all__: list[str] = []
+__version__ = "0.1.0"
+
+from tianshou_tpu_torch.data.batch import Batch  # noqa: E402
+
+__all__ = ["Batch", "__version__"]

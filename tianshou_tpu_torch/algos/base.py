@@ -29,8 +29,10 @@ over which every optimizer step averages its gradients
 made per batch row (SAC's and TD3's action noise, IQN's fractions) is drawn
 for the whole global batch from the generator every rank holds in lockstep,
 and each rank takes its own rows (:meth:`Algorithm.draw_rows`), so that two
-ranks compute what one process computes on the concatenated batch.  Alone,
-both are ``None`` and cost nothing.  :meth:`Algorithm.priority_scores`
+ranks compute what one process computes on the concatenated batch.  On a
+``dp x ep`` mesh both come from the rank's ``dp`` group (the ranks that
+hold the same critics, ``parallel/mesh.py``).  Alone, both are ``None``
+and cost nothing.  :meth:`Algorithm.priority_scores`
 recomputes the PER priority an update writes back.
 """
 

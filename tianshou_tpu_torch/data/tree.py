@@ -11,6 +11,8 @@ from typing import Any
 
 import torch
 
+from tianshou_tpu_torch.data.batch import Batch
+
 __all__ = [
     "tree_map",
     "tree_leaves",
@@ -27,6 +29,8 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     (``Batch`` and other dicts, tuples, named tuples, lists).  With ``rest``,
     ``fn`` takes the matching leaves of every tree, which share ``tree``'s
     structure."""
+    if isinstance(tree, Batch):  # rebuilt unparsed: ``fn`` may return any leaf
+        return Batch.from_items((k, tree_map(fn, v, *(r[k] for r in rest))) for k, v in tree.items())
     if isinstance(tree, dict):
         return type(tree)((k, tree_map(fn, v, *(r[k] for r in rest))) for k, v in tree.items())
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):

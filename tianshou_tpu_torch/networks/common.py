@@ -14,10 +14,37 @@ forward, output included, stays in float64.
 :class:`EnsembleMLP` holds K MLPs as one module: each layer is a ``[K, in,
 out]`` weight and a ``[K, out]`` bias, and a forward is one batched product
 per layer (``baddbmm``), not K separate MLPs.  Its first layer's input is
-shared by the K members, so it broadcasts without a copy.  Each member
-draws its own init, as ``nn.vmap``'s ``split_rngs`` gives.
+shared by the K members, so it is expanded without a copy.  A scalar head
+(a critic's) is a product and a sum over the hidden units, not a batched
+product with one output column.  Every layer so computes a member the same
+way whatever the number of members a product holds (on the H100, cuBLAS
+picks its one-column kernel, and the weight gradient's kernel of a
+broadcast first layer, by the number of members), so a sharded ensemble's
+members equal the unsharded ensemble's bitwise.  Each member draws its own
+init, as ``nn.vmap``'s ``split_rngs`` gives.
 :class:`QNetEnsemble` (DiscreteSAC's critics), the branch heads of
 :class:`BranchingQNet` (BDQ) and ``CriticEnsemble`` are built on it.
+
+Ensemble parallelism (the JAX package's ``"ep"`` mesh axis): after
+:meth:`EnsembleMLP.shard_` over a process group of ``ep`` ranks, a rank
+holds its ``K / ep`` members (rank r members ``[r K/ep, (r+1) K/ep)``) and
+its forward is the Megatron-style pair of operators around them.  At the
+input, identity forward and an ``all_reduce`` (sum) of the input's gradient
+backward: the input is the same on every rank, and each rank's backward
+computes only its own members' share of it.  At the output, the ranks'
+``[K/ep, B, out]`` are gathered into the full ``[K, B, out]`` forward (a
+zero-filled buffer, each rank's members written in, one ``all_reduce`` of
+its bytes: bitwise, on gloo's CUDA tensors too), and backward takes the
+rank's own members' slice of the incoming gradient, with no communication.
+Every rank then computes the same loss from the full output, so the
+algorithms see ``[K, B, out]`` and need no change.
+(``torch.distributed.nn.functional.all_gather`` would sum the gradient
+over the ranks in its backward: ``ep`` times the members' gradients when
+every rank computes the same loss.)  :meth:`EnsembleMLP.reset_parameters`
+draws all K members from the generator and keeps the rank's, so a sharded
+ensemble starts equal to the unsharded one.  :func:`full_state_dict`
+gathers a module's sharded ensembles, :func:`load_full_state_dict` loads a
+full state dict into a sharded module.
 
 :class:`RecurrentQNet` (DRQN) is a dense layer, an LSTM cell and a dense
 head.  Its cell is Flax's ``OptimizedLSTMCell`` written out: the input
@@ -33,12 +60,14 @@ import math
 from collections.abc import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from tianshou_tpu_torch.networks.conv import _lecun_normal_
 
-__all__ = ["MLP", "QNet", "QNetEnsemble", "DuelingQNet", "RecurrentQNet", "EnsembleMLP", "BranchingQNet"]
+__all__ = ["MLP", "QNet", "QNetEnsemble", "DuelingQNet", "RecurrentQNet", "EnsembleMLP", "BranchingQNet",
+           "EnsembleShard", "full_state_dict", "load_full_state_dict", "sharded_members"]
 
 
 def _flat_dim(input_shape: int | Sequence[int]) -> int:
@@ -147,9 +176,66 @@ class DuelingQNet(nn.Module):
         return v + a - a.mean(dim=-1, keepdim=True)
 
 
+class EnsembleShard:
+    """An ensemble's place on the ``ep`` axis: the process ``group``, this
+    rank's index in it and its size.  Copies of a sharded module (targets,
+    templates) share it: the group is not copied."""
+
+    def __init__(self, group, rank: int, size: int):
+        self.group, self.rank, self.size = group, rank, size
+
+    def __deepcopy__(self, memo):
+        return self
+
+    def members(self, ensemble_size: int) -> slice:
+        """This rank's members of an ensemble of ``ensemble_size``."""
+        k = ensemble_size // self.size
+        return slice(self.rank * k, (self.rank + 1) * k)
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``[K/ep, ...]`` members joined into ``[K, ...]``: a
+        zero-filled buffer with this rank's members written in, summed over
+        the group as bytes (exactly one rank writes each byte)."""
+        full = local.new_zeros((local.shape[0] * self.size,) + tuple(local.shape[1:]))
+        full[self.members(full.shape[0])] = local
+        dist.all_reduce(full.view(torch.uint8), group=self.group)
+        return full
+
+
+class _ToEnsembleShards(torch.autograd.Function):
+    """Identity forward; backward sums the input's gradient over the ``ep``
+    group (each rank computed its own members' share)."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.shard.group)
+        return grad, None
+
+
+class _FromEnsembleShards(torch.autograd.Function):
+    """Gathers the members forward; backward keeps this rank's members'
+    slice of the gradient (every rank computes the same loss)."""
+
+    @staticmethod
+    def forward(ctx, local, shard):
+        ctx.shard = shard
+        return shard.gather(local)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.shard.members(grad.shape[0])], None
+
+
 class EnsembleMLP(nn.Module):
     """K independent MLPs evaluated together: ``[B, ...] -> [K, B,
-    output_dim]``, the hidden layers with ReLU."""
+    output_dim]``, the hidden layers with ReLU.  Sharded (:meth:`shard_`),
+    it holds ``K / ep`` members and still returns all K."""
 
     def __init__(
         self,
@@ -162,6 +248,7 @@ class EnsembleMLP(nn.Module):
         super().__init__()
         self.ensemble_size = ensemble_size
         self.compute_dtype = compute_dtype
+        self.shard: EnsembleShard | None = None
         sizes = [_flat_dim(input_shape), *hidden_sizes, output_dim]
         self.weights = nn.ParameterList(
             [nn.Parameter(torch.empty(ensemble_size, i, o)) for i, o in zip(sizes[:-1], sizes[1:])])
@@ -172,25 +259,96 @@ class EnsembleMLP(nn.Module):
     def input_dtype(self) -> torch.dtype:
         return self.compute_dtype or torch.float32
 
+    def members(self) -> slice:
+        """The members this module holds, of the K."""
+        return slice(0, self.ensemble_size) if self.shard is None else self.shard.members(self.ensemble_size)
+
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """Every member's init in turn from ``generator``, all K of them
+        when sharded, of which this rank keeps its own."""
         last = len(self.weights) - 1
         with torch.no_grad():
             for i, (w, b) in enumerate(zip(self.weights, self.biases)):
+                full = w if self.shard is None else w.new_empty((self.ensemble_size,) + tuple(w.shape[1:]))
                 for k in range(self.ensemble_size):
-                    nn.init.orthogonal_(w[k], gain=1.0 if i == last else math.sqrt(2.0), generator=generator)
+                    nn.init.orthogonal_(full[k], gain=1.0 if i == last else math.sqrt(2.0), generator=generator)
+                if full is not w:
+                    w.copy_(full[self.members()])
                 nn.init.zeros_(b)
+
+    def shard_(self, group, optimizers: Sequence[torch.optim.Optimizer] = ()) -> EnsembleMLP:
+        """Keep this rank's ``K / ep`` members (``ep``: the size of the
+        process ``group``), in place: each parameter keeps its identity, so
+        ``optimizers`` that step it go on doing so, their per-parameter
+        state (Adam's moments) sliced alike.  Returns the module."""
+        if self.shard is not None:
+            raise ValueError("the ensemble is sharded already")
+        shard = EnsembleShard(group, dist.get_rank(group), dist.get_world_size(group))
+        if self.ensemble_size % shard.size:
+            raise ValueError(f"an ensemble of {self.ensemble_size} does not split over {shard.size} ranks")
+        keep = shard.members(self.ensemble_size)
+        with torch.no_grad():
+            for p in self.parameters():
+                for opt in optimizers:
+                    state = opt.state.get(p, {})
+                    for name, v in state.items():
+                        if isinstance(v, torch.Tensor) and v.dim() > 0 and v.shape == p.shape:
+                            state[name] = v[keep].clone()
+                p.data = p.data[keep].clone()
+        self.shard = shard
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.input_dtype
         x = x.reshape(x.shape[0], -1).to(dt)  # [B, in], shared by the K members
+        if self.shard is not None:
+            x = _ToEnsembleShards.apply(x, self.shard)
         last = len(self.weights) - 1
         for i, (w, b) in enumerate(zip(self.weights, self.biases)):
             w, b = w.to(dt), b.to(dt)[:, None, :]
-            # [B, in] @ [K, in, out] broadcasts to [K, B, out]
-            x = torch.matmul(x, w) + b if i == 0 else torch.baddbmm(b, x, w)
+            if i == 0:  # [B, in] expanded (a view) against [K, in, out]
+                x = torch.baddbmm(b, x.expand(w.shape[0], *x.shape), w)
+            elif i == last and w.shape[-1] == 1:  # a scalar head: a product and a sum over the hidden units
+                x = (x * w[:, None, :, 0]).sum(dim=-1, keepdim=True) + b
+            else:
+                x = torch.baddbmm(b, x, w)
             if i != last:
                 x = F.relu(x)
-        return x.to(torch.float32)
+        x = x.to(torch.float32)
+        return x if self.shard is None else _FromEnsembleShards.apply(x, self.shard)
+
+
+def _sharded_ensembles(module: nn.Module) -> dict[str, EnsembleMLP]:
+    return {name: m for name, m in module.named_modules() if isinstance(m, EnsembleMLP) and m.shard is not None}
+
+
+def full_state_dict(module: nn.Module) -> dict[str, torch.Tensor]:
+    """``module``'s state dict with every sharded ensemble's members
+    gathered (all K); every rank of each ensemble's group calls it."""
+    sd = module.state_dict()
+    for name, ens in _sharded_ensembles(module).items():
+        prefix = f"{name}." if name else ""
+        for k, v in ens.state_dict().items():
+            sd[prefix + k] = ens.shard.gather(v)
+    return sd
+
+
+def sharded_members(module: nn.Module) -> dict[str, slice]:
+    """The members each state dict entry of ``module``'s sharded ensembles
+    holds, by key."""
+    return {(f"{name}." if name else "") + k: ens.members()
+            for name, ens in _sharded_ensembles(module).items() for k in ens.state_dict()}
+
+
+def load_full_state_dict(module: nn.Module, state: dict[str, torch.Tensor]):
+    """Load a state dict of full ensembles (all K members, as an unsharded
+    module holds them) into ``module``: a sharded ensemble takes its own
+    members."""
+    state = dict(state)
+    for k, members in sharded_members(module).items():
+        if k in state:
+            state[k] = state[k][members]
+    return module.load_state_dict(state)
 
 
 class QNetEnsemble(EnsembleMLP):

@@ -69,6 +69,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from tianshou_tpu_torch.networks.common import load_full_state_dict
+
 __all__ = ["params_from_flax", "onpolicy_state_from_flax", "load_flax_params"]
 
 _ENCODERS = ("NatureCNN_0", "MinAtarCNN_0")
@@ -243,8 +245,9 @@ def _heads_of(module: torch.nn.Module) -> tuple[str, ...] | None:
 def load_flax_params(module: torch.nn.Module, flax_params: Mapping) -> torch.nn.Module:
     """``module`` with the Flax counterpart's parameters loaded (strict),
     the heads picked from its class: what the high-level factories build
-    takes no per-class argument."""
-    module.load_state_dict(params_from_flax(flax_params, heads=_heads_of(module)))
+    takes no per-class argument.  A sharded ensemble (``EnsembleMLP.shard_``)
+    takes its own members of the Flax ensemble."""
+    load_full_state_dict(module, params_from_flax(flax_params, heads=_heads_of(module)))
     return module
 
 

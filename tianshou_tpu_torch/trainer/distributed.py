@@ -34,6 +34,18 @@ still implement (a ``TypeError`` otherwise, as in the JAX package).  The
 metrics are averaged over a segment's updates on the device and over the
 ranks once a segment, when they are read.
 
+On a two-axis mesh (``parallel.mesh.make_mesh2``, ``("dp", "ep")``) the
+``axis_name`` axis (``"dp"``) sets the rows, the gradient average and the
+metrics, and the other axis (``"ep"``) shards every
+``EnsembleMLP`` of the train state after its initialisation: each ``ep``
+rank holds ``K / ep`` critics (``networks/common.py``).  The ``ep`` peers
+of a ``dp`` coordinate seed their env and replay streams from that
+coordinate, so they collect the same transitions, take the same rows and
+draw in lockstep (REDQ's subset included); their replicated parameters
+stay equal, and their losses, computed from the gathered ensemble, are
+equal too.  The JAX package gets this layout by placing a train state
+with ``shard_ensemble_axis`` and running the plain superstep on it.
+
 :class:`DistributedOnPolicyTrainer`: each rank records its segment
 (``Collector.collect(record_traj=True)``), the global env-major trajectory
 is assembled on every rank (:func:`gather_env_axis`) and every rank runs
@@ -69,6 +81,7 @@ from tianshou_tpu_torch.parallel.distributed import (
     process_index,
     rank_seed,
 )
+from tianshou_tpu_torch.parallel.mesh import shard_ensemble_modules
 from tianshou_tpu_torch.trainer.hooks import log_test, log_train
 from tianshou_tpu_torch.trainer.onpolicy import build_rollout_learn
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
@@ -103,7 +116,9 @@ class DistributedOffPolicyTrainer:
     module docstring).  ``train_collector``, ``test_collector`` and
     ``buffer`` are this rank's; ``batch_size`` and ``step_per_collect`` are
     global.  ``mesh`` (a ``DeviceMesh``) names the group, else the default
-    group is used; without a process group it trains as one process."""
+    group is used; without a process group it trains as one process.  On a
+    two-axis mesh, the axis that is not ``axis_name`` shards the
+    ensembles."""
 
     def __init__(
         self,
@@ -157,6 +172,8 @@ class DistributedOffPolicyTrainer:
         self.seed = seed
         self.mesh = mesh
         self.axis_name = axis_name
+        names = tuple(mesh.mesh_dim_names) if mesh is not None else (axis_name,)
+        self.ensemble_group = group_of(mesh, names[1 - names.index(axis_name)]) if len(names) == 2 else None
 
         self.group = group_of(mesh, axis_name)
         n_proc = process_count(self.group)
@@ -208,20 +225,23 @@ class DistributedOffPolicyTrainer:
         """``(ts, cstate, bstate, (learn, sample) generators, test
         generator)`` at the start of a run: the parameters from the lockstep
         generator, the envs reset and the replay sampled from this rank's
-        own streams."""
+        own streams (its ``dp`` coordinate's); the ensembles sharded over
+        the ensemble axis."""
         gen = make_generator(self.seed, self.device)
         g_init, g_test = fork_generator(gen), fork_generator(gen)
         local = make_generator(rank_seed(self.seed, process_index(self.group)), self.device)
         g_reset, g_sample = fork_generator(local), fork_generator(local)
         cstate = self.train_collector.reset(g_reset)
         ts = self.algo.init(g_init)
+        if self.ensemble_group is not None:
+            shard_ensemble_modules(ts, self.ensemble_group)
         bstate = self.buffer.init(self.train_collector.example_transition(ts, cstate), device=self.device)
         return ts, cstate, bstate, (gen, g_sample), g_test
 
     def run(self) -> InfoStats:
         t_start = time.time()
         self._check_priorities()
-        group, pid = self.group, process_index(self.group)
+        group, pid = self.group, process_index()
         n_proc = process_count(group)
         col = self.train_collector
         ts, cstate, bstate, generators, g_test = self.init_states()

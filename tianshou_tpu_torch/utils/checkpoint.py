@@ -17,6 +17,13 @@ storage and shares none with the template (the port updates the ring and
 the sum tree in place), while tensors that share storage in the template,
 and modules the template holds twice (a ``target`` that is the online
 network), are shared alike in the result.
+
+A state whose ensembles are sharded over an ``ep`` group
+(``EnsembleMLP.shard_``) is saved as each rank holds it, its members and
+their optimizer state; every rank saves its own file.  A module's full
+ensemble saved by an unsharded run restores into a sharded template too,
+each rank taking its members (``networks.common.full_state_dict`` gathers
+a sharded module's members for the opposite direction).
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import Any
 
 import torch
 from torch import nn
+
+from tianshou_tpu_torch.networks.common import sharded_members
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_checkpoint_step"]
 
@@ -135,9 +144,12 @@ class _Restorer:
             params = out.state_dict(keep_vars=True)
             if set(params) != set(desc["state"]):
                 raise ValueError(f"{what}: state dict keys differ: {sorted(set(params) ^ set(desc['state']))}")
+            members = sharded_members(out)
             with torch.no_grad():
                 for k, t in params.items():
                     leaf = self.leaves[desc["state"][k]["index"]]
+                    if k in members and leaf.dim() and leaf.shape[0] != t.shape[0]:
+                        leaf = leaf[members[k]]  # a full ensemble into a sharded one
                     _check(f"{what}.{k}", leaf, t)
                     t.copy_(leaf)
             return out

@@ -242,7 +242,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    for 3 segments after the warm-up, after which the ranks' parameters
    (replicated, and the critics gathered) are bitwise equal;
 7. ``Batch`` on the card: ``cat``, ``stack``, ``split``, index reads and
-   slice assignment on CUDA tensors equal the same calls on the CPU.
+   slice assignment on CUDA tensors equal the same calls on the CPU;
+8. examples (slice 13): the example scripts of ``tianshou_tpu_torch/examples/``
+   that the card's machine can run, each through its ``main()`` (``atari_dqn``
+   through ``build()``, to keep its ring) with the in-memory logger, at its
+   defaults cut only in run length (``EXAMPLE_RUNS``): ``atari_dqn
+   --fake-ale`` (``gather_rows_cast`` twice a training segment; a presample
+   of the trained ring through the kernel bitwise against the plain
+   version), ``dqn_cartpole`` and ``highlevel_dqn`` to their own stop (195
+   within their 10 epochs), ``dqn_minatar`` on the five games and with
+   ``--algo qrdqn``, ``sac_pendulum`` and ``ppo_classic`` with each
+   algorithm, ``cpp_pool_dqn`` and ``offline_d4rl_cql`` on a Pendulum
+   dataset written by ``make_d4rl_demo``; a line for each run (flags, wall
+   time, rate, best reward, launches, cuts) and one naming the gymnasium
+   scripts the card's machine cannot run.
 
 It then prints a ``paths`` JSON line, the ``kernels`` JSON line and, last,
 the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
@@ -3589,6 +3602,122 @@ def phase_batch_cuda() -> dict:
     return {"operations": sorted(ref)}
 
 
+# slice 13: the example scripts (tianshou_tpu_torch/examples/) that the card's
+# machine can run, each through its own main(): (module, flags, the cuts they
+# make).  A run is its script's defaults but for the cuts, which shorten it
+EXAMPLE_RUNS = (
+    [("atari_dqn", ["--fake-ale", "--max-epoch", "1", "--step-per-epoch", "2000"],
+      "max_epoch 100 -> 1, step_per_epoch 100,000 -> 2,000; the fake-ALE double for ALE"),
+     ("dqn_cartpole", [], "none: to its own stop"),
+     ("highlevel_dqn", [], "none: to its own stop")]
+    + [("dqn_minatar", [*flags, "--max-epoch", "1", "--step-per-epoch", "1024"],
+        "max_epoch 10 -> 1, step_per_epoch 100,000 -> 1,024")
+       for flags in (["--algo", "qrdqn"], *(["--game", game] for game in (
+           "breakout", "space_invaders", "freeway", "asterix", "seaquest")))]
+    + [("sac_pendulum", ["--algo", algo, "--max-epoch", "1", "--step-per-epoch", "600"],
+        "max_epoch 8 -> 1, step_per_epoch 6,000 -> 600") for algo in ("sac", "td3", "ddpg")]
+    + [("ppo_classic", ["--algo", algo, "--max-epoch", "1", "--step-per-epoch", "4096"],
+        "max_epoch 15 -> 1, step_per_epoch 30,000 -> 4,096") for algo in ("ppo", "a2c", "pg")]
+    + [("cpp_pool_dqn", ["--max-epoch", "1", "--step-per-epoch", "2000"],
+        "max_epoch 4 -> 1, step_per_epoch 10,000 -> 2,000"),
+       ("offline_d4rl_cql", ["{dataset}", "--task", "Pendulum-v1", "--max-epoch", "1", "--update-per-epoch", "200"],
+        "max_epoch 20 -> 1, update_per_epoch 1,000 -> 200; a 20,000-step random Pendulum dataset "
+        "(make_d4rl_demo) for D4RL's")]
+)
+# the scripts that need gymnasium with MuJoCo or Box2D, which the card's
+# machine lacks: they run in the CPU tests (tests/test_torch_examples_*.py)
+EXAMPLES_OFF_CARD = ("mujoco_sac", "mujoco_td3", "mujoco_ppo", "mujoco_a2c", "mujoco_reinforce", "mujoco_trpo",
+                     "box2d_dqn", "box2d_sac")
+# the reference's CartPole threshold, which dqn_cartpole and highlevel_dqn
+# must reach within their own 10 epochs
+CARTPOLE_THRESHOLD = 195.0
+
+
+def phase_examples(gather) -> tuple[dict, int]:
+    """The ported example scripts on the card, each through its ``main`` with
+    the in-memory logger: wall time, rate, best reward and the kernel's
+    launches over the run (counted from 0 just before it).  ``atari_dqn``
+    must launch ``gather_rows_cast`` twice a training segment (its
+    presample's two stacked keys), and a presample of its trained ring
+    through the kernel must equal the plain version's bitwise;
+    ``dqn_cartpole`` and ``highlevel_dqn`` must reach 195 within their 10
+    epochs.  Returns the rows and the launches of the runs."""
+    import importlib
+
+    from tianshou_tpu_torch.examples import make_d4rl_demo
+    from tianshou_tpu_torch.examples import run as run_example
+
+    dataset = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "pendulum_demo_20k.npz")
+    os.makedirs(os.path.dirname(dataset), exist_ok=True)
+    make_d4rl_demo.main([dataset, "--steps", "20000"])
+    log(f"examples the card's machine cannot run (no gymnasium, MuJoCo or Box2D there; the CPU tests run them): "
+        f"{', '.join(EXAMPLES_OFF_CARD)}")
+    rows, launches = [], 0
+    for name, flags, cuts in EXAMPLE_RUNS:
+        argv = [a.format(dataset=dataset) for a in flags]
+        module = importlib.import_module(f"tianshou_tpu_torch.examples.{name}")
+        gather.launches = 0
+        t0 = time.perf_counter()
+        if name == "atari_dqn":  # through build(), to keep the trainer and its ring
+            trainer, venvs = module.build(module.parser().parse_args(argv), memory_logger())
+            info, _ = run_example(trainer, venvs)
+        else:
+            info = module.main(argv, logger=memory_logger())
+        torch.cuda.synchronize()
+        wall, n = time.perf_counter() - t0, gather.launches
+        launches += n
+        offline = name == "offline_d4rl_cql"
+        row = dict(script=name, argv=argv, wall_s=wall, best_reward=info.best_reward, epochs=info.epoch,
+                   env_steps=info.env_step, gradient_steps=info.gradient_step,
+                   rate=(info.gradient_step if offline else info.env_step) / wall,
+                   rate_unit="gradient steps/s" if offline else "env steps/s", launches=n, cuts=cuts)
+        if not math.isfinite(info.best_reward) or info.gradient_step <= 0:
+            raise AssertionError(f"examples {name} {argv}: {info}")
+        if name == "atari_dqn":
+            segments = info.gradient_step // trainer.updates_per_segment
+            if segments <= 0 or n != 2 * segments:
+                raise AssertionError(f"atari_dqn: gather_rows_cast launched {n} times over {segments} segments, "
+                                     "not 2 a segment")
+            row["segments"], row["presample_rows_bitwise"] = segments, _examples_atari_presample(trainer, gather)
+        elif n:
+            raise AssertionError(f"examples {name}: gather_rows_cast launched {n} times")
+        if name in ("dqn_cartpole", "highlevel_dqn") and not (
+                info.best_reward >= CARTPOLE_THRESHOLD and info.epoch <= 10):
+            raise AssertionError(f"examples {name}: best reward {info.best_reward} in {info.epoch} epochs, "
+                                 f"not {CARTPOLE_THRESHOLD} within 10")
+        rows.append(row)
+        log(f"examples {name} {' '.join(argv)}: wall {wall:.2f} s, {row['rate']:.1f} {row['rate_unit']}, "
+            f"best reward {info.best_reward:.2f} in {info.epoch} epochs ({info.env_step} env steps, "
+            f"{info.gradient_step} gradient steps), gather_rows_cast launches {n}; cuts: {cuts}")
+    return {"runs": rows}, launches
+
+
+def _examples_atari_presample(trainer, gather) -> int:
+    """A presample of ``atari_dqn``'s trained ring (its ``updates x batch``
+    frame stacks, ``obs`` and ``obs_next``) through the kernel, held bitwise
+    against the plain version (the uint8 stacks cast to bf16) on the card;
+    the rows gathered."""
+    from tianshou_tpu_torch.utils.device import make_generator
+
+    buffer, bstate = trainer.buffer, trainer.buffer_state
+    env_idx, pos = buffer.sample_indices(bstate, make_generator(7, trainer.device),
+                                         trainer.updates_per_segment * trainer.batch_size)
+    keys = ("obs", "obs_next")
+    before = gather.launches
+    kernel = buffer.get(bstate, env_idx, pos, keys=keys, dtypes=dict.fromkeys(keys, torch.bfloat16))
+    if gather.launches - before != 2:
+        raise AssertionError(f"atari_dqn presample: {gather.launches - before} kernel launches for 2 keys")
+    plain = buffer.get(bstate, env_idx, pos, keys=keys)
+    for k in keys:
+        if kernel[k].dtype != torch.bfloat16 or not torch.equal(
+                kernel[k].view(torch.int16), plain[k].to(torch.bfloat16).view(torch.int16)):
+            raise AssertionError(f"atari_dqn presample {k!r}: the kernel's bf16 stacks differ from the plain version's")
+    rows = sum(kernel[k].shape[0] * kernel[k].shape[1] for k in keys)  # [batch, stack, 84, 84] a key
+    log(f"atari_dqn presample of the trained ring: {tuple(kernel['obs'].shape)} bf16 stacks a key, "
+        f"{rows} rows of {kernel['obs'].shape[-1] * kernel['obs'].shape[-2]} bytes, bitwise equal to the plain version")
+    return rows
+
+
 def _flat_items(b, prefix: str = ""):
     for k in sorted(b):
         v = b[k]
@@ -3654,6 +3783,11 @@ def main() -> int:
     torch.distributed.destroy_process_group()
     results["gloo_two_ranks"] = phase_gloo_ranks()
     results["batch_cuda"] = phase_batch_cuda()
+    # slice 13: the example scripts
+    t_path = time.perf_counter()
+    results["examples"], n = phase_examples(gather_rows_cast)
+    launches += n
+    results["examples"]["phase_s"] = time.perf_counter() - t_path
     kernel["launches"] = launches
     stored, dedup = results["atari"], results["atari_dedup"]
     log("atari memory regime: frames stored once (atari_dedup) beside stored stacks (atari): "

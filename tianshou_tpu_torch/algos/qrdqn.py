@@ -60,14 +60,12 @@ def quantile_huber_loss(
 
 
 class RMSprop(torch.optim.Optimizer):
-    """``optax.rmsprop(lr)``: ``nu = 0.9 * nu + 0.1 * g**2`` from ``nu = 0``,
-    then ``p -= lr * g / sqrt(nu + 1e-8)``, the epsilon inside the root
-    (``torch.optim.RMSprop`` adds it outside, with decay 0.99)."""
+    """``optax.rmsprop(lr, decay, eps)``: ``nu = decay * nu + (1 - decay) *
+    g**2`` from ``nu = 0``, then ``p -= lr * g / sqrt(nu + eps)``, the
+    epsilon inside the root (``torch.optim.RMSprop`` adds it outside)."""
 
-    DECAY, EPS = 0.9, 1e-8
-
-    def __init__(self, params, lr: float):
-        super().__init__(params, dict(lr=lr))
+    def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -79,8 +77,8 @@ class RMSprop(torch.optim.Optimizer):
                 if not state:
                     state["nu"] = torch.zeros_like(p)
                 nu = state["nu"]
-                nu.mul_(self.DECAY).addcmul_(p.grad, p.grad, value=1.0 - self.DECAY)
-                p.add_(p.grad * torch.rsqrt(nu + self.EPS), alpha=-group["lr"])
+                nu.mul_(group["decay"]).addcmul_(p.grad, p.grad, value=1.0 - group["decay"])
+                p.add_(p.grad * torch.rsqrt(nu + group["eps"]), alpha=-group["lr"])
 
 
 class QRDQN(DQN):

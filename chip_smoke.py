@@ -58,7 +58,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and ICM around DQN; GAIL's discriminator steps and reward rewrite; one
    PSRL learn with the same Dirichlet draw; ``sample_her`` and one DDPG
    update from a HER presample;
-5. paths, each at full width: 1 warm-up and 3 timed supersteps, one more
+5. paths, each at full width: 1 warm-up and 2 timed supersteps, one more
    superstep in which a host synchronisation raises, one under the profiler
    (device kernels and busy time), where the time of a superstep goes,
    then the trainer's ``run()`` for one epoch of two supersteps with a test
@@ -205,6 +205,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``MultiAgentPolicyManager`` on 16 on-device ``TicTacToe`` envs, 10
      steps a env and 16 updates of batch 128 (each agent samples its own),
      epsilon 0.2, 2,000 warm-up steps.
+   On each path whose superstep ``OffPolicyTrainer.run()`` launches as CUDA
+   graphs (``GRAPH_PATHS``, slice 14: the on-device off-policy paths) the
+   graph phase follows (``phase_graph``): ``_compile_superstep``'s first
+   calls from the path's initial state, each branch pattern's first call an
+   eager superstep (the capture's warm-up) and then its capture (their
+   times, the graphs: TD3's one, REDQ's four, the peak memory); from copies
+   of the state they leave, two eager supersteps (``_build_superstep``,
+   optimizers made capturable as the graph's are) against two replays,
+   bitwise in every carried tensor, the generators' states, ``outputs`` and
+   ``metrics``, the second replay's draws not the first's; ms a superstep
+   in turns (eager, graph, graph, eager); one eager superstep and one
+   replay profiled (kernels, busy time, the host's launch calls: one graph
+   launch and a few fills a replay; ``gather_rows_cast``'s device launches
+   in the replay); one replay under the sync guard; peak memory a replay;
+   the bytes of carried state copied back a superstep, the ring's storage
+   unmoved.  In the main run every superstep must be a pattern's warm-up or
+   a replay, and at least one a replay; the kernel's launches there are
+   the wrapper's count (the launches from the host: the warm-ups') and the
+   profiler's device records over the run (every superstep's).  On
+   ``hl_atari`` the trained state also goes through a checkpoint, and a
+   superstep compiled over the restored state replays bitwise equal to
+   eager supersteps from it.
    Last, ``sac_host``'s configuration through the host path's variants, in
    turns with plain ``sac_host``: a ``RemoteVectorEnv`` over an env farm
    subprocess on 127.0.0.1 (killed at the end), ``AsyncHostCollector``
@@ -216,7 +238,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    presampling its own 512 rows, 52 ``gather_rows_cast`` launches a
    segment; ``dist_rainbow_per`` the same trainer on ``rainbow_per``'s
    prioritized ring; ``dist_ppo_cartpole`` ``DistributedOnPolicyTrainer`` at
-   ``ppo_cartpole``'s): 1 warm-up and 3 timed segments, segments in turns
+   ``ppo_cartpole``'s): 1 warm-up and 2 timed segments, segments in turns
    with the plain trainer's, one profiled (device kernels, busy time, NCCL
    kernels), the all-reduces of a segment (calls, bytes), the per-update
    presample and gradient all-reduce alone, then ``run()`` for one epoch of
@@ -264,7 +286,9 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -313,8 +337,11 @@ PATHS = {
     "qrdqn_minatar": dict(num_envs=32, segment=4, batch=64, updates=32, capacity=100_000 // 32, warmup=5000,
                           update_per_step=0.25),
     # the rest of the off-policy families
+    # run() for 5 supersteps: its actor delay cycles through 4 branch
+    # patterns, each first met by a capture's eager warm-up, so the fifth
+    # is the first replay
     "redq_pendulum": dict(num_envs=10, segment=10, batch=256, updates=25, capacity=2000, warmup=1000,
-                          update_per_step=0.25),
+                          update_per_step=0.25, main_supersteps=5),
     "discrete_sac_cartpole": dict(num_envs=10, segment=10, batch=64, updates=10, capacity=2000, warmup=1000,
                                   update_per_step=0.1),
     "bdq_pendulum": dict(num_envs=10, segment=10, batch=128, updates=10, capacity=2000, warmup=1000,
@@ -407,12 +434,20 @@ GLOO_RANK_TIMEOUT = 300
 # one sharded update held against the one-process update (the JAX test's
 # limits), then run() for 3 segments after the path's warm-up
 REDQ_EP = dict(base="redq_pendulum", ranks=2, ep=2, segments=3, loss_rtol=1e-5, param_rtol=2e-5, param_atol=1e-6)
+# slice 14: the paths whose superstep OffPolicyTrainer.run() launches as CUDA
+# graphs (_compile_superstep), each held bitwise against the eager superstep
+# (phase_graph), and the supersteps of each turn of its timing
+GRAPH_PATHS = ("atari", "atari_dedup", "hl_atari", "cartpole", "hl_cartpole", *MINATAR_GAMES, "qrdqn_minatar",
+               "sac_pendulum", "td3_pendulum", "redq_pendulum", "rainbow_per", "discrete_sac_cartpole",
+               "bdq_pendulum", "drqn_cartpole", "icm_cartpole", "marl_tictactoe")
+GRAPH_TURN = 1
 # short spin kernels that open a profiled window after the long one (see
 # _device_records)
 PROFILE_PADDING = 64
 # timed supersteps (segments) of every path, after WARMUP untimed ones; cut
-# from 5 after 2 so that the twenty paths run in about the time sixteen took
-TIMED, WARMUP = 3, 1
+# from 5 to 3 so that twenty paths ran in about the time sixteen took, and to
+# 2 so that the graph phase fits in the script's time
+TIMED, WARMUP = 2, 1
 # the MuJoCo PPO example's learning-rate decay runs to zero over every
 # minibatch update of its default run: 100 epochs x 5 segments x 10 passes x
 # 32 minibatches (examples/mujoco_ppo.py)
@@ -949,7 +984,8 @@ def build_path(path: str, device, test_envs: int = 8, pipeline: bool = False, fu
         episodes = test_envs
     steps = num_envs * segment
     trainer = OffPolicyTrainer(
-        algo, train, test, buffer, max_epoch=1, step_per_epoch=2 * steps, step_per_collect=steps,
+        algo, train, test, buffer, max_epoch=1, step_per_epoch=cfg.get("main_supersteps", 2) * steps,
+        step_per_collect=steps,
         update_per_step=cfg.get("update_per_step", updates / steps), batch_size=batch, episode_per_test=episodes, device=device,
         # the DQN family explores with epsilon 0.1 (Rainbow through its
         # weight noise, ignoring it); TD3 takes its default, its own
@@ -1209,7 +1245,7 @@ def superstep_of(trainer, state: list, generator):
 
 
 def phase_superstep(path: str, gather) -> dict:
-    """An on-device path at full width: 1 warm-up and 3 timed supersteps,
+    """An on-device path at full width: 1 warm-up and 2 timed supersteps,
     one under the sync guard, one under the profiler (device kernels and
     busy time), and the breakdown: the rollout, then the presample and the
     updates (off-policy) or one processing pass and the learning (on-policy:
@@ -1236,8 +1272,9 @@ def phase_superstep(path: str, gather) -> dict:
     sync_guarded(step)
     check_policy(path, algo, state[0], state[1].obs, gen, env, state[1].policy_state)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    kernels, busy_ms = _profile_counts(step)
-    result = {"env_steps_per_s": n * steps / dt, "ms_per_superstep": dt / n * 1e3, **metrics,
+    profile = _profile(step)
+    kernels, busy_ms = profile["kernels"], profile["busy_ms"]
+    result = {"env_steps_per_s": n * steps / dt, "ms_per_superstep": dt / n * 1e3, **metrics, "profile": profile,
               "updates_per_superstep": cfg["updates"], "gather_rows_cast_per_superstep": launches / (n + WARMUP),
               "device_kernels_per_superstep": kernels, "device_busy_ms_per_superstep_profiled": busy_ms,
               "max_memory_allocated_gib": peak}
@@ -1327,6 +1364,226 @@ def phase_superstep(path: str, gather) -> dict:
     return result
 
 
+def _clone_run_state(ts, cstate, bstate, generator) -> list:
+    """``[ts, cstate, bstate, generator]`` copied, sharing no tensor or
+    generator with the originals (the generators in the states they
+    hold)."""
+    memo = {}
+    for g in (generator, cstate.rng):
+        c = torch.Generator(device=g.device)
+        c.set_state(g.get_state())
+        memo[id(g)] = c
+    return [*copy.deepcopy((ts, cstate, bstate), memo), memo[id(generator)]]
+
+
+def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` hold the same bits (NaNs included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = (t.detach().reshape(-1).contiguous() for t in (a, b))
+    return bool(torch.equal(a.view(torch.uint8), b.view(torch.uint8))) if a.numel() else True
+
+
+def _run_leaves(state: list, outputs=None, metrics=None) -> list[tuple[str, torch.Tensor]]:
+    """The named tensors of a run state ``[ts, cstate, bstate, generator]``
+    (its generators' states included) and of a superstep's outputs and
+    metrics."""
+    from tianshou_tpu_torch.data.tree import tree_leaves
+    from tianshou_tpu_torch.utils.graphs import named_tensors
+
+    leaves = named_tensors(tuple(state[:3]))
+    leaves += [("generator", state[3].get_state()), ("collect rng", state[1].rng.get_state())]
+    if outputs is not None:
+        leaves += [(f"outputs[{i}]", t) for i, t in enumerate(tree_leaves(outputs))]
+        leaves += [(f"metrics[{k!r}]", v) for k, v in metrics.items()]
+    return leaves
+
+
+def _differing(a: list, b: list) -> list[str]:
+    if [n for n, _ in a] != [n for n, _ in b]:
+        raise AssertionError(f"leaf names differ: {sorted(set(n for n, _ in a) ^ set(n for n, _ in b))[:8]}")
+    return [n for (n, x), (_, y) in zip(a, b) if not _bitwise(x, y)]
+
+
+def _pattern_count(algo, ts, updates: int, supersteps: int = 64) -> int:
+    """The branch patterns (``Algorithm.update_pattern``) that ``supersteps``
+    supersteps from ``ts`` meet, from its host update counts alone."""
+    from tianshou_tpu_torch.utils.graphs import step_counters
+
+    counters = step_counters(ts)
+    saved = [c.step for c in counters]
+    keys = set()
+    try:
+        for _ in range(supersteps):
+            keys.add(algo.update_pattern(ts, updates))
+            for c in counters:
+                c.step += updates
+    finally:
+        for c, s0 in zip(counters, saved):
+            c.step = s0
+    return len(keys)
+
+
+def phase_graph(path: str, gather, eager_profile: dict) -> dict:
+    """The compiled superstep (``OffPolicyTrainer._compile_superstep``: CUDA
+    graphs of the eager superstep) at full width.  First its warm-ups:
+    calls from the path's initial state until every branch pattern that the
+    later calls meet is captured, each pattern's first call an eager
+    superstep followed by its capture (their times, the graphs, the peak
+    memory, the kernel's host launches).  Then, from copies of that state,
+    two eager supersteps (``_build_superstep``, its optimizers made
+    capturable as the capture made the graph's) against two replays,
+    bitwise: every carried tensor (parameters, optimizer state, targets,
+    ring, cursors, collect state), the generators' states, ``outputs`` and
+    ``metrics`` of each superstep; ms a superstep in turns (eager, graph,
+    graph, eager); one replay and one eager superstep under the profiler
+    (the card's kernels and busy time, the host's launch calls, the
+    kernel's device launches in the replay), beside ``eager_profile``
+    (``phase_superstep``'s, whose Adam is not capturable); one replay under
+    the sync guard; peak memory; the bytes of carried state copied back a
+    superstep, the ring's storage unmoved.  A leaf that is not bitwise is
+    held to phase 4's limits and named in the result (with whether two
+    eager runs agree on it)."""
+    from tianshou_tpu_torch.data.tree import tree_leaves
+    from tianshou_tpu_torch.utils.graphs import CapturedStep
+
+    _fresh_memory()
+    _, algo, col, buffer, trainer = build(path)
+    gen, ts, cstate, bstate = init_states(algo, col, buffer)
+    graph_state = [ts, cstate, bstate, gen]
+    explore = torch.full((), 0.1, device="cuda")
+    eager_fn = trainer._build_superstep()
+    compiled = trainer._compile_superstep(*graph_state[:3])
+    if not isinstance(compiled, CapturedStep):
+        raise AssertionError(f"{path}: _compile_superstep gave a {type(compiled).__name__}")
+
+    def eager_step(state):
+        state[0], state[1], state[2], outputs, metrics = eager_fn(*state[:3], state[3], explore)
+        return outputs, metrics
+
+    def graph_step(state):
+        state[0], state[1], state[2], outputs, metrics = compiled(*state[:3], state[3], explore)
+        return outputs, metrics
+
+    storage = [t.data_ptr() for t in tree_leaves(graph_state[2].storage)]
+    patterns = _pattern_count(algo, graph_state[0], trainer.updates_per_segment)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gather.launches = 0
+    calls = 0
+    t0 = time.perf_counter()
+    while len(compiled.graphs) < patterns and calls < 64:
+        graph_step(graph_state)
+        calls += 1
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    capture_peak = torch.cuda.max_memory_allocated() / 2**30
+    warm_launches = gather.launches
+    if len(compiled.graphs) != patterns:
+        raise AssertionError(f"{path}: {len(compiled.graphs)} graphs captured in {calls} calls, {patterns} patterns")
+    if warm_launches != KERNEL_LAUNCHES[path] * patterns:
+        raise AssertionError(f"{path}: gather_rows_cast launched {warm_launches} times from the host in "
+                             f"{patterns} warm-up supersteps")
+    eager_state, spare = (_clone_run_state(*graph_state) for _ in range(2))
+    # two supersteps each, from the same state
+    snaps: dict[str, list] = {"eager": [], "graph": []}
+    launches, replays = {}, sum(g.replays for g in compiled.graphs.values())
+    for name, state, step in (("eager", eager_state, eager_step), ("graph", graph_state, graph_step)):
+        gather.launches = 0
+        for _ in range(2):
+            outputs, metrics = step(state)
+            # detached: a clone that kept an autograd edge to a parameter
+            # would keep its gradient accumulator, made on this stream, alive
+            # into the next capture
+            snaps[name].append([(n, t.detach().clone()) for n, t in _run_leaves(state, outputs, metrics)
+                                if not n.startswith("state[2].storage")])
+        launches[name] = gather.launches
+    if sum(g.replays for g in compiled.graphs.values()) != replays + 2 or len(compiled.graphs) != patterns:
+        raise AssertionError(f"{path}: the two compared graph supersteps were not both replays")
+    # a replay launches the kernel on the card, not from the host
+    if launches["graph"] != 0 or launches["eager"] != 2 * KERNEL_LAUNCHES[path]:
+        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times from the host in two supersteps")
+    differ = sorted(set(_differing(snaps["eager"][0], snaps["graph"][0])
+                        + _differing(snaps["eager"][1], snaps["graph"][1])
+                        + _differing(_run_leaves(eager_state), _run_leaves(graph_state))))
+    # the generators advance across replays: the second superstep drew
+    # other numbers than the first, as the eager second superstep did
+    gens = [dict(s)["generator"] for s in snaps["graph"]] + [dict(s)["collect rng"] for s in snaps["graph"]]
+    if torch.equal(gens[0], gens[1]) or torch.equal(gens[2], gens[3]):
+        raise AssertionError(f"{path}: a generator did not advance between two replays")
+    not_bitwise = {}
+    if differ:
+        # two eager runs from the same state: the ops whose results vary alone
+        for _ in range(2):
+            eager_step(spare)
+        eager_varies = set(_differing(_run_leaves(eager_state), _run_leaves(spare)))
+        # each superstep's leaves, outputs and metrics included, and the state left
+        pairs = [(dict(snaps["graph"][i]), dict(snaps["eager"][i])) for i in range(2)]
+        pairs.append((dict(_run_leaves(graph_state)), dict(_run_leaves(eager_state))))
+        for n in differ:
+            errs = []
+            for got, ref in pairs:
+                if n not in got or _bitwise(got[n], ref[n]):
+                    continue
+                if not got[n].is_floating_point():
+                    raise AssertionError(f"{path}: graph and eager supersteps differ at {n}")
+                errs.append(_assert_close(f"{path} graph vs eager {n}", got[n], ref[n]))
+            not_bitwise[n] = {"max_abs_err": max(errs), "eager_runs_differ": n in eager_varies}
+        log(f"{path}: graph vs eager not bitwise at {len(differ)} leaves, within phase 4's limits: {not_bitwise}")
+    del spare, snaps
+    ms = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        state, step = (eager_state, eager_step) if name == "eager" else (graph_state, graph_step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_TURN):
+            metrics = step(state)[1]
+        _read(metrics)
+        ms[name].append((time.perf_counter() - t0) / GRAPH_TURN * 1e3)
+    profiled = {"eager": eager_profile, "eager_capturable": _profile(lambda: eager_step(eager_state)),
+                "graph": _profile(lambda: graph_step(graph_state))}
+    if len(profiled["graph"]["gather_rows_cast_ms"]) != KERNEL_LAUNCHES[path]:
+        raise AssertionError(f"{path}: a profiled replay ran gather_rows_cast "
+                             f"{len(profiled['graph']['gather_rows_cast_ms'])} times, not {KERNEL_LAUNCHES[path]}")
+    sync_guarded(lambda: graph_step(graph_state))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    graph_step(graph_state)
+    torch.cuda.synchronize()
+    replay_peak = torch.cuda.max_memory_allocated() / 2**30
+    if [t.data_ptr() for t in tree_leaves(graph_state[2].storage)] != storage:
+        raise AssertionError(f"{path}: the ring's storage moved")
+    if profiled["graph"]["host_launch_calls"].get("cudaGraphLaunch", 0) + profiled["graph"]["host_launch_calls"].get(
+            "cuGraphLaunch", 0) != 1 or profiled["graph"]["host_launches"] > 8:
+        raise AssertionError(f"{path}: a replayed superstep's host launches {profiled['graph']}")
+    busy = {k: profiled[k]["busy_ms"] / (sum(ms[m]) / len(ms[m]))
+            for k, m in (("eager_capturable", "eager"), ("graph", "graph"))}
+    result = {"warm_up_calls": calls, "warm_up_and_capture_s": warm_s, "warm_ups_s": compiled.warm_up_s,
+              "captures_s": compiled.capture_s, "graphs": len(compiled.graphs), "patterns": patterns,
+              "warm_up_gather_launches": warm_launches, "bitwise": not differ, "not_bitwise": not_bitwise,
+              "ms_per_superstep_turns": ms, "profiled": profiled, "device_busy_share": busy,
+              "capture_peak_gib": capture_peak, "replay_peak_gib": replay_peak,
+              "copy_back_bytes": compiled.copy_back_bytes,
+              "gather_rows_cast_per_replay_profiled": len(profiled["graph"]["gather_rows_cast_ms"])}
+    log(f"{path} graph: {len(compiled.graphs)} graph(s) for {patterns} pattern(s) in {calls} call(s), "
+        f"{warm_s:.2f} s (warm-up supersteps {compiled.warm_up_s:.2f} s, captures {compiled.capture_s:.2f} s); two "
+        f"replays vs two eager supersteps {'bitwise' if not differ else 'within limits'}; ms a superstep in turns "
+        f"eager {[round(x, 2) for x in ms['eager']]} graph {[round(x, 2) for x in ms['graph']]}; profiled: eager "
+        f"(phase 5) {profiled['eager']['kernels']} records / {profiled['eager']['host_launches']} host launches, "
+        f"eager with capturable optimizers {profiled['eager_capturable']['kernels']} records "
+        f"({profiled['eager_capturable']['memsets']} memsets) / {profiled['eager_capturable']['host_launches']}, "
+        f"graph {profiled['graph']['kernels']} records ({profiled['graph']['memsets']} memsets) / "
+        f"{profiled['graph']['host_launches']} host launches {profiled['graph']['host_launch_calls']}; busy share "
+        f"eager {busy['eager_capturable']:.3f} graph {busy['graph']:.3f}; peak {capture_peak:.3f} GiB over the "
+        f"warm-ups and captures, {replay_peak:.3f} GiB a replay; {compiled.copy_back_bytes} bytes copied back a "
+        f"superstep; gather_rows_cast {warm_launches} host launches in the warm-ups, "
+        f"{len(profiled['graph']['gather_rows_cast_ms'])} device launches in a profiled replay; a replay under the "
+        f"sync guard raised nothing")
+    del compiled, eager_state, graph_state
+    _fresh_memory()
+    return result
+
+
 def check_policy(path: str, algo, ts, obs, gen, env, policy_state=()) -> None:
     """The trained policy's outputs on the last observations: finite
     Q-values of the right shape (the DQN family over ``Discrete`` actions);
@@ -1410,7 +1667,7 @@ class _OnPolicyHost:
 
 
 def phase_host(path: str, gather) -> dict:
-    """A host-env path at full width: 1 warm-up and 3 timed segments
+    """A host-env path at full width: 1 warm-up and 2 timed segments
     (collect on the host envs, one packed copy, the device part), the device
     part of one more under the sync guard, one in which PyTorch must
     dispatch exactly one host-to-device copy (the packed segment), one under
@@ -1519,26 +1776,75 @@ def _pipeline_turns(path: str, loop, n: int):
     return means, piped_trainer
 
 
+def _run_captures(path: str, trainer, supersteps: int) -> int:
+    """The graphs that ``trainer.run()`` captured, on a path of
+    ``GRAPH_PATHS`` (0 elsewhere): each of its supersteps must have been a
+    pattern's first call (run eagerly as its capture's warm-up) or a
+    replay, and at least one a replay."""
+    from tianshou_tpu_torch.utils.graphs import CapturedStep
+
+    compiled = getattr(trainer, "compiled_superstep", None)
+    if path not in GRAPH_PATHS:
+        return 0
+    if not isinstance(compiled, CapturedStep):
+        raise AssertionError(f"{path}: run() did not launch the compiled superstep ({type(compiled).__name__})")
+    captures, replays = len(compiled.graphs), sum(g.replays for g in compiled.graphs.values())
+    if captures + replays != supersteps or not replays:
+        raise AssertionError(f"{path}: run() made {captures} captures and {replays} replays in {supersteps} "
+                             f"supersteps")
+    log(f"{path} run(): {supersteps} supersteps, {captures} of them a pattern's warm-up before its capture "
+        f"({compiled.warm_up_s:.2f} s, captures {compiled.capture_s:.2f} s), {replays} replays")
+    return captures
+
+
+def _counted_run(path: str, gather, run):
+    """``run()`` with ``gather``'s count set to 0 just before it: its
+    result, the count read just after it (the wrapper's launches from the
+    host) and, where the path's superstep runs the kernel inside a CUDA
+    graph (``GRAPH_PATHS``), the kernel's device records in the profiler
+    over the same run (the host's launches and the replays' alike; None
+    elsewhere)."""
+    gather.launches = 0
+    if path not in GRAPH_PATHS or not KERNEL_LAUNCHES[path]:
+        out = run()
+        return out, gather.launches, None
+    result = []
+    records = _device_records(lambda: result.append(run()))
+    return result[0], gather.launches, sum("gather_rows_cast" in e.name() for e in records)
+
+
+def _run_launches(path: str, host: int, device: int | None, supersteps: int, captures: int) -> int:
+    """The kernel's launches in a main run of ``supersteps`` supersteps,
+    ``captures`` of them a capture's eager warm-up: from the host, the
+    warm-ups' (every superstep's off the graph paths); on the card (the
+    profiler), every superstep's.  Returns the launches the card ran."""
+    want = KERNEL_LAUNCHES[path]
+    if host != want * (captures if path in GRAPH_PATHS else supersteps):
+        raise AssertionError(f"{path}: gather_rows_cast launched {host} times from the host in run() "
+                             f"({supersteps} supersteps, {captures} warm-ups)")
+    if device is not None and device != want * supersteps:
+        raise AssertionError(f"{path}: the profiler saw gather_rows_cast run {device} times in run(), "
+                             f"not {want * supersteps}")
+    return host if device is None else device
+
+
 def phase_main_path(path: str, gather) -> int:
     """The trainer's ``run()`` on the path for one epoch of two supersteps
-    (segments) with a test phase; the launch count is read over exactly that
-    run."""
+    (segments; ``main_supersteps`` where the path sets it) with a test
+    phase; the launch count is read over exactly that run."""
     cfg = PATHS[path]
     trainer = build_offline_path(path, "cuda")[-1] if path in OFFLINE_PATHS else build(path)[-1]
-    gather.launches = 0
-    info = trainer.run()
-    launches = gather.launches
+    info, host, device = _counted_run(path, gather, trainer.run)
     log(f"{path} {type(trainer).__name__}.run(): {info}")
-    if launches != KERNEL_LAUNCHES[path] * 2:
-        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in run(), "
-                             f"not {KERNEL_LAUNCHES[path] * 2}")
+    supersteps = cfg.get("main_supersteps", 2)
+    launches = _run_launches(path, host, device, supersteps, _run_captures(path, trainer, supersteps))
     if path in OFFLINE_PATHS:
         # the offline accounting: env_step = gradient_step * batch
-        env_steps = 2 * cfg["updates"] * cfg["batch"]
+        env_steps = supersteps * cfg["updates"] * cfg["batch"]
     else:
         warmup = cfg.get("warmup", 0) // cfg["num_envs"] * cfg["num_envs"]  # whole steps of every env
-        env_steps = warmup + 2 * cfg["num_envs"] * cfg["segment"]
-    if info.env_step != env_steps or info.gradient_step != 2 * cfg["updates"]:
+        env_steps = warmup + supersteps * cfg["num_envs"] * cfg["segment"]
+    if info.env_step != env_steps or info.gradient_step != supersteps * cfg["updates"]:
         raise AssertionError(f"{path}: counters env_step={info.env_step} gradient_step={info.gradient_step}")
     _check_metrics(path, info.last_metrics)
     if not math.isfinite(info.best_reward):
@@ -1707,12 +2013,15 @@ def phase_checkpoint(path: str, trainer) -> dict:
     """The trainer's train and buffer states through ``save_checkpoint`` and
     ``restore_checkpoint`` into a freshly built trainer's states, on the
     card: bitwise equal, sharing no storage with the source or the
-    template.  The files go under ``build/`` and are removed after."""
+    template.  Then a trainer that replays graphs continues from the
+    restored states: its superstep compiled over them (a warm-up, then a
+    replay) equals two eager supersteps from a copy of them, bitwise.  The
+    files go under ``build/`` and are removed after."""
     from tianshou_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
     source = {"train": trainer.train_state, "buffer": trainer.buffer_state}
-    _, algo, col, buffer, _ = build(path)
-    _, ts, _, bstate = init_states(algo, col, buffer, seed=1)
+    _, algo, col, buffer, fresh = build(path)
+    gen, ts, cstate, bstate = init_states(algo, col, buffer, seed=1)
     template = {"train": ts, "buffer": bstate}
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"{path}_checkpoint")
     shutil.rmtree(root, ignore_errors=True)
@@ -1740,9 +2049,29 @@ def phase_checkpoint(path: str, trainer) -> dict:
         if own & {t.untyped_storage().data_ptr() for t in ref + tmpl if t.numel()}:
             raise AssertionError(f"{path} checkpoint: the restored {key} state shares storage with another state")
         compared += len(got)
-    result = {"bytes": nbytes, "save_ms": save_ms, "restore_ms": restore_ms, "tensors": compared}
+    del source, template
+    graph_state = [restored["train"], cstate, restored["buffer"], gen]
+    eager_state = _clone_run_state(*graph_state)
+    compiled, eager_fn = fresh._compile_superstep(*graph_state[:3]), fresh._build_superstep()
+    explore = torch.full((), 0.1, device="cuda")
+    for call in range(2):
+        graph_state[0], graph_state[1], graph_state[2], g_out, g_met = compiled(*graph_state[:3], graph_state[3],
+                                                                                explore)
+        eager_state[0], eager_state[1], eager_state[2], e_out, e_met = eager_fn(*eager_state[:3], eager_state[3],
+                                                                                explore)
+        differ = _differing(_run_leaves(eager_state, e_out, e_met), _run_leaves(graph_state, g_out, g_met))
+        if differ:
+            raise AssertionError(f"{path} checkpoint: superstep {call + 1} compiled over the restored states differs "
+                                 f"from the eager one at {differ[:5]}")
+    if sum(g.replays for g in compiled.graphs.values()) != 1:
+        raise AssertionError(f"{path} checkpoint: the second superstep over the restored states was not a replay")
+    result = {"bytes": nbytes, "save_ms": save_ms, "restore_ms": restore_ms, "tensors": compared,
+              "replay_from_restored_bitwise": True}
     log(f"{path} checkpoint of the train and buffer states: {nbytes / 1e9:.4f} GB written in {save_ms:.1f} ms, "
-        f"restored on the card in {restore_ms:.1f} ms; {compared} tensors bitwise equal, no storage shared")
+        f"restored on the card in {restore_ms:.1f} ms; {compared} tensors bitwise equal, no storage shared; a "
+        f"superstep compiled over the restored states (its warm-up, then a replay) bitwise equal to two eager ones")
+    del compiled, graph_state, eager_state, restored
+    _fresh_memory()
     return result
 
 
@@ -1795,16 +2124,12 @@ def phase_main_highlevel(path: str, gather) -> tuple[int, dict]:
     ``gather_rows_cast``."""
     cfg = PATHS[path]
     logger = memory_logger()
-    gather.launches = 0
-    result = highlevel_experiment(path).run(logger=logger)
-    launches = gather.launches
+    result, host, device = _counted_run(path, gather, lambda: highlevel_experiment(path).run(logger=logger))
     info = result.info
     log(f"{path} Experiment.run(): {info}; logger {len(logger.writes)} writes, {len(logger.saves)} saves "
         f"{logger.saves}")
     supersteps, steps = cfg["supersteps"], cfg["num_envs"] * cfg["segment"]
-    if launches != KERNEL_LAUNCHES[path] * supersteps:
-        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in run(), "
-                             f"not {KERNEL_LAUNCHES[path] * supersteps}")
+    launches = _run_launches(path, host, device, supersteps, _run_captures(path, result.world.trainer, supersteps))
     if (info.env_step, info.gradient_step, info.epoch) != (supersteps * steps, supersteps * cfg["updates"], 1):
         raise AssertionError(f"{path}: counters {info}")
     if logger.saves != [(1, info.env_step, info.gradient_step)] or not logger.writes:
@@ -1824,15 +2149,20 @@ def phase_main_highlevel(path: str, gather) -> tuple[int, dict]:
     out["checkpoint"] = phase_checkpoint(path, result.world.trainer)
     del result
     _fresh_memory()
-    # resume: a second experiment of two epochs continues from the saved
-    # epoch and counters, and runs the second epoch only
-    gather.launches = 0
-    resumed = highlevel_experiment(path, num_epochs=2).run(logger=logger, resume_from_log=True).info
+    # resume: a second experiment of two epochs restores the checkpoint,
+    # continues from the saved epoch and counters, captures its graph over
+    # the restored state and runs the second epoch only
+    resumed_result, host, device = _counted_run(path, gather, lambda: highlevel_experiment(
+        path, num_epochs=2).run(logger=logger, resume_from_log=True))
+    resumed = resumed_result.info
+    resumed_launches = _run_launches(path, host, device, supersteps,
+                                     _run_captures(path, resumed_result.world.trainer, supersteps))
+    del resumed_result
     want = (2, 2 * supersteps * steps, 2 * supersteps * cfg["updates"])
-    if (resumed.epoch, resumed.env_step, resumed.gradient_step) != want or gather.launches != KERNEL_LAUNCHES[path] * supersteps:
-        raise AssertionError(f"{path}: resumed run {resumed}, {gather.launches} launches; wanted {want}")
+    if (resumed.epoch, resumed.env_step, resumed.gradient_step) != want:
+        raise AssertionError(f"{path}: resumed run {resumed}; wanted {want}")
     log(f"{path} resumed from {logger.saves[0]}: epoch {resumed.epoch}, env_step {resumed.env_step}, "
-        f"gradient_step {resumed.gradient_step}, {gather.launches} gather_rows_cast launches")
+        f"gradient_step {resumed.gradient_step}, {resumed_launches} gather_rows_cast launches on the card")
     out["resumed"] = {"epoch": resumed.epoch, "env_step": resumed.env_step, "gradient_step": resumed.gradient_step}
     # a traced run of two supersteps: the profiler may drop the first
     # records of a window, so the kernel is looked for in either
@@ -1989,7 +2319,7 @@ def build_offline_path(path: str, device):
 
 
 def phase_offline(path: str, gather) -> dict:
-    """An offline path at full width: 1 warm-up and 3 timed supersteps of
+    """An offline path at full width: 1 warm-up and 2 timed supersteps of
     ``updates`` updates, one under the sync guard, one under the profiler,
     and the breakdown (one sampled batch, one update)."""
     from tianshou_tpu_torch.data.tree import tree_leaves
@@ -2082,6 +2412,21 @@ def _busy_ms(events) -> float:
     return busy_ns / 1e6
 
 
+def _profile(fn) -> dict:
+    """``fn`` under ``torch.profiler``: the card's records (kernels, of which
+    memsets and memcpys), its busy milliseconds, the host's launch calls
+    (``LAUNCH_CALLS``, by name) and ``gather_rows_cast``'s device ms a
+    launch."""
+    host: list = []
+    events = _device_records(fn, host)
+    names = [e.name() for e in events]
+    return {"kernels": len(events), "memsets": sum("Memset" in n for n in names),
+            "memcpys": sum("Memcpy" in n for n in names), "busy_ms": _busy_ms(events), "host_launches": len(host),
+            "host_launch_calls": dict(collections.Counter(e.name() for e in host)),
+            "gather_rows_cast_ms": [(e.end_ns() - e.start_ns()) / 1e6 for e in events
+                                    if "gather_rows_cast" in e.name()]}
+
+
 def _profile_counts(fn) -> tuple[int, float]:
     """``fn`` under ``torch.profiler``: device kernels and the device's busy
     milliseconds."""
@@ -2098,8 +2443,16 @@ def _profile_memcpys(fn) -> tuple[int, int]:
     return sum("HtoD" in n for n in names), sum("DtoH" in n for n in names)
 
 
-def _device_records(fn) -> list:
-    """The device records of ``fn``'s work under ``torch.profiler``.  The
+# the host's launches of work onto the card: the CUDA calls (`cuda*`, `cu*`)
+# that the profiler records
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync", "cudaLaunchCooperativeKernel")
+
+
+def _device_records(fn, host_launches: list | None = None) -> list:
+    """The device records of ``fn``'s work under ``torch.profiler``; with
+    ``host_launches`` (a list) also the host's launch calls of that work
+    (``LAUNCH_CALLS``, the padding's left out) appended to it.  The
     window opens with about a second of a busy stream
     (``torch.cuda._sleep``'s spin kernel) and then ``PROFILE_PADDING``
     short spins, all left out, before ``fn``'s work: the profiler drops the
@@ -2118,8 +2471,14 @@ def _device_records(fn) -> list:
     # the trace's raw records hold the same kernels as ``prof.events()``,
     # without building a function event for each of tens of thousands of
     # records
-    device = [e for e in prof.profiler.kineto_results.events() if e.device_type() == torch.autograd.DeviceType.CUDA]
+    records = prof.profiler.kineto_results.events()
+    device = [e for e in records if e.device_type() == torch.autograd.DeviceType.CUDA]
     events = [e for e in device if "spin_kernel" not in e.name()]
+    if host_launches is not None:
+        calls = sorted((e for e in records if e.device_type() != torch.autograd.DeviceType.CUDA
+                        and e.name() in LAUNCH_CALLS), key=lambda e: e.start_ns())
+        # the padding: one long spin and PROFILE_PADDING short ones
+        host_launches.extend(calls[1 + PROFILE_PADDING:])
     if len(device) - len(events) == 0:
         log(f"profiler: every padding spin was dropped; {len(events)} kernels may undercount")
     return events
@@ -2784,7 +3143,7 @@ def _turns(runs: dict, n: int) -> dict[str, float]:
 def phase_fused(path: str, gather) -> dict:
     """``sac_fine``: the fused fine host cycle at examples/mujoco_sac.py's
     defaults (8 envs, one step each and 8 updates of batch 256 a cycle).
-    1 warm-up and 3 timed cycles, its device part (the transition into the
+    1 warm-up and 2 timed cycles, its device part (the transition into the
     ring, the updates, the next action) under the sync guard with the action
     fetch left out, the synchronisations of a whole cycle counted, one
     host-to-device copy a cycle, one cycle profiled, then cycles of the
@@ -3107,7 +3466,7 @@ def phase_dist_update_check(algo, buffer, bstate, group) -> float:
 
 
 def phase_distributed(path: str, gather) -> dict:
-    """A distributed path on the world-1 NCCL group: 1 warm-up and 3 timed
+    """A distributed path on the world-1 NCCL group: 1 warm-up and 2 timed
     segments of the distributed trainer (the launches of the kernel counted
     over them), its segments in turns with the plain trainer's (plain, dist,
     dist, plain; ms a segment), one under the profiler (device kernels, busy
@@ -3755,6 +4114,8 @@ def main() -> int:
         phase = (phase_host if path in HOST_PATHS else phase_fused if path in FUSED_PATHS
                  else phase_offline if path in OFFLINE_PATHS else phase_superstep)
         results[path] = phase(path, gather_rows_cast)
+        if path in GRAPH_PATHS:
+            results[path]["graph"] = phase_graph(path, gather_rows_cast, results[path]["profile"])
         if path in HIGHLEVEL_PATHS:
             n, results[path]["main_run"] = phase_main_highlevel(path, gather_rows_cast)
             launches += n

@@ -112,13 +112,17 @@ def write_back(
 @dataclasses.dataclass
 class TrainState:
     """Learnable state.  ``target`` is ``online`` itself for algorithms that
-    keep no separate target network.  ``step`` counts updates on the host,
-    so the periodic target copy needs no device read."""
+    keep no separate target network.  ``step`` counts updates on the host;
+    ``device_step`` (a 0-d int64 tensor, for a periodic target copy) counts
+    them on the device in lockstep, so that the copy is decided on the
+    device, as in the JAX package, and a captured superstep needs one graph
+    whatever the step."""
 
     online: nn.Module
     target: nn.Module
     optimizer: torch.optim.Optimizer | None
     step: int = 0
+    device_step: torch.Tensor | None = None
 
 
 class Algorithm:
@@ -200,6 +204,13 @@ class Algorithm:
         :meth:`act_with_extras`, the state passed through unchanged."""
         act, extras = self.act_with_extras(ts, obs, generator, explore, explore_param)
         return act, extras, policy_state
+
+    def update_pattern(self, ts: Any, n_updates: int) -> tuple:
+        """The outcomes of the host-keyed branches of the next ``n_updates``
+        updates from ``ts`` (TD3's and REDQ's delayed actor step, decided
+        from the host update count): a captured superstep keeps one graph
+        per pattern.  ``()``: no such branch."""
+        return ()
 
     def act_params(self, ts: TrainState) -> nn.Module:
         """The module :meth:`act` reads (the host path snapshots it to act

@@ -13,13 +13,16 @@ is the JAX package's fused update:
 
 TD3 adds target smoothing (clipped Gaussian noise on the target action) and
 runs step 3 only when ``step % update_actor_freq == 0``; ``step`` counts on
-the host, so the schedule needs no device read.  Exploration adds
-``explore_param * N(0, 1)`` to the action and clips it to ``[-1, 1]``.
+the host, so the schedule needs no device read, and a captured superstep
+keeps one graph per pattern of these outcomes (:meth:`TD3.update_pattern`)
+where the JAX package takes a ``lax.cond``.  Exploration adds
+``explore_param * N(0, 1)`` to the action (a float or a 0-d tensor) and
+clips it to ``[-1, 1]``.
 
 Noise comes from the ``generator`` the trainer passes to each update, or,
 for the parity tests, is injected through ``noise`` (the JAX package's own
 draws).  ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`` is the
-counterpart of ``optax.adam(lr)``.  The update writes the ``|td|`` averaged
+counterpart of ``optax.adam(lr)`` (:func:`adam`).  The update writes the ``|td|`` averaged
 over the critics back to a prioritized buffer (:meth:`DDPG.priority_scores`
 recomputes it).  TD3's smoothing noise is drawn per row of the global batch
 (:meth:`Algorithm.draw_rows`), and every step of :func:`apply_loss` averages
@@ -40,6 +43,7 @@ from tianshou_tpu_torch.envs.spaces import Box
 from tianshou_tpu_torch.ops.dist import standard_normal
 from tianshou_tpu_torch.ops.returns import nstep_return
 from tianshou_tpu_torch.utils.device import make_generator, resolve_device
+from tianshou_tpu_torch.utils.graphs import mark_capturable
 
 __all__ = ["ACTrainState", "DDPG", "TD3", "adam", "apply_loss"]
 
@@ -62,8 +66,13 @@ class ACTrainState:
 
 
 def adam(params, lr: float) -> torch.optim.Adam:
-    """``optax.adam(lr)``'s counterpart."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    """``optax.adam(lr)``'s counterpart.  A superstep captured as a CUDA graph
+    makes it capturable when it first captures it
+    (:func:`~tianshou_tpu_torch.utils.graphs.mark_capturable`): its step
+    count and bias correction then live on the device, in float32 as optax
+    computes them (float64 for float64 parameters).  The paths that run
+    eagerly keep the step count on the host, which takes fewer kernels."""
+    return mark_capturable(torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8))
 
 
 def apply_loss(optimizer: torch.optim.Optimizer, loss: torch.Tensor, group=None) -> None:
@@ -242,3 +251,7 @@ class TD3(DDPG):
         if ts.step % self.update_actor_freq == 0:
             return self._update_actor(ts, batch)
         return torch.zeros((), device=self.device)
+
+    def update_pattern(self, ts: ACTrainState, n_updates: int) -> tuple:
+        """Which of the next ``n_updates`` updates step the actor."""
+        return tuple((ts.step + i) % self.update_actor_freq == 0 for i in range(1, n_updates + 1))

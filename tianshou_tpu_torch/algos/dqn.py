@@ -4,11 +4,18 @@ One :meth:`DQN.update_sampled` is the JAX package's fused update: the
 bootstrap at the n-step terminal states (double-Q unless
 ``is_double=False``), :func:`nstep_return`, a weighted MSE or Huber loss,
 an optimizer step, and the periodic target copy when
-``step % target_update_freq == 0`` (steps counted from 1).  The optimizer
-is ``optimizer(params)``, a factory the caller may pass (as an optax
-transform is passed to the JAX package's ``DQN``), by default
+``step % target_update_freq == 0`` (steps counted from 1), decided on the
+device as the JAX package's ``jnp.where`` decides it: every update computes
+``target <- where(sync, online, target)`` from the device step count
+(:func:`sync_target`).  The optimizer is ``optimizer(params)``, a factory
+the caller may pass (as an optax transform is passed to the JAX package's
+``DQN``), by default :func:`~tianshou_tpu_torch.algos.ddpg.adam`,
 ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``, the counterpart of
-``optax.adam(lr)``; ``F.huber_loss(delta=1)`` is that of
+``optax.adam(lr)``, which a captured superstep makes capturable; a
+factory's optimizer that a captured superstep steps must be capturable as
+built, else the capture raises ``ValueError``
+(:func:`~tianshou_tpu_torch.utils.graphs.check_capturable`).
+``F.huber_loss(delta=1)`` is that of
 ``optax.huber_loss``.  The update writes ``|td|`` back to a prioritized
 buffer, and :meth:`DQN.priority_scores` recomputes it.
 
@@ -20,6 +27,7 @@ uniformly over the legal actions.
 from __future__ import annotations
 
 import copy
+import itertools
 from collections.abc import Callable
 
 import torch
@@ -27,26 +35,53 @@ import torch.nn.functional as F
 from torch import nn
 
 from tianshou_tpu_torch.algos.base import Algorithm, TrainState, sync_gradients, uniform_legal_action, write_back
+from tianshou_tpu_torch.algos.ddpg import adam
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.envs.spaces import Discrete
 from tianshou_tpu_torch.ops.returns import nstep_return
 from tianshou_tpu_torch.utils.device import resolve_device
 
-__all__ = ["DQN", "optimizer_step", "take_action"]
+__all__ = ["DQN", "new_device_step", "optimizer_step", "sync_target", "take_action"]
+
+
+def new_device_step(device: str | torch.device) -> torch.Tensor:
+    """A zero update count on the device (:attr:`TrainState.device_step`)."""
+    return torch.zeros((), dtype=torch.int64, device=device)
+
+
+def _module_tensors(module: nn.Module):
+    return itertools.chain(module.parameters(), module.buffers())
+
+
+@torch.no_grad()
+def sync_target(ts: TrainState, target_update_freq: int) -> None:
+    """``device_step += 1``, then ``target <- online`` where ``device_step %
+    target_update_freq == 0``, decided on the device: one ``torch.where``
+    per tensor, then one multi-tensor copy, bitwise the copy of the online
+    tensors on a sync and the target's own elsewhere."""
+    if ts.device_step is None:
+        raise ValueError("a periodic target copy counts updates in TrainState.device_step; build the state with "
+                         "the algorithm's init()")
+    ts.device_step.add_(1)
+    sync = torch.remainder(ts.device_step, target_update_freq) == 0
+    targets = list(_module_tensors(ts.target))
+    picked = [torch.where(sync, o, t) for o, t in zip(_module_tensors(ts.online), targets)]
+    torch._foreach_copy_(targets, picked)
 
 
 def optimizer_step(ts: TrainState, loss: torch.Tensor, target_update_freq: int = 0, group=None) -> None:
-    """The optimizer step on ``loss``, ``step += 1``, and the target copy
-    when ``target_update_freq > 0`` and ``step % target_update_freq == 0``.
-    With a process ``group`` the gradients are averaged over it first
+    """The optimizer step on ``loss``, ``step += 1``, and with
+    ``target_update_freq > 0`` the target copy where ``step %
+    target_update_freq == 0`` (:func:`sync_target`, on the device).  With
+    a process ``group`` the gradients are averaged over it first
     (:func:`sync_gradients`)."""
     ts.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     sync_gradients(ts.optimizer, group)
     ts.optimizer.step()
     ts.step += 1
-    if target_update_freq > 0 and ts.step % target_update_freq == 0:
-        ts.target.load_state_dict(ts.online.state_dict())
+    if target_update_freq > 0:
+        sync_target(ts, target_update_freq)
 
 
 def take_action(values: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
@@ -95,8 +130,9 @@ class DQN(Algorithm):
         if self.make_optimizer is not None:
             optimizer = self.make_optimizer(list(online.parameters()))
         else:
-            optimizer = torch.optim.Adam(online.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
-        return TrainState(online=online, target=target, optimizer=optimizer)
+            optimizer = adam(online.parameters(), self.lr)
+        return TrainState(online=online, target=target, optimizer=optimizer,
+                          device_step=new_device_step(self.device) if self.target_update_freq > 0 else None)
 
     @property
     def obs_dtype(self) -> torch.dtype:

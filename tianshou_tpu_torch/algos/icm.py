@@ -130,6 +130,9 @@ class ICM(Algorithm):
     def with_act_params(self, ts: ICMTrainState, module: nn.Module) -> ICMTrainState:
         return dataclasses.replace(ts, inner=self.inner.with_act_params(ts.inner, module))
 
+    def update_pattern(self, ts: ICMTrainState, n_updates: int) -> tuple:
+        return self.inner.update_pattern(ts.inner, n_updates)
+
     def update(self, ts: ICMTrainState, buffer: ReplayBuffer, bstate: ReplayBufferState, generator, batch_size):
         # 1. the curiosity models on a batch of their own
         env_idx, pos, _ = buffer.sample_with_weights(bstate, generator, batch_size)

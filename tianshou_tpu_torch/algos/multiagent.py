@@ -96,6 +96,9 @@ class MultiAgentPolicyManager(Algorithm):
     def with_act_params(self, ts: tuple, module: nn.Module) -> tuple:
         return tuple(p.with_act_params(sub, module[str(i)]) for i, (p, sub) in enumerate(zip(self.policies, ts)))
 
+    def update_pattern(self, ts: tuple, n_updates: int) -> tuple:
+        return tuple(p.update_pattern(sub, n_updates) for p, sub in zip(self.policies, ts))
+
     def update(self, ts: tuple, buffer: ReplayBuffer, bstate: ReplayBufferState, generator, batch_size: int):
         """One update of each sub-algorithm, in agent order, through its view
         of ``buffer``; metrics are prefixed ``agent{i}/``."""

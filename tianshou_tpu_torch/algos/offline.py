@@ -51,7 +51,7 @@ from torch import nn
 
 from tianshou_tpu_torch.algos.base import Algorithm, TrainState, polyak_update, write_back
 from tianshou_tpu_torch.algos.ddpg import TD3, ACTrainState, adam, apply_loss, fresh_copy, frozen_copy
-from tianshou_tpu_torch.algos.dqn import optimizer_step, take_action
+from tianshou_tpu_torch.algos.dqn import new_device_step, optimizer_step, take_action
 from tianshou_tpu_torch.algos.qrdqn import QRDQN, quantile_huber_loss
 from tianshou_tpu_torch.algos.sac import SAC, _min_over_critics
 from tianshou_tpu_torch.data.batch import Batch
@@ -422,7 +422,8 @@ class DiscreteBCQ(Algorithm):
     def init(self, generator: torch.Generator) -> TrainState:
         online = nn.ModuleDict(dict(q=fresh_copy(self.q_network, self.device, generator),
                                     imitation=fresh_copy(self.imitation_network, self.device, generator)))
-        return TrainState(online=online, target=frozen_copy(online), optimizer=adam(online.parameters(), self.lr))
+        return TrainState(online=online, target=frozen_copy(online), optimizer=adam(online.parameters(), self.lr),
+                          device_step=new_device_step(self.device) if self.target_update_freq > 0 else None)
 
     def _masked_greedy(self, net: nn.ModuleDict, obs) -> torch.Tensor:
         """The greedy action among those whose imitation log-probability is
@@ -515,7 +516,8 @@ class DiscreteCRR(Algorithm):
     def init(self, generator: torch.Generator) -> TrainState:
         online = nn.ModuleDict(dict(actor=fresh_copy(self.actor, self.device, generator),
                                     critic=fresh_copy(self.critic, self.device, generator)))
-        return TrainState(online=online, target=frozen_copy(online), optimizer=adam(online.parameters(), self.lr))
+        return TrainState(online=online, target=frozen_copy(online), optimizer=adam(online.parameters(), self.lr),
+                          device_step=new_device_step(self.device) if self.target_update_freq > 0 else None)
 
     @torch.no_grad()
     def act(self, ts, obs, generator, explore, explore_param=0.0):

@@ -62,10 +62,19 @@ def quantile_huber_loss(
 class RMSprop(torch.optim.Optimizer):
     """``optax.rmsprop(lr, decay, eps)``: ``nu = decay * nu + (1 - decay) *
     g**2`` from ``nu = 0``, then ``p -= lr * g / sqrt(nu + eps)``, the
-    epsilon inside the root (``torch.optim.RMSprop`` adds it outside)."""
+    epsilon inside the root (``torch.optim.RMSprop`` adds it outside).  It
+    counts no steps, so it is capturable: its groups say so, and
+    :meth:`init_state` creates ``nu`` ahead of a CUDA graph capture."""
 
     def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8):
-        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, capturable=True))
+
+    def init_state(self) -> None:
+        """``nu = 0`` for every parameter that has no state yet."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                if not self.state[p]:
+                    self.state[p]["nu"] = torch.zeros_like(p)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -282,7 +291,8 @@ class FQF(QRDQN):
         ts = super().init(generator)
         fraction = copy.deepcopy(self.fraction_network).to(self.device)
         fraction.reset_parameters(generator)
-        return FQFTrainState(online=ts.online, target=ts.target, optimizer=ts.optimizer, fraction=fraction,
+        return FQFTrainState(online=ts.online, target=ts.target, optimizer=ts.optimizer,
+                             device_step=ts.device_step, fraction=fraction,
                              fraction_optimizer=RMSprop(fraction.parameters(), self.fraction_lr))
 
     def _forward(self, net, fraction, obs):

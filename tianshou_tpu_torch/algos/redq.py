@@ -10,7 +10,8 @@ SAC's update (:class:`~tianshou_tpu_torch.algos.sac.SAC`) over an N-critic
 3. only when ``step % actor_delay == 0``: the actor's step against the mean
    of the N updated critics, then the alpha step (``auto_alpha``), as in
    the JAX package's ``lax.cond``; ``step`` counts on the host, as TD3's
-   delay does;
+   delay does, and a captured superstep keeps one graph per pattern of
+   these outcomes (:meth:`REDQ.update_pattern`);
 4. the Polyak update of the target critics, every update.
 
 The subset is the first M of a random permutation of the N critics, drawn
@@ -92,6 +93,11 @@ class REDQ(SAC):
             self._actor_step(ts, sampled[3]["obs"], eps_actor, alpha, lambda q: q.mean(dim=0))
         polyak_update(ts.target_critic, ts.critic, self.tau)
         return ts, bstate, {"critic_loss": critic_loss, "alpha": ts.log_alpha.detach().exp()}
+
+    def update_pattern(self, ts: ACTrainState, n_updates: int) -> tuple:
+        """Which of the next ``n_updates`` updates step the actor (and
+        alpha)."""
+        return tuple((ts.step + i) % self.actor_delay == 0 for i in range(1, n_updates + 1))
 
     @torch.no_grad()
     def priority_scores(self, ts: ACTrainState, sampled: tuple, generator: torch.Generator | None = None,

@@ -103,11 +103,13 @@ def rollout_segment(
     with ``record_traj`` the stacked transitions as ``traj``.  With
     ``random``, uniform random actions take the place of ``algo``'s.
     ``reward_metric`` scalarises per-agent episode returns
-    (:func:`_default_reward_metric` by default)."""
+    (:func:`_default_reward_metric` by default).  ``explore_param`` is a
+    float or a 0-d tensor (the captured superstep's, filled before each
+    replay); the segment reads it only on the device."""
     actor = RandomPolicy(algo.action_space, algo.device) if random else algo
     reward_metric = reward_metric or _default_reward_metric
 
-    def seg(ts: TrainState, cstate: CollectState, bstate, explore_param: float):
+    def seg(ts: TrainState, cstate: CollectState, bstate, explore_param: float | torch.Tensor):
         obs, env_state = cstate.obs, cstate.env_state
         ep_ret, ep_len = cstate.ep_ret, cstate.ep_len
         pstate, init_pstate = cstate.policy_state, algo.init_policy_state(venv.num_envs)
@@ -117,10 +119,6 @@ def rollout_segment(
             env_state, res, carry_obs = venv.step(env_state, algo.map_action(act), cstate.rng)
             done = res.done
             pstate = tree_where(done, init_pstate, pstate)
-            if ep_ret.shape != res.reward.shape:
-                # a per-agent reward: the return carry takes its shape (it
-                # is all zeros here, right after a reset)
-                ep_ret = torch.zeros_like(res.reward)
             ep_ret = ep_ret + res.reward
             ep_len = ep_len + 1
             transition = Batch(
@@ -183,10 +181,20 @@ class Collector:
             env_state=env_state,
             obs=obs,
             rng=fork_generator(generator),
-            ep_ret=torch.zeros((n,), dtype=torch.float32, device=self.device),
+            ep_ret=torch.zeros(self._reward_shape(env_state, obs), dtype=torch.float32, device=self.device),
             ep_len=torch.zeros((n,), dtype=torch.int64, device=self.device),
             policy_state=self.algo.init_policy_state(n),
         )
+
+    def _reward_shape(self, env_state, obs) -> tuple[int, ...]:
+        """The env's reward shape (``[N]``, or ``[N, A]`` per agent), from one
+        random step on a throwaway generator, so that the episode-return
+        carry has it from the reset on (the JAX collector probes it with
+        ``jax.eval_shape``) and a captured superstep carries it unchanged."""
+        g = make_generator(0, self.device)
+        act = RandomPolicy(self.algo.action_space, self.device).act(None, obs, g, True)
+        _, res, _ = self.venv.step(env_state, self.algo.map_action(act), g)
+        return tuple(res.reward.shape)
 
     def example_transition(self, ts: TrainState, cstate: CollectState) -> Batch:
         """One eager env step to derive the buffer schema (one env's leaves,

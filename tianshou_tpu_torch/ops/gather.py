@@ -128,7 +128,9 @@ def gather_rows_cast(storage: torch.Tensor, idx: torch.Tensor, *, route: str | N
 
     ``storage`` is a 2-D contiguous uint8 tensor, ``idx`` a 1-D int64 (or
     int32, widened) tensor on the same device.  Each launch of the CUDA
-    kernel adds one to ``gather_rows_cast.launches``.  ``route`` forces a
+    kernel adds one to ``gather_rows_cast.launches``; a call under a CUDA
+    graph capture launches nothing (the graph's replays run the kernel, and
+    a profiler counts those).  ``route`` forces a
     route of :func:`launch_plan`, to compare them; the default follows the
     inputs.
     """
@@ -170,7 +172,8 @@ def _launch(storage: torch.Tensor, idx: torch.Tensor, out: torch.Tensor, plan: L
         plan.warps, plan.chunk, plan.stages, plan.smem_bytes, index, torch._C._cuda_getCurrentRawStream(index),
     )
     _build.check(lib, code, "gather_rows_cast launch")
-    gather_rows_cast.launches += 1
+    if not torch.cuda.is_current_stream_capturing():  # a capture records the launch; each replay runs it
+        gather_rows_cast.launches += 1
 
 
 gather_rows_cast.launches = 0

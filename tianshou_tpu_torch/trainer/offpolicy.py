@@ -6,8 +6,16 @@ A superstep is a rollout segment into the ring buffer, then ONE presample of
 slices of it (exact for uniform replay, whose sampling does not depend on
 the updates in between); with prioritized replay, or an algorithm that
 overrides ``update``, each of the k updates samples its own batch.  The
-superstep runs eagerly and keeps its metrics on the device;
-:meth:`OffPolicyTrainer.run` reads them once per superstep.
+superstep keeps its metrics on the device; :meth:`OffPolicyTrainer.run`
+reads them once per superstep.  :meth:`OffPolicyTrainer._build_superstep`
+is the eager superstep (the JAX package's ``_superstep_raw``), and
+:meth:`OffPolicyTrainer._compile_superstep` its compiled form, which
+``run`` launches: on CUDA a :class:`~tianshou_tpu_torch.utils.graphs.CapturedStep`
+that replays CUDA graphs captured from it, one launch a superstep (one
+graph per pattern of TD3's or REDQ's delayed actor steps, the first
+superstep of each pattern run eagerly as its capture's warm-up), over the
+state ``run`` started from as the graphs' static state; on the CPU the
+eager superstep itself.
 Epochs, test episodes and early stopping stay on the host, as in the JAX
 package.
 
@@ -56,6 +64,7 @@ from tianshou_tpu_torch.data.stats import InfoStats
 from tianshou_tpu_torch.data.tree import tree_map
 from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext, log_test, log_train, save_epoch
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
+from tianshou_tpu_torch.utils.graphs import CapturedStep
 
 __all__ = ["FusedHostLoop", "HostStep", "OffPolicyTrainer", "build_update_scan"]
 
@@ -328,6 +337,8 @@ class OffPolicyTrainer:
         # host path: the fused fine cycle (None: where it applies)
         self.fused_fine_host = fused_fine_host
         self.last_run_used_fused = False
+        # the superstep the last on-device run() launched (_compile_superstep)
+        self.compiled_superstep = None
 
         num_envs = train_collector.venv.num_envs
         # steps per env per collect segment (the reference counts total env steps)
@@ -352,6 +363,23 @@ class OffPolicyTrainer:
             return ts, cstate, bstate, outputs, metrics
 
         return superstep
+
+    def _compile_superstep(self, ts, cstate, bstate):
+        """The superstep ``run`` launches (the plain branch of the JAX
+        package's ``_compile_superstep``): on CUDA a
+        :class:`~tianshou_tpu_torch.utils.graphs.CapturedStep` over
+        :meth:`_build_superstep`, with ``ts``, ``cstate`` and ``bstate`` as
+        its static state and a graph per pattern of the algorithm's
+        host-keyed branches (:meth:`Algorithm.update_pattern`), captured at
+        the pattern's first call, which runs eagerly as the warm-up; each
+        call takes and returns that state, whose tensors the next call
+        overwrites.  A trainer on the CPU, which the caller asked for, gets
+        the eager superstep: CUDA graphs exist only on CUDA."""
+        superstep = self._build_superstep()
+        if self.device.type != "cuda":
+            return superstep
+        k = self.updates_per_segment
+        return CapturedStep(superstep, ts, cstate, bstate, key=lambda: self.algo.update_pattern(ts, k))
 
     def _build_host_step(self) -> HostStep:
         updates_fn = build_update_scan(self.algo, self.buffer, self.batch_size, self.updates_per_segment)
@@ -523,7 +551,7 @@ class OffPolicyTrainer:
             )
             env_step += stats.n_collected_steps
 
-        superstep = self._build_superstep()
+        superstep = self.compiled_superstep = self._compile_superstep(ts, cstate, bstate)
         stop_triggered = False
         epoch = 0
         with RunContext((self.max_epoch - start_epoch) * self.step_per_epoch, self.show_progress, self.profile_dir,
@@ -537,7 +565,7 @@ class OffPolicyTrainer:
                         ts, cstate, bstate, gen, explore_param
                     )
                     # the one host read of the superstep
-                    host_metrics = {k: float(v) for k, v in metrics.items()}
+                    host_metrics = _read_metrics(metrics)
                     train_time += time.time() - t0
                     env_step += self.steps_per_segment
                     steps_this_epoch += self.steps_per_segment

@@ -60,10 +60,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    update from a HER presample;
 5. paths, each at full width: 1 warm-up and 2 timed supersteps, one more
    superstep in which a host synchronisation raises, one under the profiler
-   (device kernels and busy time), where the time of a superstep goes,
-   then the trainer's ``run()`` for one epoch of two supersteps with a test
-   phase, the launch counts read over exactly that run.  The paths
-   (``PATHS``):
+   (device kernels and busy time), where the time of a superstep goes
+   (median of 3), then the trainer's ``run()`` for one epoch of two
+   supersteps with a test phase, the launch counts read over exactly that
+   run.  On the paths whose trainer replays CUDA graphs (``COMPILED_PATHS``)
+   1 superstep is timed and the breakdown runs once (the graph phases time
+   eager and replayed steps in turns); the profile moves into the
+   learn-graph phase on ``LEARN_GRAPH_PATHS`` and is skipped with the
+   breakdown on ``GRAPH_COVERED``; ``atari_host`` warms up 1,000 steps
+   outside its ``run()`` (``PHASE_SMALL``).  The paths (``PATHS``):
    - ``atari``: SyntheticPixelEnv 84x84x4, NatureCNN in bf16, 128 envs x
      16 steps, batch 512, 26 updates a superstep, 2 ``gather_rows_cast``
      launches each;
@@ -215,9 +220,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    optimizers made capturable as the graph's are) against two replays,
    bitwise in every carried tensor, the generators' states, ``outputs`` and
    ``metrics``, the second replay's draws not the first's; ms a superstep
-   in turns (eager, graph, graph, eager); one eager superstep and one
-   replay profiled (kernels, busy time, the host's launch calls: one graph
-   launch and a few fills a replay; ``gather_rows_cast``'s device launches
+   in turns (eager, graph, graph, eager); one replay profiled (kernels,
+   busy time, the host's launch calls: one graph launch and a few fills a
+   replay; ``gather_rows_cast``'s device launches
    in the replay); one replay under the sync guard; peak memory a replay;
    the bytes of carried state copied back a superstep, the ring's storage
    unmoved.  In the main run every superstep must be a pattern's warm-up or
@@ -226,7 +231,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    profiler's device records over the run (every superstep's).  On
    ``hl_atari`` the trained state also goes through a checkpoint, and a
    superstep compiled over the restored state replays bitwise equal to
-   eager supersteps from it.
+   eager supersteps from it.  On the paths whose superstep another path
+   already covers (``GRAPH_COVERED``: the four other MinAtar games, the
+   builders' ``hl_cartpole`` and ``hl_atari``) the graph phase keeps every
+   check and drops the turns and the two profiles.
+   On the paths whose other learn steps the trainers launch as CUDA graphs
+   (``LEARN_GRAPH_PATHS``, slice 15: the offline superstep of ``cql_d4rl``
+   and ``discrete_cql_cartpole``, the on-policy superstep of
+   ``ppo_cartpole``, ``trpo_pendulum`` and ``gail_pendulum``, the on-policy
+   host learning of ``ppo_host`` and the off-policy host step of
+   ``sac_host``, ``atari_host`` and ``cpp_cartpole``) the learn-graph phase
+   follows (``phase_learn_graph``): an eager step's peak memory, the
+   compiled step's warm-up and capture (times, peak at most 1.2x the eager
+   step's), two replays against two eager steps from copies of the state on
+   the same inputs, bitwise; ms a step in turns (the host paths' upload and
+   device part of one segment); one eager step and one replay profiled
+   (kernels, busy time, host launch calls: one graph launch and a handful of
+   fills and copies a replay); a replay under the sync guard; peak memory a
+   replay; the bytes copied back; the ring's or dataset's storage unmoved;
+   ``ppo_host``'s scheduled learning rate advancing as the schedule says;
+   ``atari_host``'s ``gather_rows_cast`` twice in a profiled replay and never
+   from the host there.  Their main runs, like the graph paths', must be a
+   warm-up and replays.
    Last, ``sac_host``'s configuration through the host path's variants, in
    turns with plain ``sac_host``: a ``RemoteVectorEnv`` over an env farm
    subprocess on 127.0.0.1 (killed at the end), ``AsyncHostCollector``
@@ -279,8 +305,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    time, rate, best reward, launches, cuts) and one naming the gymnasium
    scripts the card's machine cannot run.
 
-It then prints a ``paths`` JSON line, the ``kernels`` JSON line and, last,
-the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
+Each phase prints its seconds (``phase_s``) as it ends, and the script its
+own total before the JSON lines.  It then prints a ``paths`` JSON line, the
+``kernels`` JSON line and, last, the ``ok`` JSON line.  Without CUDA, or without the package beside it, it
 exits non-zero and prints no result.
 """
 
@@ -441,6 +468,25 @@ GRAPH_PATHS = ("atari", "atari_dedup", "hl_atari", "cartpole", "hl_cartpole", *M
                "sac_pendulum", "td3_pendulum", "redq_pendulum", "rainbow_per", "discrete_sac_cartpole",
                "bdq_pendulum", "drqn_cartpole", "icm_cartpole", "marl_tictactoe")
 GRAPH_TURN = 1
+# the GRAPH_PATHS whose superstep another path of the list already runs (the
+# four other MinAtar games beside minatar, the builders' paths beside
+# cartpole and atari): their graph phase keeps the bitwise replays, the
+# warm-up, the peaks and the copy-back, and drops the turns and the profiles
+GRAPH_COVERED = ("minatar_space_invaders", "minatar_freeway", "minatar_asterix", "minatar_seaquest", "hl_cartpole",
+                 "hl_atari")
+# slice 15: the paths whose other learn steps the trainers launch as CUDA
+# graphs (phase_learn_graph): the offline superstep
+# (OfflineTrainer._compile_superstep), the on-policy superstep
+# (OnPolicyTrainer._compile_superstep), the on-policy host learn
+# (_compile_learn) and the off-policy host step (_compile_host_step)
+LEARN_GRAPH_PATHS = ("cql_d4rl", "discrete_cql_cartpole", "ppo_cartpole", "trpo_pendulum", "gail_pendulum",
+                     "ppo_host", "sac_host", "atari_host", "cpp_cartpole")
+COMPILED_PATHS = GRAPH_PATHS + LEARN_GRAPH_PATHS
+# a replayed learn step's host launch calls at most: the graph launch, the
+# fills of explore_param and the generators' offsets, and on the host paths
+# the segment's packed copy into the staging and the copies of its tensor
+# leaves
+LEARN_REPLAY_HOST_LAUNCHES = 12
 # short spin kernels that open a profiled window after the long one (see
 # _device_records)
 PROFILE_PADDING = 64
@@ -448,6 +494,17 @@ PROFILE_PADDING = 64
 # from 5 to 3 so that twenty paths ran in about the time sixteen took, and to
 # 2 so that the graph phase fits in the script's time
 TIMED, WARMUP = 2, 1
+# on the paths whose trainer replays CUDA graphs (COMPILED_PATHS) phase 5
+# times one eager superstep (the graph phase times eager and replayed ones in
+# turns) and runs its breakdown once, so that slice 15's learn-graph phase
+# fits in the script's time; its profile of the eager superstep as built
+# stays on GRAPH_PATHS, and moves into the learn-graph phase (optimizers
+# capturable) on LEARN_GRAPH_PATHS
+TIMED_COMPILED, BREAKDOWN_REPS, BREAKDOWN_REPS_COMPILED = 1, 3, 1
+# atari_host's warm-up in phase 5 and its learn-graph phase, cut from its
+# 5,000 steps (the path's run() keeps them) to spare twice 4,000 steps of the
+# DeepMind chain on the host: a segment's time does not depend on the fill
+PHASE_SMALL = {"atari_host": dict(warmup=1000)}
 # the MuJoCo PPO example's learning-rate decay runs to zero over every
 # minibatch update of its default run: 100 epochs x 5 segments x 10 passes x
 # 32 minibatches (examples/mujoco_ppo.py)
@@ -1256,10 +1313,11 @@ def phase_superstep(path: str, gather) -> dict:
 
     cfg = PATHS[path]
     _fresh_memory()
+    base = torch.cuda.memory_allocated() / 2**30
     env, algo, col, buffer, trainer = build(path)
     gen, *state = init_states(algo, col, buffer)
     step = superstep_of(trainer, state, gen)
-    n, steps = TIMED, cfg["num_envs"] * cfg["segment"]
+    n, steps = TIMED_COMPILED if path in COMPILED_PATHS else TIMED, cfg["num_envs"] * cfg["segment"]
     gather.launches = 0
     dt, metrics = timed(step, n)
     launches = gather.launches
@@ -1272,19 +1330,21 @@ def phase_superstep(path: str, gather) -> dict:
     sync_guarded(step)
     check_policy(path, algo, state[0], state[1].obs, gen, env, state[1].policy_state)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    profile = _profile(step)
-    kernels, busy_ms = profile["kernels"], profile["busy_ms"]
+    profile = _profile(step) if path not in LEARN_GRAPH_PATHS + GRAPH_COVERED else None
+    kernels, busy_ms = (profile["kernels"], profile["busy_ms"]) if profile else (None, None)
     result = {"env_steps_per_s": n * steps / dt, "ms_per_superstep": dt / n * 1e3, **metrics, "profile": profile,
               "updates_per_superstep": cfg["updates"], "gather_rows_cast_per_superstep": launches / (n + WARMUP),
               "device_kernels_per_superstep": kernels, "device_busy_ms_per_superstep_profiled": busy_ms,
-              "max_memory_allocated_gib": peak}
+              "max_memory_allocated_gib": peak, "memory_base_gib": base}
     if buffer is not None:
         result["ring_gb"] = sum(x.numel() * x.element_size() for x in tree_leaves(state[2].storage)) / 1e9
     log(f"{path}: {n} supersteps of {cfg['num_envs']} envs x {cfg['segment']} steps + {cfg['updates']} updates of "
         f"batch {cfg['batch']}: {result['env_steps_per_s']:.1f} env-steps/s, {result['ms_per_superstep']:.2f} ms "
         f"per superstep, metrics {metrics}, gather_rows_cast launches {launches} in {n + WARMUP}, max_memory_allocated "
-        f"{peak:.3f} GiB; a superstep under torch.cuda.set_sync_debug_mode('error') raised no host sync; "
-        f"profiled superstep: {kernels} device kernels, device busy {busy_ms:.2f} ms")
+        f"{peak:.3f} GiB; a superstep under torch.cuda.set_sync_debug_mode('error') raised no host sync"
+        + (f"; profiled superstep: {kernels} device kernels, device busy {busy_ms:.2f} ms" if profile else ""))
+    if path in GRAPH_COVERED:
+        return result
 
     # where a superstep's time goes: its parts timed alone
     if buffer is None:
@@ -1354,8 +1414,10 @@ def phase_superstep(path: str, gather) -> dict:
             parts = {"rollout": rollout,
                      "presample": lambda: algo.presample(buffer, state[2], gen, cfg["updates"] * cfg["batch"]),
                      "updates incl. presample": updates}
-    result["breakdown_ms"] = breakdown(parts)
-    log(f"{path} breakdown (median of 3, ms): " + ", ".join(f"{k} {v:.2f}" for k, v in result["breakdown_ms"].items()))
+    reps = BREAKDOWN_REPS_COMPILED if path in COMPILED_PATHS else BREAKDOWN_REPS
+    result["breakdown_ms"] = breakdown(parts, reps)
+    log(f"{path} breakdown (median of {reps}, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in result["breakdown_ms"].items()))
     if path in PER_PATHS:
         # device kernels and busy time of each PER operation, profiled alone
         result["per_kernels_busy_ms"] = {k: _profile_counts(parts[k]) for k in parts if k.startswith("per ")}
@@ -1364,15 +1426,17 @@ def phase_superstep(path: str, gather) -> dict:
     return result
 
 
+def _copy_generator(g: torch.Generator) -> torch.Generator:
+    c = torch.Generator(device=g.device)
+    c.set_state(g.get_state())
+    return c
+
+
 def _clone_run_state(ts, cstate, bstate, generator) -> list:
     """``[ts, cstate, bstate, generator]`` copied, sharing no tensor or
     generator with the originals (the generators in the states they
     hold)."""
-    memo = {}
-    for g in (generator, cstate.rng):
-        c = torch.Generator(device=g.device)
-        c.set_state(g.get_state())
-        memo[id(g)] = c
+    memo = {id(g): _copy_generator(g) for g in (generator, cstate.rng)}
     return [*copy.deepcopy((ts, cstate, bstate), memo), memo[id(generator)]]
 
 
@@ -1436,12 +1500,12 @@ def phase_graph(path: str, gather, eager_profile: dict) -> dict:
     bitwise: every carried tensor (parameters, optimizer state, targets,
     ring, cursors, collect state), the generators' states, ``outputs`` and
     ``metrics`` of each superstep; ms a superstep in turns (eager, graph,
-    graph, eager); one replay and one eager superstep under the profiler
-    (the card's kernels and busy time, the host's launch calls, the
-    kernel's device launches in the replay), beside ``eager_profile``
-    (``phase_superstep``'s, whose Adam is not capturable); one replay under
-    the sync guard; peak memory; the bytes of carried state copied back a
-    superstep, the ring's storage unmoved.  A leaf that is not bitwise is
+    graph, eager); one replay under the profiler (the card's kernels and
+    busy time, the host's launch calls, the kernel's device launches in the
+    replay), beside ``eager_profile`` (``phase_superstep``'s, whose Adam is
+    not capturable; None on the ``GRAPH_COVERED`` paths, which skip the
+    turns and the profiles); one replay under the sync guard; peak memory;
+    the bytes of carried state copied back a superstep, the ring's storage unmoved.  A leaf that is not bitwise is
     held to phase 4's limits and named in the result (with whether two
     eager runs agree on it)."""
     from tianshou_tpu_torch.data.tree import tree_leaves
@@ -1531,8 +1595,9 @@ def phase_graph(path: str, gather, eager_profile: dict) -> dict:
             not_bitwise[n] = {"max_abs_err": max(errs), "eager_runs_differ": n in eager_varies}
         log(f"{path}: graph vs eager not bitwise at {len(differ)} leaves, within phase 4's limits: {not_bitwise}")
     del spare, snaps
-    ms = {"eager": [], "graph": []}
-    for name in ("eager", "graph", "graph", "eager"):
+    covered = path in GRAPH_COVERED
+    ms = {"eager": [], "graph": []} if not covered else None
+    for name in ("eager", "graph", "graph", "eager") if not covered else ():
         state, step = (eager_state, eager_step) if name == "eager" else (graph_state, graph_step)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1540,11 +1605,13 @@ def phase_graph(path: str, gather, eager_profile: dict) -> dict:
             metrics = step(state)[1]
         _read(metrics)
         ms[name].append((time.perf_counter() - t0) / GRAPH_TURN * 1e3)
-    profiled = {"eager": eager_profile, "eager_capturable": _profile(lambda: eager_step(eager_state)),
-                "graph": _profile(lambda: graph_step(graph_state))}
-    if len(profiled["graph"]["gather_rows_cast_ms"]) != KERNEL_LAUNCHES[path]:
-        raise AssertionError(f"{path}: a profiled replay ran gather_rows_cast "
-                             f"{len(profiled['graph']['gather_rows_cast_ms'])} times, not {KERNEL_LAUNCHES[path]}")
+    profiled = None
+    if not covered:
+        profiled = {"eager": eager_profile, "graph": _profile(lambda: graph_step(graph_state))}
+        if len(profiled["graph"]["gather_rows_cast_ms"]) != KERNEL_LAUNCHES[path]:
+            raise AssertionError(f"{path}: a profiled replay ran gather_rows_cast "
+                                 f"{len(profiled['graph']['gather_rows_cast_ms'])} times, not "
+                                 f"{KERNEL_LAUNCHES[path]}")
     sync_guarded(lambda: graph_step(graph_state))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1553,33 +1620,367 @@ def phase_graph(path: str, gather, eager_profile: dict) -> dict:
     replay_peak = torch.cuda.max_memory_allocated() / 2**30
     if [t.data_ptr() for t in tree_leaves(graph_state[2].storage)] != storage:
         raise AssertionError(f"{path}: the ring's storage moved")
-    if profiled["graph"]["host_launch_calls"].get("cudaGraphLaunch", 0) + profiled["graph"]["host_launch_calls"].get(
-            "cuGraphLaunch", 0) != 1 or profiled["graph"]["host_launches"] > 8:
-        raise AssertionError(f"{path}: a replayed superstep's host launches {profiled['graph']}")
-    busy = {k: profiled[k]["busy_ms"] / (sum(ms[m]) / len(ms[m]))
-            for k, m in (("eager_capturable", "eager"), ("graph", "graph"))}
     result = {"warm_up_calls": calls, "warm_up_and_capture_s": warm_s, "warm_ups_s": compiled.warm_up_s,
               "captures_s": compiled.capture_s, "graphs": len(compiled.graphs), "patterns": patterns,
               "warm_up_gather_launches": warm_launches, "bitwise": not differ, "not_bitwise": not_bitwise,
-              "ms_per_superstep_turns": ms, "profiled": profiled, "device_busy_share": busy,
               "capture_peak_gib": capture_peak, "replay_peak_gib": replay_peak,
-              "copy_back_bytes": compiled.copy_back_bytes,
-              "gather_rows_cast_per_replay_profiled": len(profiled["graph"]["gather_rows_cast_ms"])}
+              "copy_back_bytes": compiled.copy_back_bytes}
+    if covered:
+        log(f"{path} graph (its superstep covered by another path's: no turns, no profiles): "
+            f"{len(compiled.graphs)} graph(s) for {patterns} pattern(s) in {calls} call(s), {warm_s:.2f} s (warm-up "
+            f"supersteps {compiled.warm_up_s:.2f} s, captures {compiled.capture_s:.2f} s); two replays vs two eager "
+            f"supersteps {'bitwise' if not differ else 'within limits'}; peak {capture_peak:.3f} GiB over the "
+            f"warm-ups and captures, {replay_peak:.3f} GiB a replay; {compiled.copy_back_bytes} bytes copied back a "
+            f"superstep; gather_rows_cast {warm_launches} host launches in the warm-ups; a replay under the sync "
+            f"guard raised nothing")
+        del compiled, eager_state, graph_state
+        _fresh_memory()
+        return result
+    if profiled["graph"]["host_launch_calls"].get("cudaGraphLaunch", 0) + profiled["graph"]["host_launch_calls"].get(
+            "cuGraphLaunch", 0) != 1 or profiled["graph"]["host_launches"] > 8:
+        raise AssertionError(f"{path}: a replayed superstep's host launches {profiled['graph']}")
+    busy = {k: profiled[k]["busy_ms"] / (sum(ms[k]) / len(ms[k])) for k in ("eager", "graph")}
+    result.update({"ms_per_superstep_turns": ms, "profiled": profiled, "device_busy_share": busy,
+                   "gather_rows_cast_per_replay_profiled": len(profiled["graph"]["gather_rows_cast_ms"])})
     log(f"{path} graph: {len(compiled.graphs)} graph(s) for {patterns} pattern(s) in {calls} call(s), "
         f"{warm_s:.2f} s (warm-up supersteps {compiled.warm_up_s:.2f} s, captures {compiled.capture_s:.2f} s); two "
         f"replays vs two eager supersteps {'bitwise' if not differ else 'within limits'}; ms a superstep in turns "
         f"eager {[round(x, 2) for x in ms['eager']]} graph {[round(x, 2) for x in ms['graph']]}; profiled: eager "
-        f"(phase 5) {profiled['eager']['kernels']} records / {profiled['eager']['host_launches']} host launches, "
-        f"eager with capturable optimizers {profiled['eager_capturable']['kernels']} records "
-        f"({profiled['eager_capturable']['memsets']} memsets) / {profiled['eager_capturable']['host_launches']}, "
-        f"graph {profiled['graph']['kernels']} records ({profiled['graph']['memsets']} memsets) / "
+        f"(phase 5, Adam as built) {profiled['eager']['kernels']} records / {profiled['eager']['host_launches']} host "
+        f"launches, graph {profiled['graph']['kernels']} records ({profiled['graph']['memsets']} memsets) / "
         f"{profiled['graph']['host_launches']} host launches {profiled['graph']['host_launch_calls']}; busy share "
-        f"eager {busy['eager_capturable']:.3f} graph {busy['graph']:.3f}; peak {capture_peak:.3f} GiB over the "
-        f"warm-ups and captures, {replay_peak:.3f} GiB a replay; {compiled.copy_back_bytes} bytes copied back a "
-        f"superstep; gather_rows_cast {warm_launches} host launches in the warm-ups, "
+        f"eager {busy['eager']:.3f} graph {busy['graph']:.3f}; peak {capture_peak:.3f} GiB over the warm-ups and "
+        f"captures, {replay_peak:.3f} GiB a replay; {compiled.copy_back_bytes} bytes copied back a superstep; "
+        f"gather_rows_cast {warm_launches} host launches in the warm-ups, "
         f"{len(profiled['graph']['gather_rows_cast_ms'])} device launches in a profiled replay; a replay under the "
         f"sync guard raised nothing")
     del compiled, eager_state, graph_state
+    _fresh_memory()
+    return result
+
+
+class _LearnGraph:
+    """A path of ``LEARN_GRAPH_PATHS`` with its compiled learn step and the
+    eager step it replays, both over states ``[ts, cstate, bstate,
+    generator]``.  :meth:`next_input` is the host paths' next segment (None
+    elsewhere); :meth:`graph` writes it into the static staging (one packed
+    copy) and calls the compiled step; :meth:`eager` runs the eager builder
+    on a state of its own (``HostStep.device``, the host learning, the
+    superstep), the segment through the eager upload.  ``start`` makes the
+    compiled step over the initial state (the host paths' first segment its
+    staging) and returns the first input."""
+
+    def __init__(self, path: str):
+        from tianshou_tpu_torch.utils.device import fork_generator, make_generator
+
+        self.path, self.closing = path, []
+        self.host_onpolicy = path in HOST_PATHS and path in ONPOLICY_PATHS
+        self.host_offpolicy = path in HOST_PATHS and not self.host_onpolicy
+        if path in OFFLINE_PATHS:
+            _, self.algo, test, buffer, bstate, trainer = build_offline_path(path, "cuda")
+            self.closing.append(test.venv)
+            gen = make_generator(0, "cuda")
+            ts = self.algo.init(fork_generator(gen))
+            if hasattr(self.algo, "prepare_offline"):
+                bstate = self.algo.prepare_offline(buffer, bstate)
+            self.state = [ts, (), bstate, gen]
+            self.updates = trainer.updates_per_superstep
+        else:
+            _, self.algo, col, _, trainer = build(path, **PHASE_SMALL.get(path, {}))
+            self.col = col
+            self.closing += [trainer.train_collector.venv, trainer.test_collector.venv]
+            self.updates = trainer.updates_per_segment
+            if self.host_offpolicy:
+                self.loop, _ = trainer._host_setup()
+                self.state = [self.loop.ts, None, self.loop.bstate, self.loop.generator]
+            elif self.host_onpolicy:
+                ts, gen, self.g_collect = trainer._host_setup()
+                self.state = [ts, None, None, gen]
+            else:
+                gen = make_generator(0, "cuda")
+                g_init, g_reset = fork_generator(gen), fork_generator(gen)
+                cstate = col.reset(g_reset)
+                self.state = [self.algo.init(g_init), cstate, None, gen]
+        self.trainer = trainer
+        self.eager_fn = (trainer._build_learn() if self.host_onpolicy else None if self.host_offpolicy
+                         else trainer._build_superstep())
+
+    def generators(self, state) -> list:
+        """The step's generator and, on the on-policy device path, the
+        collect state's."""
+        rng = getattr(state[1], "rng", None)
+        return [state[3]] + ([rng] if rng is not None else [])
+
+    def next_input(self):
+        if self.host_offpolicy:
+            return self.loop.collect(0.0)[1]
+        if self.host_onpolicy:
+            return self.col.collect(self.state[0], None, self.trainer.segment_len, self.g_collect, explore=True,
+                                    record_traj=True)[2]
+        return None
+
+    def start(self):
+        """The compiled step over the initial state; returns the first
+        input (written into the staging)."""
+        t, (ts, cstate, bstate, _) = self.trainer, self.state
+        inp = self.next_input()
+        if self.host_offpolicy:
+            self.compiled = t._compile_host_step(self.loop.host_step, ts, bstate, self.loop.host_step.upload(inp))
+        elif self.host_onpolicy:
+            self.compiled = t._compile_learn(ts, self.col.upload(inp))
+        elif self.path in OFFLINE_PATHS:
+            self.compiled = t._compile_superstep(ts, bstate)
+        else:
+            self.compiled = t._compile_superstep(ts, cstate)
+        if self.host_onpolicy or self.host_offpolicy:
+            self.state[1] = self.compiled.cstate
+        return inp
+
+    def stage(self, inp) -> None:
+        """``inp`` into the static staging: the segment's one packed copy."""
+        if self.host_offpolicy:
+            self.loop.host_step.upload(inp, self.state[1])
+        elif self.host_onpolicy:
+            self.col.upload(inp, self.state[1])
+
+    def replay(self):
+        """The compiled step on the graph's state as staged: ``(outputs,
+        metrics)``."""
+        st = self.state
+        st[0], st[1], st[2], outputs, metrics = self.compiled(*st[:3], st[3], 0.0)
+        return outputs, metrics
+
+    def graph(self, inp):
+        self.stage(inp)
+        return self.replay()
+
+    def eager(self, state, inp):
+        fn = self.eager_fn
+        if self.host_offpolicy:
+            hs = self.loop.host_step
+            state[0], state[2], metrics = hs.device(state[0], state[2], hs.upload(inp), state[3])
+            return None, metrics
+        if self.host_onpolicy:
+            state[0], metrics = fn(state[0], self.col.unpack(self.col.upload(inp)), state[3])
+            return None, metrics
+        if self.path in OFFLINE_PATHS:
+            state[0], state[2], metrics = fn(state[0], state[2], state[3])
+            return None, metrics
+        state[0], state[1], outputs, metrics = fn(state[0], state[1], state[3])
+        return outputs, metrics
+
+    def clone(self) -> list:
+        """The graph's state copied for the eager steps (the host paths'
+        staging left out: their input comes from the segment), its
+        generators too."""
+        st = self.state
+        memo = {id(g): _copy_generator(g) for g in self.generators(st)}
+        device_cstate = not (self.host_onpolicy or self.host_offpolicy)
+        ts, cstate, bstate = copy.deepcopy((st[0], st[1] if device_cstate else None, st[2]), memo)
+        return [ts, cstate, bstate, memo[id(st[3])]]
+
+    def leaves(self, state, outputs=None, metrics=None) -> list:
+        from tianshou_tpu_torch.data.tree import tree_leaves
+        from tianshou_tpu_torch.utils.graphs import named_tensors
+
+        device_cstate = not (self.host_onpolicy or self.host_offpolicy)
+        out = named_tensors((state[0], state[1] if device_cstate else None, state[2]))
+        out += [(f"generator[{i}]", g.get_state()) for i, g in enumerate(self.generators(state))]
+        if outputs is not None:
+            out += [(f"outputs[{i}]", t) for i, t in enumerate(tree_leaves(outputs))]
+        return out + [(f"metrics[{k!r}]", v) for k, v in (metrics or {}).items()]
+
+    def close(self) -> None:
+        for venv in self.closing:
+            if hasattr(venv, "close"):
+                venv.close()
+
+
+def _capture_stream_setup_bytes(lg: _LearnGraph) -> int:
+    """The bytes that one eager step of ``lg``'s path, run on a copy of its
+    state on the capture stream (``utils.graphs.capture_stream``), leaves
+    allocated once the copy is freed: the workspaces that cuBLAS and
+    cuBLASLt keep for that stream (held for the process; 0 where an earlier
+    capture set them up), made before the warm-up so that the capture's
+    peak shows what the capture itself holds."""
+    from tianshou_tpu_torch.utils.graphs import capture_stream, named_tensors
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    state, inp = lg.clone(), lg.next_input()
+    stream = capture_stream(named_tensors(state[0])[0][1].device)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        lg.eager(state, inp)
+    torch.cuda.current_stream().wait_stream(stream)
+    del state, inp
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() - before
+
+
+def phase_learn_graph(path: str, gather, eager_peak: float, eager_base: float) -> dict:
+    """A compiled learn step of slice 15 (``LEARN_GRAPH_PATHS``) at full
+    width: the offline superstep, the on-policy superstep, the on-policy
+    host learn or the off-policy host step, each a CUDA graph of its eager
+    builder (:class:`_LearnGraph`).  First the compiled step's first call
+    (the capture's warm-up, then the capture; its times and peak memory:
+    above the memory allocated when the phase began, at most 1.2x phase 5's
+    ``eager_peak`` above its own ``eager_base``, once the capture stream's
+    library workspaces are counted apart, :func:`_capture_stream_setup_bytes`:
+    what earlier phases leave allocated, other streams' workspaces among
+    it, moves both bases); from copies
+    of the state it leaves, two eager steps against two replays on the same
+    inputs, bitwise in every carried tensor, the generators' states,
+    ``outputs`` and ``metrics`` (a leaf that is not bitwise is held to phase
+    4's limits and named); ms a step in turns (eager, graph, graph, eager;
+    the host paths' steps take a segment collected before, through its
+    upload); one eager step (its optimizers capturable as the graph's) and
+    one replay profiled (kernels, busy time, host launch calls); one replay
+    under the sync guard; peak memory a replay; bytes copied back; the
+    storage of the ring or dataset unmoved.  ``ppo_host``'s learning rate
+    follows its schedule across replays; ``atari_host`` runs
+    ``gather_rows_cast`` twice in a profiled replay, none from the host."""
+    from tianshou_tpu_torch.data.tree import tree_leaves
+    from tianshou_tpu_torch.utils.graphs import CapturedStep, optimizers, prepare_optimizer
+
+    _fresh_memory()
+    base = torch.cuda.memory_allocated() / 2**30
+    lg = _LearnGraph(path)
+    want = KERNEL_LAUNCHES[path]
+    storage = ([t.data_ptr() for t in tree_leaves(lg.state[2].storage)] if lg.state[2] is not None else [])
+    workspace = _capture_stream_setup_bytes(lg) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    gather.launches = 0
+    t0 = time.perf_counter()
+    lg.start()
+    if not isinstance(lg.compiled, CapturedStep):
+        raise AssertionError(f"{path}: the trainer compiled a {type(lg.compiled).__name__}")
+    patterns = _pattern_count(lg.algo, lg.state[0], lg.updates)
+    calls = 0
+    while len(lg.compiled.graphs) < patterns and calls < 64:
+        lg.replay() if calls == 0 else lg.graph(lg.next_input())
+        calls += 1
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    capture_peak = torch.cuda.max_memory_allocated() / 2**30
+    warm_launches = gather.launches
+    if len(lg.compiled.graphs) != patterns or warm_launches != want * patterns:
+        raise AssertionError(f"{path}: {len(lg.compiled.graphs)} graphs for {patterns} patterns in {calls} calls, "
+                             f"gather_rows_cast launched {warm_launches} times from the host")
+    lr_seen = []
+    eager_state = lg.clone()
+    for opt in optimizers(eager_state[0]):  # as the capture made the graph's
+        prepare_optimizer(opt)
+    inputs = [lg.next_input() for _ in range(2)]
+    snaps: dict[str, list] = {"eager": [], "graph": []}
+    launches, replays = {}, sum(g.replays for g in lg.compiled.graphs.values())
+    for name in ("eager", "graph"):
+        gather.launches = 0
+        for x in inputs:
+            outputs, metrics = lg.eager(eager_state, x) if name == "eager" else lg.graph(x)
+            state = eager_state if name == "eager" else lg.state
+            snaps[name].append([(n, t.detach().clone()) for n, t in lg.leaves(state, outputs, metrics)
+                                if not n.startswith("state[2].storage")])
+            if name == "graph" and path == "ppo_host":
+                lr_seen.append(lg.state[0].optimizer.param_groups[0]["lr"].clone())
+        launches[name] = gather.launches
+    if sum(g.replays for g in lg.compiled.graphs.values()) != replays + 2:
+        raise AssertionError(f"{path}: the two compared graph steps were not both replays")
+    if launches["graph"] != 0 or launches["eager"] != 2 * want:
+        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times from the host in two steps")
+    differ = sorted(set(_differing(snaps["eager"][0], snaps["graph"][0])
+                        + _differing(snaps["eager"][1], snaps["graph"][1])
+                        + _differing(lg.leaves(eager_state), lg.leaves(lg.state))))
+    gens = [[v for n, v in s if n.startswith("generator[")] for s in snaps["graph"]]
+    if any(torch.equal(a, b) for a, b in zip(*gens)):
+        raise AssertionError(f"{path}: a generator did not advance between two replays")
+    not_bitwise = {}
+    for n in differ:
+        errs = []
+        for i in range(2):
+            got, ref = dict(snaps["graph"][i]), dict(snaps["eager"][i])
+            if n in got and not _bitwise(got[n], ref[n]):
+                if not got[n].is_floating_point():
+                    raise AssertionError(f"{path}: graph and eager steps differ at {n}")
+                errs.append(_assert_close(f"{path} graph vs eager {n}", got[n], ref[n]))
+        not_bitwise[n] = {"max_abs_err": max(errs, default=0.0)}
+    if differ:
+        log(f"{path}: learn graph vs eager not bitwise at {len(differ)} leaves, within phase 4's limits: "
+            f"{not_bitwise}")
+    del snaps
+    x = inputs[-1]
+    ms = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = (lg.eager(eager_state, x) if name == "eager" else lg.graph(x))[1]
+        _read(metrics)
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+    profiled = {"eager_capturable": _profile(lambda: lg.eager(eager_state, x)),
+                "graph": _profile(lambda: lg.graph(x))}
+    host_calls = profiled["graph"]["host_launch_calls"]
+    if (host_calls.get("cudaGraphLaunch", 0) + host_calls.get("cuGraphLaunch", 0) != 1
+            or profiled["graph"]["host_launches"] > LEARN_REPLAY_HOST_LAUNCHES):
+        raise AssertionError(f"{path}: a replayed learn step's host launches {profiled['graph']}")
+    if len(profiled["graph"]["gather_rows_cast_ms"]) != want:
+        raise AssertionError(f"{path}: a profiled replay ran gather_rows_cast "
+                             f"{len(profiled['graph']['gather_rows_cast_ms'])} times, not {want}")
+    del eager_state  # the eager steps' copy of the state (a ring, a dataset) outside the replay's peak
+    lg.stage(lg.next_input())
+    sync_guarded(lg.replay)
+    lg.stage(lg.next_input())  # the segment's collection (acting) and copy outside the replay's peak
+    _fresh_memory()
+    torch.cuda.reset_peak_memory_stats()
+    lg.replay()
+    torch.cuda.synchronize()
+    replay_peak = torch.cuda.max_memory_allocated() / 2**30
+    if lg.state[2] is not None and [t.data_ptr() for t in tree_leaves(lg.state[2].storage)] != storage:
+        raise AssertionError(f"{path}: the storage of the ring or dataset moved")
+    if capture_peak - base - workspace > 1.2 * (eager_peak - eager_base):
+        raise AssertionError(f"{path}: peak {capture_peak:.3f} GiB over the warm-up and capture on {base:.3f} allocated "
+                             f"before ({workspace:.3f} of it the capture stream's library workspaces), above 1.2x the "
+                             f"eager {eager_peak:.3f} on {eager_base:.3f}")
+    result = {"warm_up_and_capture_s": warm_s, "warm_ups_s": lg.compiled.warm_up_s,
+              "captures_s": lg.compiled.capture_s, "graphs": len(lg.compiled.graphs), "patterns": patterns,
+              "warm_up_gather_launches": warm_launches, "bitwise": not differ, "not_bitwise": not_bitwise,
+              "ms_per_step_turns": ms, "profiled": profiled,
+              "device_busy_share": {k: profiled[k]["busy_ms"] / (sum(ms[m]) / len(ms[m]))
+                                    for k, m in (("eager_capturable", "eager"), ("graph", "graph"))},
+              "eager_peak_gib": eager_peak, "capture_peak_gib": capture_peak, "replay_peak_gib": replay_peak,
+              "eager_base_gib": eager_base, "base_gib": base, "capture_stream_workspace_gib": workspace,
+              "copy_back_bytes": lg.compiled.copy_back_bytes,
+              "gather_rows_cast_per_replay_profiled": len(profiled["graph"]["gather_rows_cast_ms"])}
+    if path == "ppo_host":
+        # the schedule's rate for the last update, from the host update count
+        ts = lg.state[0]
+        lr = ts.optimizer.param_groups[0]["lr"]
+        expect = lg.algo.lr(torch.tensor(ts.step - 1, device=lr.device))
+        if not _bitwise(lr, expect.to(lr.dtype)) or torch.equal(lr_seen[0], lr) or int(ts.lr_count) != ts.step:
+            raise AssertionError(f"{path}: learning rate {float(lr)} after {ts.step} updates (schedule "
+                                 f"{float(expect)}; first replay's {float(lr_seen[0])})")
+        result["learning_rate"] = {"first_replay": float(lr_seen[0]), "last": float(lr), "updates": ts.step}
+        log(f"{path}: learning rate {float(lr_seen[0]):.9g} after the first compared replay, {float(lr):.9g} "
+            f"after {ts.step} updates, the schedule's at that count bitwise")
+    if path in OFFLINE_PATHS:
+        result["dataset_gb"] = sum(x.numel() * x.element_size() for x in tree_leaves(lg.state[2].storage)) / 1e9
+    log(f"{path} learn graph ({type(lg.trainer).__name__}): {len(lg.compiled.graphs)} graph(s) in {calls} "
+        f"call(s), {warm_s:.2f} s (warm-up {lg.compiled.warm_up_s:.2f} s, capture {lg.compiled.capture_s:.2f} s); "
+        f"two replays vs two eager steps {'bitwise' if not differ else 'within limits'}; ms a step in turns eager "
+        f"{[round(v, 2) for v in ms['eager']]} graph {[round(v, 2) for v in ms['graph']]}; profiled: eager "
+        f"(capturable optimizers) {profiled['eager_capturable']['kernels']} records / "
+        f"{profiled['eager_capturable']['host_launches']} host launches, graph {profiled['graph']['kernels']} "
+        f"records / {profiled['graph']['host_launches']} host launches {host_calls}; busy share eager "
+        f"{result['device_busy_share']['eager_capturable']:.3f} graph {result['device_busy_share']['graph']:.3f}; "
+        f"peak {eager_peak:.3f} GiB eager (phase 5, on {eager_base:.3f} allocated before it), {capture_peak:.3f} over "
+        f"the warm-up and capture (on {base:.3f}; the capture stream's library workspaces {workspace:.3f} of it), "
+        f"{replay_peak:.3f} a replay; "
+        f"{lg.compiled.copy_back_bytes} bytes copied back a step; gather_rows_cast "
+        f"{warm_launches} host launches in the warm-up, {len(profiled['graph']['gather_rows_cast_ms'])} device "
+        f"launches in a profiled replay; the storage unmoved; a replay under the sync guard raised nothing")
+    lg.close()
+    del lg
     _fresh_memory()
     return result
 
@@ -1679,9 +2080,10 @@ def phase_host(path: str, gather) -> dict:
     cfg = PATHS[path]
     onpolicy = path in ONPOLICY_PATHS
     _fresh_memory()
-    env, algo, col, _, trainer = build(path)
+    base = torch.cuda.memory_allocated() / 2**30
+    env, algo, col, _, trainer = build(path, **PHASE_SMALL.get(path, {}))
     hp = (_OnPolicyHost if onpolicy else _OffPolicyHost)(trainer)
-    n, steps = TIMED, cfg["num_envs"] * cfg["segment"]
+    n, steps = TIMED_COMPILED if path in COMPILED_PATHS else TIMED, cfg["num_envs"] * cfg["segment"]
     gather.launches = 0
     copies = TreePacker.copies
     dt, metrics = timed(lambda: hp.device(hp.upload(hp.collect())), n)
@@ -1707,8 +2109,10 @@ def phase_host(path: str, gather) -> dict:
     if h2d.copies != [(floats,)]:
         raise AssertionError(f"{path}: host-to-device copies in a segment, not one of {floats} floats: "
                              f"{h2d.copies}")
-    traj = hp.collect()
-    kernels, busy_ms = _profile_counts(lambda: hp.device(hp.upload(traj)))
+    kernels = busy_ms = None
+    if path not in LEARN_GRAPH_PATHS:
+        traj = hp.collect()
+        kernels, busy_ms = _profile_counts(lambda: hp.device(hp.upload(traj)))
     check_policy(path, algo, hp.ts, torch.as_tensor(col.obs, device=algo.device), hp.generator, env)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
@@ -1724,21 +2128,23 @@ def phase_host(path: str, gather) -> dict:
     if onpolicy:
         parts["processing pass"] = lambda: algo.process_rollout(hp.ts, col.unpack(held["up"]))
     parts["device part"] = lambda: hp.device(held["up"])
+    reps = BREAKDOWN_REPS_COMPILED if path in COMPILED_PATHS else BREAKDOWN_REPS
     result = {"env_steps_per_s": n * steps / dt, "ms_per_segment": dt / n * 1e3, **metrics,
               "updates_per_segment": cfg["updates"], "h2d_copies_per_segment": len(h2d.copies),
               "gather_rows_cast_per_segment": launches / (n + WARMUP),
               "device_kernels_per_segment": kernels, "device_busy_ms_per_segment_profiled": busy_ms,
-              "max_memory_allocated_gib": peak, "breakdown_ms": breakdown(parts)}
+              "max_memory_allocated_gib": peak, "memory_base_gib": base, "breakdown_ms": breakdown(parts, reps)}
     log(f"{path}: {n} segments of {cfg['num_envs']} host envs x {cfg['segment']} steps + {cfg['updates']} updates "
         f"of batch {cfg['batch']}: {result['env_steps_per_s']:.1f} env-steps/s, {result['ms_per_segment']:.2f} ms "
         f"per segment, metrics {metrics}, {copies} packed copies and {launches} gather_rows_cast launches in "
         f"{n + WARMUP}, "
         f"max_memory_allocated {peak:.3f} GiB; the device part under torch.cuda.set_sync_debug_mode('error') raised "
-        f"no host sync; one host-to-device copy dispatched in a segment ({floats} floats); {kernels} device kernels "
-        f"and device busy {busy_ms:.2f} ms in its device part")
+        f"no host sync; one host-to-device copy dispatched in a segment ({floats} floats)"
+        + (f"; {kernels} device kernels and device busy {busy_ms:.2f} ms in its device part" if kernels else ""))
     if onpolicy:
         result["processing_passes_per_segment"] = _processing_passes(algo, cfg["repeat"])
-    log(f"{path} breakdown (median of 3, ms): " + ", ".join(f"{k} {v:.2f}" for k, v in result["breakdown_ms"].items()))
+    log(f"{path} breakdown (median of {reps}, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in result["breakdown_ms"].items()))
     closing = [trainer]
     if path == "sac_host":
         result["pipeline_ms_per_segment"], piped_trainer = _pipeline_turns(path, hp.loop, n)
@@ -1763,6 +2169,7 @@ def _pipeline_turns(path: str, loop, n: int):
     _, _, _, _, piped_trainer = build_path(path, "cuda", pipeline=True)
     piped, _ = piped_trainer._host_setup()
     segments(piped, 2)
+    segments(loop, 2)  # each loop's first segment is its host step's capture
     turns = {"sequential": [], "pipelined": []}
     for name in ("sequential", "pipelined", "pipelined", "sequential"):
         lp = loop if name == "sequential" else piped
@@ -1778,14 +2185,16 @@ def _pipeline_turns(path: str, loop, n: int):
 
 def _run_captures(path: str, trainer, supersteps: int) -> int:
     """The graphs that ``trainer.run()`` captured, on a path of
-    ``GRAPH_PATHS`` (0 elsewhere): each of its supersteps must have been a
-    pattern's first call (run eagerly as its capture's warm-up) or a
-    replay, and at least one a replay."""
+    ``COMPILED_PATHS`` (0 elsewhere): each of its supersteps (segments) must
+    have been a pattern's first call (run eagerly as its capture's warm-up)
+    or a replay, and at least one a replay.  The compiled step is the
+    superstep, or on the host paths the learning or the host step."""
     from tianshou_tpu_torch.utils.graphs import CapturedStep
 
-    compiled = getattr(trainer, "compiled_superstep", None)
-    if path not in GRAPH_PATHS:
+    if path not in COMPILED_PATHS:
         return 0
+    compiled = next((c for c in (getattr(trainer, name, None) for name in (
+        "compiled_superstep", "compiled_learn", "compiled_host_step")) if c is not None), None)
     if not isinstance(compiled, CapturedStep):
         raise AssertionError(f"{path}: run() did not launch the compiled superstep ({type(compiled).__name__})")
     captures, replays = len(compiled.graphs), sum(g.replays for g in compiled.graphs.values())
@@ -1801,11 +2210,11 @@ def _counted_run(path: str, gather, run):
     """``run()`` with ``gather``'s count set to 0 just before it: its
     result, the count read just after it (the wrapper's launches from the
     host) and, where the path's superstep runs the kernel inside a CUDA
-    graph (``GRAPH_PATHS``), the kernel's device records in the profiler
+    graph (``COMPILED_PATHS``), the kernel's device records in the profiler
     over the same run (the host's launches and the replays' alike; None
     elsewhere)."""
     gather.launches = 0
-    if path not in GRAPH_PATHS or not KERNEL_LAUNCHES[path]:
+    if path not in COMPILED_PATHS or not KERNEL_LAUNCHES[path]:
         out = run()
         return out, gather.launches, None
     result = []
@@ -1819,7 +2228,7 @@ def _run_launches(path: str, host: int, device: int | None, supersteps: int, cap
     warm-ups' (every superstep's off the graph paths); on the card (the
     profiler), every superstep's.  Returns the launches the card ran."""
     want = KERNEL_LAUNCHES[path]
-    if host != want * (captures if path in GRAPH_PATHS else supersteps):
+    if host != want * (captures if path in COMPILED_PATHS else supersteps):
         raise AssertionError(f"{path}: gather_rows_cast launched {host} times from the host in run() "
                              f"({supersteps} supersteps, {captures} warm-ups)")
     if device is not None and device != want * supersteps:
@@ -1924,9 +2333,10 @@ def build_onpolicy_path(path: str, device):
     return env, algo, train, None, trainer
 
 
-def build(path: str):
+def build(path: str, **small):
     """A path at full width on the card: ``(env, algo, train collector,
-    buffer or None, trainer)``."""
+    buffer or None, trainer)``; ``small`` overrides an off-policy path's
+    sizes (:func:`build_path`)."""
     if path in HIGHLEVEL_PATHS:
         world = highlevel_experiment(path).build_world(logger=memory_logger())
         trainer, cfg = world.trainer, PATHS[path]
@@ -1934,7 +2344,7 @@ def build(path: str):
         if wired != (cfg["segment"], cfg["updates"], cfg["batch"], cfg["capacity"]):
             raise AssertionError(f"{path}: the builder wired (segment, updates, batch, capacity) {wired}")
         return world.envs.train_venv.env, world.algo, trainer.train_collector, trainer.buffer, trainer
-    return build_onpolicy_path(path, "cuda") if path in ONPOLICY_PATHS else build_path(path, "cuda")
+    return build_onpolicy_path(path, "cuda") if path in ONPOLICY_PATHS else build_path(path, "cuda", **small)
 
 
 def memory_logger():
@@ -2075,7 +2485,7 @@ def phase_checkpoint(path: str, trainer) -> dict:
     return result
 
 
-def phase_builder_beside_atari(reps: int = 3) -> dict:
+def phase_builder_beside_atari(reps: int = 1) -> dict:
     """``hl_atari`` (the builder's wiring) and ``atari`` (the wiring by
     hand) built side by side, each warmed up by 5 supersteps, then profiled
     and timed in turns (atari, hl_atari, hl_atari, atari, ...): kernels a
@@ -2094,8 +2504,8 @@ def phase_builder_beside_atari(reps: int = 3) -> dict:
     for i in range(reps):
         for p in ("atari", "hl_atari") if i % 2 == 0 else ("hl_atari", "atari"):
             kernels[p].append(_profile_counts(steps[p])[0])
-            dt, _ = timed(steps[p], TIMED)
-            ms[p].append(dt / TIMED * 1e3)
+            dt, _ = timed(steps[p], TIMED_COMPILED)
+            ms[p].append(dt / TIMED_COMPILED * 1e3)
     hl, atari = (sorted(kernels[p])[reps // 2] for p in ("hl_atari", "atari"))
     log(f"hl_atari beside atari, in turns: kernels a superstep {kernels['hl_atari']} vs {kernels['atari']}, "
         f"ms a superstep {[round(x, 2) for x in ms['hl_atari']]} vs {[round(x, 2) for x in ms['atari']]}")
@@ -2319,14 +2729,16 @@ def build_offline_path(path: str, device):
 
 
 def phase_offline(path: str, gather) -> dict:
-    """An offline path at full width: 1 warm-up and 2 timed supersteps of
-    ``updates`` updates, one under the sync guard, one under the profiler,
-    and the breakdown (one sampled batch, one update)."""
+    """An offline path at full width: 1 warm-up and timed supersteps of
+    ``updates`` updates, one under the sync guard, and the breakdown (one
+    sampled batch, one update); the profile of a superstep is the
+    learn-graph phase's."""
     from tianshou_tpu_torch.data.tree import tree_leaves
     from tianshou_tpu_torch.utils.device import fork_generator, make_generator
 
     cfg = PATHS[path]
     _fresh_memory()
+    base = torch.cuda.memory_allocated() / 2**30
     env, algo, test, buffer, bstate, trainer = build_offline_path(path, "cuda")
     gen = make_generator(0, algo.device)
     state = [algo.init(fork_generator(gen)), algo.prepare_offline(buffer, bstate)
@@ -2337,7 +2749,7 @@ def phase_offline(path: str, gather) -> dict:
         state[0], state[1], metrics = fn(state[0], state[1], gen)
         return metrics
 
-    n, updates, batch = TIMED, cfg["updates"], cfg["batch"]
+    n, updates, batch = TIMED_COMPILED if path in COMPILED_PATHS else TIMED, cfg["updates"], cfg["batch"]
     gather.launches = 0
     dt, metrics = timed(step, n)
     if gather.launches != KERNEL_LAUNCHES[path] * (n + WARMUP):
@@ -2348,12 +2760,10 @@ def phase_offline(path: str, gather) -> dict:
                      torch.arange(256, device=algo.device) * 997 % buffer.capacity, keys=("obs",))["obs"]
     check_policy(path, algo, state[0], obs, gen, env)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    kernels, busy_ms = _profile_counts(step)
     data_gb = sum(x.numel() * x.element_size() for x in tree_leaves(state[1].storage)) / 1e9
     result = {"gradient_steps_per_s": n * updates / dt, "samples_per_s": n * updates * batch / dt,
               "ms_per_superstep": dt / n * 1e3, **metrics, "updates_per_superstep": updates, "batch": batch,
-              "device_kernels_per_superstep": kernels, "device_busy_ms_per_superstep_profiled": busy_ms,
-              "max_memory_allocated_gib": peak, "dataset_gb": data_gb}
+              "max_memory_allocated_gib": peak, "memory_base_gib": base, "dataset_gb": data_gb}
 
     def sample():
         env_idx, pos, _ = buffer.sample_with_weights(state[1], gen, batch)
@@ -2364,8 +2774,7 @@ def phase_offline(path: str, gather) -> dict:
     log(f"{path}: {n} supersteps of {updates} updates of batch {batch} on a dataset of {data_gb:.3f} GB: "
         f"{result['gradient_steps_per_s']:.1f} gradient steps/s ({result['samples_per_s']:.0f} samples/s), "
         f"{result['ms_per_superstep']:.2f} ms per superstep, metrics {metrics}, max_memory_allocated {peak:.3f} GiB; "
-        f"a superstep under torch.cuda.set_sync_debug_mode('error') raised no host sync; profiled superstep: "
-        f"{kernels} device kernels, device busy {busy_ms:.2f} ms")
+        f"a superstep under torch.cuda.set_sync_debug_mode('error') raised no host sync")
     log(f"{path} breakdown (median of 3, ms): " + ", ".join(f"{k} {v:.2f}" for k, v in result["breakdown_ms"].items()))
     if hasattr(test.venv, "close"):
         test.venv.close()
@@ -3273,7 +3682,7 @@ def _farm(num_envs: int):
         proc.stdout.close()
 
 
-def phase_host_variants(n: int = 3) -> dict:
+def phase_host_variants(n: int = 2) -> dict:
     """sac_host's configuration through the host path's variants, each in
     turns with plain sac_host (plain, variant, variant, plain; ``n``
     segments a turn): a ``RemoteVectorEnv`` over a farm subprocess,
@@ -3996,8 +4405,10 @@ def phase_examples(gather) -> tuple[dict, int]:
     """The ported example scripts on the card, each through its ``main`` with
     the in-memory logger: wall time, rate, best reward and the kernel's
     launches over the run (counted from 0 just before it).  ``atari_dqn``
-    must launch ``gather_rows_cast`` twice a training segment (its
-    presample's two stacked keys), and a presample of its trained ring
+    must run ``gather_rows_cast`` twice a training segment (its presample's
+    two stacked keys; the profiler's device records, since its host step
+    replays a graph: from the host only in the capture's warm-up), and a
+    presample of its trained ring
     through the kernel must equal the plain version's bitwise;
     ``dqn_cartpole`` and ``highlevel_dqn`` must reach 195 within their 10
     epochs.  Returns the rows and the launches of the runs."""
@@ -4019,11 +4430,18 @@ def phase_examples(gather) -> tuple[dict, int]:
         t0 = time.perf_counter()
         if name == "atari_dqn":  # through build(), to keep the trainer and its ring
             trainer, venvs = module.build(module.parser().parse_args(argv), memory_logger())
-            info, _ = run_example(trainer, venvs)
+            # the host step replays a graph: the kernel's launches are the
+            # profiler's device records (the warm-up's from the host too)
+            out = []
+            records = _device_records(lambda: out.append(run_example(trainer, venvs)))
+            info, host = out[0][0], gather.launches
+            n = sum("gather_rows_cast" in e.name() for e in records)
         else:
             info = module.main(argv, logger=memory_logger())
         torch.cuda.synchronize()
-        wall, n = time.perf_counter() - t0, gather.launches
+        wall = time.perf_counter() - t0
+        if name != "atari_dqn":
+            n = gather.launches
         launches += n
         offline = name == "offline_d4rl_cql"
         row = dict(script=name, argv=argv, wall_s=wall, best_reward=info.best_reward, epochs=info.epoch,
@@ -4034,9 +4452,10 @@ def phase_examples(gather) -> tuple[dict, int]:
             raise AssertionError(f"examples {name} {argv}: {info}")
         if name == "atari_dqn":
             segments = info.gradient_step // trainer.updates_per_segment
-            if segments <= 0 or n != 2 * segments:
-                raise AssertionError(f"atari_dqn: gather_rows_cast launched {n} times over {segments} segments, "
-                                     "not 2 a segment")
+            captures = len(trainer.compiled_host_step.graphs)
+            if segments <= captures or n != 2 * segments or host != 2 * captures:
+                raise AssertionError(f"atari_dqn: gather_rows_cast ran {n} times on the card and {host} from the host "
+                                     f"over {segments} segments ({captures} a capture's warm-up), not 2 a segment")
             row["segments"], row["presample_rows_bitwise"] = segments, _examples_atari_presample(trainer, gather)
         elif n:
             raise AssertionError(f"examples {name}: gather_rows_cast launched {n} times")
@@ -4097,56 +4516,69 @@ def main() -> int:
     from tianshou_tpu_torch.ops.gather import gather_rows_cast
 
     t0 = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    kernel = phase_kernels()
+    phase_times: dict[str, float] = {}
+
+    def timed_phase(name: str, fn, *args):
+        """``fn(*args)``, its seconds kept and printed as ``phase_s``."""
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_times[name] = time.perf_counter() - t
+        log(f"phase_s {name} {phase_times[name]:.1f} (script at {time.perf_counter() - t0:.1f} s)")
+        return out
+
+    smi = timed_phase("device", phase_device)
+    timed_phase("build", phase_build)
+    kernel = timed_phase("kernels", phase_kernels)
     for path in ("atari", "atari_dedup"):
-        phase_reference(path)
-    phase_reference_continuous()
-    phase_reference_onpolicy()
-    phase_reference_distributional()
-    phase_reference_offpolicy_rest()
-    phase_reference_offline()
+        timed_phase(f"reference {path}", phase_reference, path)
+    for fn in (phase_reference_continuous, phase_reference_onpolicy, phase_reference_distributional,
+               phase_reference_offpolicy_rest, phase_reference_offline):
+        timed_phase(fn.__name__, fn)
     log(f"chip_smoke: checks and references passed at {time.perf_counter() - t0:.1f} s")
     results, launches = {}, 0
     for path in PATHS:
         t_path = time.perf_counter()
         phase = (phase_host if path in HOST_PATHS else phase_fused if path in FUSED_PATHS
                  else phase_offline if path in OFFLINE_PATHS else phase_superstep)
-        results[path] = phase(path, gather_rows_cast)
+        results[path] = timed_phase(f"{path} eager", phase, path, gather_rows_cast)
         if path in GRAPH_PATHS:
-            results[path]["graph"] = phase_graph(path, gather_rows_cast, results[path]["profile"])
+            results[path]["graph"] = timed_phase(f"{path} graph", phase_graph, path, gather_rows_cast,
+                                                 results[path]["profile"])
+        if path in LEARN_GRAPH_PATHS:
+            results[path]["graph"] = timed_phase(f"{path} graph", phase_learn_graph, path, gather_rows_cast,
+                                                 results[path]["max_memory_allocated_gib"],
+                                                 results[path]["memory_base_gib"])
         if path in HIGHLEVEL_PATHS:
-            n, results[path]["main_run"] = phase_main_highlevel(path, gather_rows_cast)
+            n, results[path]["main_run"] = timed_phase(f"{path} run", phase_main_highlevel, path, gather_rows_cast)
             launches += n
         else:
-            launches += phase_main_path(path, gather_rows_cast)
+            launches += timed_phase(f"{path} run", phase_main_path, path, gather_rows_cast)
         results[path]["phase_s"] = time.perf_counter() - t_path
-    results["hl_atari"]["beside_atari"] = phase_builder_beside_atari()
-    results["cpp_cartpole"]["raw_step_rate"] = phase_cpp_bench()
-    results["sac_host"]["variants"] = phase_host_variants()
+    results["hl_atari"]["beside_atari"] = timed_phase("hl_atari beside atari", phase_builder_beside_atari)
+    results["cpp_cartpole"]["raw_step_rate"] = timed_phase("cpp pool raw rate", phase_cpp_bench)
+    results["sac_host"]["variants"] = timed_phase("host variants", phase_host_variants)
     # slice 11: the distributed trainers over NCCL at world size 1, then two
     # gloo ranks sharing the card
     start_nccl_world1()
     for path in DIST_PATHS:
         t_path = time.perf_counter()
-        results[path] = phase_distributed(path, gather_rows_cast)
-        launches += phase_dist_main(path, results[path].pop("trainer"), gather_rows_cast)
+        results[path] = timed_phase(path, phase_distributed, path, gather_rows_cast)
+        launches += timed_phase(f"{path} run", phase_dist_main, path, results[path].pop("trainer"), gather_rows_cast)
         results[path]["phase_s"] = time.perf_counter() - t_path
     # slice 12: the ensemble axis, at world size 1 on the NCCL group, then
     # as two gloo ranks sharing the card
     t_path = time.perf_counter()
     gather_rows_cast.launches = 0
-    results["redq_ep"] = phase_redq_ep()
+    results["redq_ep"] = timed_phase("redq_ep", phase_redq_ep)
     if gather_rows_cast.launches:
         raise AssertionError(f"redq_ep: gather_rows_cast launched {gather_rows_cast.launches} times")
     results["redq_ep"]["phase_s"] = time.perf_counter() - t_path
     torch.distributed.destroy_process_group()
-    results["gloo_two_ranks"] = phase_gloo_ranks()
-    results["batch_cuda"] = phase_batch_cuda()
+    results["gloo_two_ranks"] = timed_phase("gloo two ranks", phase_gloo_ranks)
+    results["batch_cuda"] = timed_phase("batch on the card", phase_batch_cuda)
     # slice 13: the example scripts
     t_path = time.perf_counter()
-    results["examples"], n = phase_examples(gather_rows_cast)
+    results["examples"], n = timed_phase("examples", phase_examples, gather_rows_cast)
     launches += n
     results["examples"]["phase_s"] = time.perf_counter() - t_path
     kernel["launches"] = launches
@@ -4154,8 +4586,8 @@ def main() -> int:
     log("atari memory regime: frames stored once (atari_dedup) beside stored stacks (atari): "
         + ", ".join(f"{k} {dedup[k]:.4f} vs {stored[k]:.4f}" for k in (
             "ring_gb", "max_memory_allocated_gib", "ms_per_superstep", "env_steps_per_s")))
-    log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"card": smi, "paths": results}))
+    log(f"chip_smoke: all phases passed; {time.perf_counter() - t0:.1f} s of its own clock")
+    print(json.dumps({"card": smi, "paths": results, "phase_s": phase_times}))
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -72,7 +72,7 @@ class A2C(PG):
         critic = fresh_copy(self.critic, self.device, generator)
         params = [*actor.parameters(), *critic.parameters()]
         return OnPolicyTrainState(actor=actor, critic=critic, optimizer=self._optimizer(params, self.lr),
-                                  **self._ret_stats())
+                                  **self._ret_stats(), **self._schedule_state())
 
     def values(self, critic: nn.Module, obs: torch.Tensor) -> torch.Tensor:
         """The critic's values of ``obs`` (``critic`` is ``ts.critic``, the
@@ -114,7 +114,9 @@ class A2C(PG):
         total = ts.ret_count + b_count
         new_mean = ts.ret_mean + delta * b_count / total
         m2 = ts.ret_var * ts.ret_count + b_var * b_count + delta**2 * ts.ret_count * b_count / total
-        ts.ret_mean, ts.ret_var, ts.ret_count = new_mean, m2 / total, total
+        # in place: a CUDA graph of the learning reads and writes these tensors
+        with torch.no_grad():
+            torch._foreach_copy_([ts.ret_mean, ts.ret_var, ts.ret_count], [new_mean, m2 / total, total])
         return ts
 
     # -- learning -------------------------------------------------------------

@@ -77,7 +77,7 @@ class NPG(A2C):
         actor = fresh_copy(self.actor, self.device, generator)
         critic = fresh_copy(self.critic, self.device, generator)
         return OnPolicyTrainState(actor=actor, critic=critic, optimizer=self._optimizer(list(critic.parameters()), self.lr),
-                                  **self._ret_stats())
+                                  **self._ret_stats(), **self._schedule_state())
 
     # -- the natural gradient ----------------------------------------------
     def _kl(self, dist_old, dist_new) -> torch.Tensor:

@@ -14,8 +14,16 @@ adam(lr))``: the gradients are scaled by ``max_norm / max(norm, max_norm)``
 (optax's form, not ``torch.nn.utils.clip_grad_norm_``'s ``max_norm / (norm +
 1e-6)``), then ``torch.optim.Adam`` steps.  ``lr`` may be a schedule, the
 learning rate of update ``k`` counted from 0 (:func:`linear_schedule` is
-``optax.linear_schedule``); ``optimizer`` builds another optimizer over the
-parameters in place of Adam.  Every statistic over a minibatch (the return
+``optax.linear_schedule``), as ``optax.adam(schedule)`` counts: the count
+is ``OnPolicyTrainState.lr_count``, a 0-d tensor on the device, and each
+parameter group's learning rate a 0-d float32 tensor there, written in
+place from the count at every update, so that a CUDA graph of the learning
+advances it (on CUDA the optimizer is made capturable when it is built: a
+non-capturable Adam reads a tensor learning rate on the host).
+``optimizer`` builds another optimizer over the parameters in place of
+Adam; a schedule sets its learning rate too.  :class:`ScheduledAdam` is
+``optax.adam(schedule)`` counted by its own steps, for an optimizer that
+steps more than once an update (a critic's).  Every statistic over a minibatch (the return
 normalisation here, the advantage normalisation of A2C and PPO) uses the
 population standard deviation, as numpy's ``std``.
 """
@@ -45,8 +53,9 @@ from tianshou_tpu_torch.ops.dist import (
 )
 from tianshou_tpu_torch.ops.returns import discounted_returns
 from tianshou_tpu_torch.utils.device import resolve_device
+from tianshou_tpu_torch.utils.graphs import init_optimizer_state, prepare_optimizer
 
-__all__ = ["OnPolicyTrainState", "PG", "clip_by_global_norm_", "linear_schedule"]
+__all__ = ["OnPolicyTrainState", "PG", "ScheduledAdam", "clip_by_global_norm_", "linear_schedule"]
 
 
 @dataclasses.dataclass
@@ -54,7 +63,9 @@ class OnPolicyTrainState:
     """On-policy state.  ``critic`` is ``None`` for PG; ``ret_mean``,
     ``ret_var`` and ``ret_count`` (0-d tensors) are the running statistics
     of the unnormalised returns, kept with ``ret_norm`` by the algorithms
-    with a critic.  ``step`` counts updates on the host."""
+    with a critic.  ``step`` counts updates on the host; ``lr_count`` (a
+    0-d int64 tensor, with a learning-rate schedule) counts them on the
+    device, for the schedule."""
 
     actor: nn.Module
     critic: nn.Module | None
@@ -63,6 +74,7 @@ class OnPolicyTrainState:
     ret_mean: torch.Tensor | None = None
     ret_var: torch.Tensor | None = None
     ret_count: torch.Tensor | None = None
+    lr_count: torch.Tensor | None = None
 
     @torch.no_grad()
     def load(self, state: dict) -> None:
@@ -84,15 +96,65 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> None
     torch._foreach_mul_(list(grads), max_norm / torch.clamp(norm, min=max_norm))
 
 
-def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Callable[[int], float]:
+def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Callable:
     """``optax.linear_schedule``: ``init_value`` at update 0, linearly to
-    ``end_value`` at ``transition_steps``, constant after."""
+    ``end_value`` at ``transition_steps``, constant after.  The count is an
+    ``int`` (a float result) or a tensor (a tensor on its device, in
+    float32 as optax computes it, with ``clamp``, so that no value is read
+    on the host)."""
 
-    def schedule(count: int) -> float:
-        frac = min(count, transition_steps) / transition_steps
-        return init_value + (end_value - init_value) * frac
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            frac = 1 - torch.clamp(count, 0, transition_steps) / transition_steps
+        else:
+            frac = 1 - min(max(count, 0), transition_steps) / transition_steps
+        return (init_value - end_value) * frac + end_value
 
     return schedule
+
+
+def _tensor_lr(optimizer: torch.optim.Optimizer, device: torch.device) -> torch.optim.Optimizer:
+    """``optimizer`` with each group's learning rate a 0-d float32 tensor
+    on ``device``, which a schedule writes in place; on CUDA made ready for
+    a CUDA graph now (:func:`~tianshou_tpu_torch.utils.graphs.prepare_optimizer`:
+    the port's Adam becomes capturable, since a non-capturable one reads a
+    tensor learning rate on the host)."""
+    for group in optimizer.param_groups:
+        group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32, device=device)
+    if device.type == "cuda":
+        prepare_optimizer(optimizer)
+    return optimizer
+
+
+class ScheduledAdam(torch.optim.Adam):
+    """``optax.adam(schedule)``: Adam whose learning rate at its own step
+    ``k`` (counted from 0) is ``schedule(k)``, evaluated from the step
+    count that Adam keeps beside each parameter (on the device on CUDA,
+    where it is built capturable) into its tensor learning rate by a step
+    pre-hook, which a copy registers again."""
+
+    def __init__(self, params, schedule: Callable):
+        params = list(params)
+        device = params[0].device
+        super().__init__(params, lr=float(schedule(0)), betas=(0.9, 0.999), eps=1e-8,
+                         capturable=device.type == "cuda")
+        self.schedule = schedule
+        _tensor_lr(self, device)
+        init_optimizer_state(self)
+        self.register_step_pre_hook(ScheduledAdam._set_lr)
+
+    def __getstate__(self) -> dict:
+        return {**super().__getstate__(), "schedule": self.schedule}
+
+    def __setstate__(self, state: dict) -> None:
+        super().__setstate__(state)
+        self.register_step_pre_hook(ScheduledAdam._set_lr)
+
+    @staticmethod
+    @torch.no_grad()
+    def _set_lr(optimizer: ScheduledAdam, args, kwargs) -> None:
+        for group in optimizer.param_groups:
+            group["lr"].copy_(optimizer.schedule(optimizer.state[group["params"][0]]["step"]))
 
 
 def _population_std(x: torch.Tensor) -> torch.Tensor:
@@ -155,13 +217,18 @@ class PG(Algorithm):
 
     # -- state -------------------------------------------------------------
     def _optimizer(self, params: list[nn.Parameter], lr: float | Callable[[int], float]) -> torch.optim.Optimizer:
-        if self.make_optimizer is not None:
-            return self.make_optimizer(params)
-        return adam(params, lr(0) if callable(lr) else lr)
+        optimizer = self.make_optimizer(params) if self.make_optimizer is not None else adam(
+            params, lr(0) if callable(lr) else lr)
+        return _tensor_lr(optimizer, self.device) if callable(lr) else optimizer
+
+    def _schedule_state(self) -> dict[str, torch.Tensor]:
+        """The state's device update count, with a learning-rate schedule."""
+        return dict(lr_count=torch.zeros((), dtype=torch.int64, device=self.device)) if callable(self.lr) else {}
 
     def init(self, generator: torch.Generator) -> OnPolicyTrainState:
         actor = fresh_copy(self.actor, self.device, generator)
-        return OnPolicyTrainState(actor=actor, critic=None, optimizer=self._optimizer(list(actor.parameters()), self.lr))
+        optimizer = self._optimizer(list(actor.parameters()), self.lr)
+        return OnPolicyTrainState(actor=actor, critic=None, optimizer=optimizer, **self._schedule_state())
 
     def act_params(self, ts: OnPolicyTrainState) -> nn.Module:
         return ts.actor
@@ -185,7 +252,8 @@ class PG(Algorithm):
     def _apply_gradients(self, ts: OnPolicyTrainState, loss: torch.Tensor) -> None:
         """One optimizer step on ``loss``: the gradient with respect to the
         optimizer's parameters, clipped by the global norm, with the
-        schedule's learning rate for update ``ts.step``."""
+        schedule's learning rate for update ``ts.lr_count``, counted on the
+        device."""
         params = [p for group in ts.optimizer.param_groups for p in group["params"]]
         grads = list(torch.autograd.grad(loss, params))
         if self.max_grad_norm is not None:
@@ -193,8 +261,11 @@ class PG(Algorithm):
         for p, g in zip(params, grads):
             p.grad = g
         if callable(self.lr):
-            for group in ts.optimizer.param_groups:
-                group["lr"] = self.lr(ts.step)
+            with torch.no_grad():
+                lr = self.lr(ts.lr_count)
+                for group in ts.optimizer.param_groups:
+                    group["lr"].copy_(lr)
+                ts.lr_count.add_(1)
         ts.optimizer.step()
 
     @staticmethod

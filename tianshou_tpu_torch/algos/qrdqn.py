@@ -64,7 +64,8 @@ class RMSprop(torch.optim.Optimizer):
     g**2`` from ``nu = 0``, then ``p -= lr * g / sqrt(nu + eps)``, the
     epsilon inside the root (``torch.optim.RMSprop`` adds it outside).  It
     counts no steps, so it is capturable: its groups say so, and
-    :meth:`init_state` creates ``nu`` ahead of a CUDA graph capture."""
+    :meth:`init_state` creates ``nu`` ahead of a CUDA graph capture.  A
+    group's ``lr`` may be a 0-d tensor (a schedule's, written in place)."""
 
     def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, decay=decay, eps=eps, capturable=True))
@@ -87,7 +88,11 @@ class RMSprop(torch.optim.Optimizer):
                     state["nu"] = torch.zeros_like(p)
                 nu = state["nu"]
                 nu.mul_(group["decay"]).addcmul_(p.grad, p.grad, value=1.0 - group["decay"])
-                p.add_(p.grad * torch.rsqrt(nu + group["eps"]), alpha=-group["lr"])
+                update, lr = p.grad * torch.rsqrt(nu + group["eps"]), group["lr"]
+                if isinstance(lr, torch.Tensor):  # a scheduled rate, on the device
+                    p.sub_(update * lr)
+                else:
+                    p.add_(update, alpha=-lr)
 
 
 class QRDQN(DQN):

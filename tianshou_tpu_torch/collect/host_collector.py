@@ -265,14 +265,27 @@ class HostCollector:
             self._packers[key] = TreePacker(host, self.device)
         return self._packers[key]
 
-    def upload(self, traj: Batch) -> tuple[TreePacker, torch.Tensor, Batch]:
+    def upload(self, traj: Batch, staging: tuple | None = None) -> tuple[TreePacker, torch.Tensor, Batch]:
         """``traj``'s numpy leaves packed and sent to the card in ONE copy:
         ``(packer, flat buffer, tensor leaves)`` for :meth:`unpack`.  Tensor
         leaves at any depth (the actions, the policy's extras) are not
-        copied."""
+        copied.  With ``staging`` (an earlier segment's upload, the static
+        input of a CUDA graph of the learning) the segment is written into
+        it instead: the packed copy into its flat buffer, the tensor leaves
+        into its own (on the device); returns ``staging``."""
         host, dev = _split_tensors(traj)
         packer = self._packer(host)
-        return packer, packer.to_device(host), dev
+        if staging is None:
+            return packer, packer.to_device(host), dev
+        static_packer, flat, static_dev = staging
+        src, dst = tree_leaves(dev), tree_leaves(static_dev)
+        if packer is not static_packer or [(t.shape, t.dtype) for t in src] != [(t.shape, t.dtype) for t in dst]:
+            raise ValueError("the segment's schema differs from the staging's")
+        packer.to_device(host, out=flat)
+        if dst:
+            with torch.no_grad():
+                torch._foreach_copy_(dst, src)
+        return staging
 
     @staticmethod
     def unpack(uploaded: tuple[TreePacker, torch.Tensor, Batch]) -> Batch:

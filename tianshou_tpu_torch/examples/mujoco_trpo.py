@@ -15,7 +15,6 @@ backtracks, NPG a 0.1 actor step.  Needs gymnasium and MuJoCo.
 from __future__ import annotations
 
 import argparse
-import itertools
 import time
 
 from tianshou_tpu_torch.examples import run
@@ -23,18 +22,12 @@ from tianshou_tpu_torch.examples import run
 
 def scheduled_adam(params, schedule):
     """``optax.adam(schedule)``: Adam whose learning rate at its step ``k``
-    (counted from 0) is ``schedule(k)``."""
-    from tianshou_tpu_torch.algos.ddpg import adam
+    (counted from 0) is ``schedule(k)``, the count and the rate kept on the
+    parameters' device, so that a CUDA graph of the learning advances them
+    (:class:`~tianshou_tpu_torch.algos.pg.ScheduledAdam`)."""
+    from tianshou_tpu_torch.algos.pg import ScheduledAdam
 
-    optimizer, steps = adam(params, schedule(0)), itertools.count()
-
-    def set_lr(opt, args, kwargs):
-        lr = schedule(next(steps))
-        for group in opt.param_groups:
-            group["lr"] = lr
-
-    optimizer.register_step_pre_hook(set_lr)
-    return optimizer
+    return ScheduledAdam(params, schedule)
 
 
 def parser() -> argparse.ArgumentParser:

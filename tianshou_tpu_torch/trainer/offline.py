@@ -9,7 +9,15 @@ other samples its own batch each update), then a test phase through the
 test collector, the device :class:`~tianshou_tpu_torch.collect.collector.Collector`
 or a :class:`~tianshou_tpu_torch.collect.host_collector.HostCollector`.
 The algorithm's ``prepare_offline`` (CalQL's calibration returns) runs
-once, before the first update.  The metrics stay on the device and are read
+once, eagerly, before the first update.  :meth:`OfflineTrainer._build_superstep`
+is the eager superstep and :meth:`OfflineTrainer._compile_superstep` its
+compiled form, which ``run`` launches: on CUDA a
+:class:`~tianshou_tpu_torch.utils.graphs.CapturedStep` that replays CUDA
+graphs of it (one a pattern of TD3BC's delayed actor, the pattern's first
+superstep its capture's warm-up) over the train state and the dataset's
+buffer state as static state, the dataset never copied; on the CPU the
+eager superstep itself.  The test phase between epochs runs eagerly and
+draws from the same generator.  The metrics stay on the device and are read
 once an epoch.  ``env_step`` is ``gradient_step * batch_size``, the
 reference's accounting.  A ``logger`` gets each epoch's last metrics in its
 update scope and the test results, both at the gradient step, as in the
@@ -32,6 +40,7 @@ from tianshou_tpu_torch.trainer.hooks import log_test
 from tianshou_tpu_torch.trainer.offpolicy import build_update_scan
 from tianshou_tpu_torch.trainer.onpolicy import _read
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
+from tianshou_tpu_torch.utils.graphs import compile_step
 
 __all__ = ["OfflineTrainer"]
 
@@ -75,10 +84,34 @@ class OfflineTrainer:
         self.logger = logger
         self.seed = seed
         self.save_best_fn = save_best_fn
+        # the superstep the last run() launched (_compile_superstep)
+        self.compiled_superstep = None
 
     def _build_superstep(self):
         """``superstep(ts, bstate, generator) -> (ts, bstate, mean metrics)``."""
         return build_update_scan(self.algo, self.buffer, self.batch_size, self.updates_per_superstep)
+
+    def _compile_superstep(self, ts, bstate):
+        """The superstep ``run`` launches (the JAX package's compiled
+        superstep), called ``(ts, cstate, bstate, generator, explore_param)
+        -> (ts, cstate, bstate, None, metrics)`` with ``cstate = ()`` (an
+        offline superstep collects nothing; ``explore_param`` is unused):
+        on CUDA a :class:`~tianshou_tpu_torch.utils.graphs.CapturedStep`
+        over :meth:`_build_superstep` with ``ts`` and ``bstate`` as its
+        static state and a graph per pattern of the algorithm's host-keyed
+        branches (:meth:`Algorithm.update_pattern`), each captured after
+        the pattern's first call runs eagerly as its warm-up; each call
+        takes and returns that state, whose tensors the next call
+        overwrites.  A trainer on the CPU gets the eager superstep in the
+        same form."""
+        superstep = self._build_superstep()
+
+        def step(ts, cstate, bstate, generator, explore_param):
+            ts, bstate, metrics = superstep(ts, bstate, generator)
+            return ts, cstate, bstate, None, metrics
+
+        k = self.updates_per_superstep
+        return compile_step(step, self.device, ts, (), bstate, key=lambda: self.algo.update_pattern(ts, k))
 
     def run(self) -> InfoStats:
         t_start = time.time()
@@ -88,7 +121,8 @@ class OfflineTrainer:
         prepare = getattr(self.algo, "prepare_offline", None)
         if prepare is not None:
             bstate = prepare(self.buffer, bstate)
-        superstep = self._build_superstep()
+        superstep = self.compiled_superstep = self._compile_superstep(ts, bstate)
+        cstate = ()
 
         grad_step = epoch = 0
         best_reward, best_reward_std = -np.inf, 0.0
@@ -100,7 +134,7 @@ class OfflineTrainer:
             done_updates = 0
             metrics: dict = {}
             while done_updates < self.update_per_epoch:
-                ts, bstate, metrics = superstep(ts, bstate, gen)
+                ts, cstate, bstate, _, metrics = superstep(ts, cstate, bstate, gen, 0.0)
                 done_updates += self.updates_per_superstep
                 grad_step += self.updates_per_superstep
             last_metrics = _read(metrics)  # the one metric read of the epoch

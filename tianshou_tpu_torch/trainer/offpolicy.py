@@ -23,8 +23,13 @@ With a :class:`~tianshou_tpu_torch.collect.host_collector.HostCollector`
 ``run`` takes the host-env path (:meth:`OffPolicyTrainer._run_host`): a
 segment collected from host envs, then one host step (:class:`HostStep`):
 ONE packed host-to-device copy of the segment, ``add_trajectory`` and the k
-updates.  ``pipeline_host_updates`` (default off) acts with the actor from
-before the updates in flight, on a side CUDA stream, from a snapshot of it.
+updates.  Its device part runs compiled as the superstep does
+(:meth:`OffPolicyTrainer._compile_host_step`): the segment lands in a
+static staging tree (the first segment's upload), into which every later
+segment is written in place, its one packed copy included, and on CUDA a
+CUDA graph of the device part reads it.  ``pipeline_host_updates`` (default
+off) acts with the actor from before the updates in flight, on a side CUDA
+stream, from a snapshot of it.
 
 When each segment is ONE step of every env, the host path runs the fused
 fine cycle (:class:`FusedHostLoop`, ``fused_fine_host``): per cycle the
@@ -64,7 +69,7 @@ from tianshou_tpu_torch.data.stats import InfoStats
 from tianshou_tpu_torch.data.tree import tree_map
 from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext, log_test, log_train, save_epoch
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
-from tianshou_tpu_torch.utils.graphs import CapturedStep
+from tianshou_tpu_torch.utils.graphs import compile_step
 
 __all__ = ["FusedHostLoop", "HostStep", "OffPolicyTrainer", "build_update_scan"]
 
@@ -124,17 +129,15 @@ class HostStep:
         self.buffer = buffer
         self.updates_fn = updates_fn
 
-    def upload(self, traj: Batch) -> tuple:
+    def upload(self, traj: Batch, staging: tuple | None = None) -> tuple:
         """The segment's numpy leaves packed and copied to the card
-        (:meth:`HostCollector.upload`), for :meth:`device`."""
-        return self.collector.upload(traj)
+        (:meth:`HostCollector.upload`, into ``staging`` where given), for
+        :meth:`device`."""
+        return self.collector.upload(traj, staging)
 
     def device(self, ts, bstate, uploaded: tuple, generator):
         bstate = self.buffer.add_trajectory(bstate, self.collector.unpack(uploaded))
         return self.updates_fn(ts, bstate, generator)
-
-    def __call__(self, ts, bstate, traj: Batch, generator):
-        return self.device(ts, bstate, self.upload(traj), generator)
 
 
 class HostLoop:
@@ -152,6 +155,8 @@ class HostLoop:
         self.generator = generator
         self.collect_generator = collect_generator
         self.host_step = trainer._build_host_step()
+        # the compiled device part and its staging, from the first segment
+        self.compiled = self.staging = None
         self.metrics: dict[str, torch.Tensor] | None = None
         self.pipelined = trainer.pipeline_host_updates
         dev = trainer.device
@@ -178,7 +183,14 @@ class HostLoop:
                 torch._foreach_copy_(list(self.snapshot.parameters()), list(algo.act_params(self.ts).parameters()))
             if self.side is not None:
                 self.side.wait_stream(torch.cuda.current_stream(self.trainer.device))
-        self.ts, self.bstate, self.metrics = self.host_step(self.ts, self.bstate, traj, self.generator)
+        self.staging = self.host_step.upload(traj, self.staging)
+        if self.compiled is None:
+            t = self.trainer
+            self.compiled = t.compiled_host_step = t._compile_host_step(self.host_step, self.ts, self.bstate,
+                                                                       self.staging)
+            self.staging = getattr(self.compiled, "cstate", self.staging)
+        self.ts, self.staging, self.bstate, _, self.metrics = self.compiled(
+            self.ts, self.staging, self.bstate, self.generator, 0.0)
         self.ts_act = algo.with_act_params(self.ts, self.snapshot) if self.pipelined else self.ts
 
     def read_metrics(self) -> dict[str, float]:
@@ -337,8 +349,11 @@ class OffPolicyTrainer:
         # host path: the fused fine cycle (None: where it applies)
         self.fused_fine_host = fused_fine_host
         self.last_run_used_fused = False
-        # the superstep the last on-device run() launched (_compile_superstep)
+        # what the last run() launched: the superstep (on-device path,
+        # _compile_superstep) or the host step's device part (host path,
+        # _compile_host_step)
         self.compiled_superstep = None
+        self.compiled_host_step = None
 
         num_envs = train_collector.venv.num_envs
         # steps per env per collect segment (the reference counts total env steps)
@@ -375,15 +390,33 @@ class OffPolicyTrainer:
         call takes and returns that state, whose tensors the next call
         overwrites.  A trainer on the CPU, which the caller asked for, gets
         the eager superstep: CUDA graphs exist only on CUDA."""
-        superstep = self._build_superstep()
-        if self.device.type != "cuda":
-            return superstep
         k = self.updates_per_segment
-        return CapturedStep(superstep, ts, cstate, bstate, key=lambda: self.algo.update_pattern(ts, k))
+        return compile_step(self._build_superstep(), self.device, ts, cstate, bstate,
+                            key=lambda: self.algo.update_pattern(ts, k))
 
     def _build_host_step(self) -> HostStep:
         updates_fn = build_update_scan(self.algo, self.buffer, self.batch_size, self.updates_per_segment)
         return HostStep(self.train_collector, self.buffer, updates_fn)
+
+    def _compile_host_step(self, host_step: HostStep, ts, bstate, staging):
+        """The host step's device part as the host path launches it (the
+        JAX package's jitted host step), called ``(ts, staging, bstate,
+        generator, explore_param) -> (ts, staging, bstate, None, metrics)``
+        (``explore_param`` is unused): ``staging`` is a segment's
+        :meth:`HostStep.upload`, into which ``upload(traj, staging)`` writes
+        each later segment.  On CUDA a
+        :class:`~tianshou_tpu_torch.utils.graphs.CapturedStep` over
+        :meth:`HostStep.device` with ``ts``, ``staging`` and ``bstate`` as
+        its static state and a graph per pattern of the algorithm's
+        host-keyed branches; on the CPU the eager device part in the same
+        form."""
+
+        def step(ts, staging, bstate, generator, explore_param):
+            ts, bstate, metrics = host_step.device(ts, bstate, staging, generator)
+            return ts, staging, bstate, None, metrics
+
+        k = self.updates_per_segment
+        return compile_step(step, self.device, ts, staging, bstate, key=lambda: self.algo.update_pattern(ts, k))
 
     def _fused_fine_applicable(self, probe: Batch) -> bool:
         """Whether the fused fine cycle applies: one step per env a segment,

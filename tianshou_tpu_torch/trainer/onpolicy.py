@@ -8,13 +8,23 @@ the algorithm's optional ``pre_learn`` hook, :meth:`process_rollout` and
 ``M // batch_size`` minibatches of a fresh permutation of the ``M = T * N``
 samples (``randperm(M)[:nmb * bs].view(nmb, bs)``).  With
 ``recompute_advantage`` the rollout is processed again before every pass.
-The superstep runs eagerly and keeps its metrics on the device;
-:meth:`OnPolicyTrainer.run` reads them once a superstep.  Epochs, test
-episodes and early stopping stay on the host, as in the JAX package.
+The superstep keeps its metrics on the device; :meth:`OnPolicyTrainer.run`
+reads them once a superstep.  :meth:`OnPolicyTrainer._build_superstep` is
+the eager superstep and :meth:`OnPolicyTrainer._compile_superstep` its
+compiled form, which ``run`` launches: on CUDA a
+:class:`~tianshou_tpu_torch.utils.graphs.CapturedStep` that replays a CUDA
+graph of it (the first superstep its capture's warm-up) over the train and
+collect states ``run`` started from; on the CPU the eager superstep.
+Epochs, test episodes and early stopping stay on the host, as in the JAX
+package.
 
 With a :class:`~tianshou_tpu_torch.collect.host_collector.HostCollector`
 ``run`` takes the host-env path: a segment collected from host envs, its
-numpy leaves sent to the card in ONE packed copy, then the same learning.
+numpy leaves sent to the card in ONE packed copy, then the same learning
+(:meth:`OnPolicyTrainer._build_learn`), compiled as the superstep is
+(:meth:`OnPolicyTrainer._compile_learn`): the segment lands in a static
+staging tree (the first segment's upload), into which every later segment
+is written in place, its one packed copy included.
 
 ``logger``, ``save_checkpoint_fn``, ``resume_from_log`` and ``profile_dir``
 work as in :class:`~tianshou_tpu_torch.trainer.offpolicy.OffPolicyTrainer`.
@@ -36,6 +46,7 @@ from tianshou_tpu_torch.data.stats import InfoStats
 from tianshou_tpu_torch.data.tree import tree_map
 from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext, log_test, log_train, save_epoch
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
+from tianshou_tpu_torch.utils.graphs import compile_step
 
 __all__ = ["OnPolicyTrainer", "build_rollout_learn"]
 
@@ -149,6 +160,10 @@ class OnPolicyTrainer:
         self.steps_per_segment = self.segment_len * num_envs
         bs = min(batch_size, self.steps_per_segment)
         self.updates_per_segment = repeat_per_collect * max(1, self.steps_per_segment // bs)
+        # what the last run() launched: the compiled superstep (device
+        # path) or the compiled learning (host path)
+        self.compiled_superstep = None
+        self.compiled_learn = None
 
     def _build_learn(self, permutation: Permutation | None = None):
         return build_rollout_learn(self.algo, self.steps_per_segment, self.batch_size, self.repeat_per_collect,
@@ -168,6 +183,44 @@ class OnPolicyTrainer:
 
         return superstep
 
+    def _compile_superstep(self, ts, cstate):
+        """The superstep ``run`` launches on the device path (the JAX
+        package's compiled superstep), called ``(ts, cstate, bstate,
+        generator, explore_param) -> (ts, cstate, bstate, outputs,
+        metrics)`` with ``bstate = None`` (no replay buffer;
+        ``explore_param`` is unused): on CUDA a
+        :class:`~tianshou_tpu_torch.utils.graphs.CapturedStep` over
+        :meth:`_build_superstep` with ``ts`` and ``cstate`` as its static
+        state, captured after its first call runs eagerly as the warm-up;
+        each call takes and returns that state, whose tensors, ``outputs``
+        and ``metrics`` the next call overwrites.  A trainer on the CPU gets
+        the eager superstep in the same form."""
+        superstep = self._build_superstep()
+
+        def step(ts, cstate, bstate, generator, explore_param):
+            ts, cstate, outputs, metrics = superstep(ts, cstate, generator)
+            return ts, cstate, bstate, outputs, metrics
+
+        return compile_step(step, self.device, ts, cstate, None)
+
+    def _compile_learn(self, ts, staging):
+        """The host path's learning as ``run`` launches it (the JAX
+        package's jitted learn), called ``(ts, staging, bstate, generator,
+        explore_param) -> (ts, staging, bstate, None, metrics)`` with
+        ``bstate = None``: ``staging`` is a segment's
+        :meth:`~tianshou_tpu_torch.collect.host_collector.HostCollector.upload`,
+        into which ``upload(traj, staging)`` writes each later segment.  On
+        CUDA a :class:`~tianshou_tpu_torch.utils.graphs.CapturedStep` over
+        :meth:`_build_learn` with ``ts`` and ``staging`` as its static
+        state; on the CPU the eager learning in the same form."""
+        learn, col = self._build_learn(), self.train_collector
+
+        def step(ts, staging, bstate, generator, explore_param):
+            ts, metrics = learn(ts, col.unpack(staging), generator)
+            return ts, staging, bstate, None, metrics
+
+        return compile_step(step, self.device, ts, staging, None)
+
     def _host_setup(self):
         """The host path's start: ``(ts, generator, collect generator)``
         with the envs reset from the seed."""
@@ -186,13 +239,13 @@ class OnPolicyTrainer:
         host = getattr(self.train_collector, "is_host_collector", False)
         if host:
             ts, gen, g_collect = self._host_setup()
-            learn = self._build_learn()
+            learn = staging = None  # compiled over the first segment's upload
         else:
             gen = make_generator(self.seed, self.device)
             g_init, g_reset = fork_generator(gen), fork_generator(gen)
             cstate = self.train_collector.reset(g_reset)
             ts = self.algo.init(g_init)
-            superstep = self._build_superstep()
+            superstep = self.compiled_superstep = self._compile_superstep(ts, cstate)
 
         env_step = grad_step = epoch = start_epoch = 0
         if self.resume_from_log and self.logger is not None:
@@ -211,9 +264,13 @@ class OnPolicyTrainer:
                         col = self.train_collector
                         _, stats, traj = col.collect(ts, None, self.segment_len, g_collect, explore=True,
                                                      record_traj=True)
-                        ts, metrics = learn(ts, col.to_device(traj), gen)  # one packed copy
+                        staging = col.upload(traj, staging)  # one packed copy
+                        if learn is None:
+                            learn = self.compiled_learn = self._compile_learn(ts, staging)
+                            staging = getattr(learn, "cstate", staging)
+                        ts, staging, _, _, metrics = learn(ts, staging, None, gen, 0.0)
                     else:
-                        ts, cstate, outputs, metrics = superstep(ts, cstate, gen)
+                        ts, cstate, _, outputs, metrics = superstep(ts, cstate, None, gen, 0.0)
                         stats = Collector.summarize(outputs, self.steps_per_segment)
                     host_metrics = _read(metrics)  # the one metric read of the superstep
                     train_time += time.time() - t0

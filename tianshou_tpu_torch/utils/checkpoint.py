@@ -164,7 +164,15 @@ class _Restorer:
                 for k, v in saved["state"].get(i, {}).items():
                     if isinstance(v, torch.Tensor) and v.dim() > 0 and v.shape != p.shape:
                         raise ValueError(f"{what}: state {k!r} of a {list(p.shape)} parameter is {list(v.shape)}")
+            # a group's tensor hyperparameter (a scheduled learning rate)
+            # keeps its own tensor, on its device, and takes the saved value
+            kept = [{k: v for k, v in g.items() if k != "params" and isinstance(v, torch.Tensor)}
+                    for g in out.param_groups]
             out.load_state_dict(saved)
+            with torch.no_grad():
+                for group, tensors in zip(out.param_groups, kept):
+                    for k, t in tensors.items():
+                        group[k] = t.copy_(group[k])
             return out
         if kind == "generator":
             out = torch.Generator(device=template.device)

@@ -1,6 +1,8 @@
 """CUDA graphs of a step over carried state: the port's counterpart of the
-JAX package's ``jax.jit`` plus ``.lower().compile()`` of the off-policy
-superstep (``OffPolicyTrainer._compile_superstep``).
+JAX package's ``jax.jit`` plus ``.lower().compile()`` of the trainers' hot
+steps (``OffPolicyTrainer._compile_superstep`` and ``_compile_host_step``,
+``OnPolicyTrainer._compile_superstep`` and ``_compile_learn``,
+``OfflineTrainer._compile_superstep``).
 
 A step ``fn(ts, cstate, bstate, generator, explore_param) -> (ts, cstate,
 bstate, outputs, metrics)`` runs eagerly, one launch per operation.
@@ -20,7 +22,11 @@ eagerly):
   new tensor (the collect state, the cursors, the PER extrema) is copied
   back into the static one at the end of the step (inside the graph), so
   the next call reads it where the graph reads its inputs.  The ring is
-  never copied.  Train-state leaves must be written in place;
+  never copied.  Train-state leaves must be written in place: a step that
+  rebinds one (``ts.x = new``) raises;
+- a step whose input arrives from outside each call (the host paths'
+  segment) reads it from a static staging tree carried as the collect
+  state, which the caller writes in place before each call;
 - anything that keeps a state across calls must clone it: the next call
   overwrites the static tensors, and the ``outputs`` and ``metrics`` a
   replay returns are the graph's own, overwritten by the next replay.  A
@@ -39,9 +45,10 @@ Capture (the first call of each branch pattern, :meth:`CapturedStep._capture`):
    its state is created (:func:`init_optimizer_state`): a state that an
    optimizer zeroes at its first step would be zeroed by every replay;
 2. warm-up: the call runs ``fn`` eagerly on the static state, on the
-   capture stream, as a real step whose results it returns, so that every
-   operation's first-call set-up (a kernel library's build and its
-   shared-memory limit, cuBLAS and cuDNN handles) happens outside the
+   capture stream (one for the process, :func:`capture_stream`), as a
+   real step whose results it returns, so that every operation's
+   first-call set-up (a kernel library's build and its shared-memory
+   limit, cuBLAS and cuDNN handles and workspaces) happens outside the
    capture.  Nothing is copied for it, the ring least of all;
 3. capture on the static state, with the generators registered with the
    graph: each replay then draws from where the generators stand and
@@ -67,8 +74,9 @@ from typing import Any
 import torch
 from torch import nn
 
-__all__ = ["CapturedStep", "StaticStep", "check_capturable", "init_optimizer_state", "mark_capturable",
-           "named_tensors", "optimizers", "own_storage", "prepare_optimizer", "step_counters"]
+__all__ = ["CapturedStep", "StaticStep", "capture_stream", "check_capturable", "compile_step",
+           "init_optimizer_state", "mark_capturable", "named_tensors", "optimizers", "own_storage",
+           "prepare_optimizer", "step_counters"]
 
 
 def named_tensors(state: Any, prefix: str = "state") -> list[tuple[str, torch.Tensor]]:
@@ -254,6 +262,20 @@ def init_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
             optimizer.state[p] = st
 
 
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream on which every warm-up and capture on ``device``
+    runs, one for the process: cuBLAS and cuBLASLt keep a workspace for
+    each stream that runs a matrix product (64 MiB together on an H100,
+    held until the process ends), so a stream of its own for each compiled
+    step would hold 64 MiB more for every trainer a process builds."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
 class StaticStep:
     """``fn`` under the static-state protocol (module docstring), run
     eagerly: each call runs ``fn`` on the static state, copies the returned
@@ -307,11 +329,22 @@ class StaticStep:
                 torch._foreach_copy_(dst, src)
         return sum(d.numel() * d.element_size() for d in dst)
 
+    def run_fn(self, generator, explore_param) -> tuple:
+        """``fn`` on the static state, its new leaves copied back:
+        ``(outputs, metrics)``.  Raises where ``fn`` rebound a train-state
+        tensor (``ts.x = new``) instead of writing it in place: the static
+        train state would then hold a tensor that a graph does not write."""
+        before = dict(named_tensors(self.ts))
+        ts, cstate, bstate, outputs, metrics = self.fn(*self.states, generator, explore_param)
+        rebound = [n for n, t in named_tensors(self.ts) if n in before and before[n] is not t]
+        if rebound:
+            raise RuntimeError(f"the step rebound the train-state tensors {rebound} instead of writing them in place")
+        self.copy_back_bytes = self.write_back(ts, cstate, bstate)
+        return outputs, metrics
+
     def __call__(self, ts, cstate, bstate, generator, explore_param):
         self._check_static(ts, cstate, bstate)
-        ts2, cstate2, bstate2, outputs, metrics = self.fn(ts, cstate, bstate, generator, explore_param)
-        self.copy_back_bytes = self.write_back(ts2, cstate2, bstate2)
-        return (*self.states, outputs, metrics)
+        return (*self.states, *self.run_fn(generator, explore_param))
 
 
 @dataclasses.dataclass
@@ -340,7 +373,7 @@ class CapturedStep(StaticStep):
         self.key = key
         self.explore = torch.zeros((), dtype=torch.float32, device=self.device)
         self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(self.device)
+        self.stream = capture_stream(self.device)
         self.graphs: dict[Hashable, _Graph] = {}
         self.generator: torch.Generator | None = None
         #: seconds spent in warm-up steps, and in captures (instantiation
@@ -363,8 +396,7 @@ class CapturedStep(StaticStep):
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
-            ts, cstate, bstate, outputs, metrics = self.fn(*self.states, self.generator, self.explore)
-            self.write_back(ts, cstate, bstate)
+            outputs, metrics = self.run_fn(self.generator, self.explore)
         current.wait_stream(self.stream)
         torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
@@ -375,8 +407,7 @@ class CapturedStep(StaticStep):
         for g in self._generators():
             graph.register_generator_state(g)
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            ts, cstate, bstate, g_outputs, g_metrics = self.fn(*self.states, self.generator, self.explore)
-            self.copy_back_bytes = self.write_back(ts, cstate, bstate)
+            g_outputs, g_metrics = self.run_fn(self.generator, self.explore)
         if [c.step for c in counters] != after:
             raise RuntimeError(f"the capture counted {[c.step for c in counters]} updates, its warm-up {after}")
         self.graphs[key] = _Graph(graph, g_outputs, g_metrics, [(c, a - b) for c, a, b in zip(counters, after, before)])
@@ -404,3 +435,12 @@ class CapturedStep(StaticStep):
         for counter, n in entry.steps:
             counter.step += n
         return (*self.states, entry.outputs, entry.metrics)
+
+
+def compile_step(fn: Callable, device: torch.device, ts: Any, cstate: Any, bstate: Any,
+                 key: Callable[[], Hashable] = tuple) -> Callable:
+    """A trainer's compiled step: on CUDA a :class:`CapturedStep` over
+    ``fn`` with ``ts``, ``cstate`` and ``bstate`` as its static state; on
+    another device, which the caller asked for, ``fn`` itself, run
+    eagerly: CUDA graphs exist only on CUDA."""
+    return CapturedStep(fn, ts, cstate, bstate, key=key) if device.type == "cuda" else fn

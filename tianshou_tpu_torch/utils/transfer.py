@@ -79,17 +79,20 @@ class TreePacker:
             out[off:off + size] = np.asarray(leaf, np.float32).ravel()
         return out
 
-    def to_device(self, tree: Any) -> torch.Tensor:
-        """Pack ``tree`` and send it to :attr:`device` in one copy."""
+    def to_device(self, tree: Any, out: torch.Tensor | None = None) -> torch.Tensor:
+        """Pack ``tree`` and send it to :attr:`device` in one copy, into
+        ``out`` (a flat float32 tensor there, e.g. a CUDA graph's static
+        input) where given."""
         TreePacker.copies += 1
         if self.device.type != "cuda":
-            return torch.from_numpy(self.pack(tree)).to(self.device)
+            flat = torch.from_numpy(self.pack(tree))
+            return flat.to(self.device) if out is None else out.copy_(flat)
         i = self._next
         self._next = 1 - i
         if self._events[i] is not None:
             self._events[i].synchronize()  # the copy that last read this buffer is done
         self.pack(tree, out=self._host[i].numpy())
-        flat = torch.empty((self.total,), dtype=torch.float32, device=self.device)
+        flat = torch.empty((self.total,), dtype=torch.float32, device=self.device) if out is None else out
         flat.copy_(self._host[i], non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))

@@ -253,6 +253,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``atari_host``'s ``gather_rows_cast`` twice in a profiled replay and never
    from the host there.  Their main runs, like the graph paths', must be a
    warm-up and replays.
+   Then slice 16's collect-graph phase (``phase_collect_graph``): the
+   compiled collection against its eager form (``compile_step`` made the
+   step itself, ``_eager_collection``): the host collectors' acting step
+   over whole host segments of ``sac_host`` (also pipelined, on a side
+   stream through a snapshot module), ``ppo_host``, ``atari_host`` and
+   ``cpp_cartpole`` (two eager and two graph segments from one state and
+   generator, bitwise in every trajectory leaf, the next observations and
+   the generator; a later segment leaves an earlier trajectory unchanged
+   and shares no storage with it; ms a segment and of the acting steps
+   alone in turns; a profiled segment's host launch calls, about 5 a step;
+   the peak memory of the first graph segment, its warm-up and capture,
+   at most 1.2x an eager segment's), ``AsyncHostCollector`` at ``wait_num``
+   4 of 8 (segments in turns; the acting step on the rounds' recorded
+   observations and a DRQN carry advanced for masked rows, bitwise), the
+   fused fine cycle of ``sac_fine`` (two replays against two eager cycles
+   bitwise, in turns, a replay profiled, the peak) and a 10-episode test
+   phase on ``cartpole``, ``atari`` and ``hl_cartpole`` (two phases against
+   two eager ones, bitwise in returns, lengths and both streams, the second
+   phase's re-seeded registered generator honoured by the replays; in
+   turns; a chunk profiled; the peak).  Every main ``run()`` also counts
+   its collection's compiled steps, each call a capture's warm-up or a
+   replay, with replays on the host paths.
    Last, ``sac_host``'s configuration through the host path's variants, in
    turns with plain ``sac_host``: a ``RemoteVectorEnv`` over an env farm
    subprocess on 127.0.0.1 (killed at the end), ``AsyncHostCollector``
@@ -1805,10 +1827,11 @@ def _capture_stream_setup_bytes(lg: _LearnGraph) -> int:
     peak shows what the capture itself holds."""
     from tianshou_tpu_torch.utils.graphs import capture_stream, named_tensors
 
+    inp = lg.next_input()  # a host segment's collection (its acting graph's capture) outside the count
     gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    state, inp = lg.clone(), lg.next_input()
+    state = lg.clone()
     stream = capture_stream(named_tensors(state[0])[0][1].device)
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -2260,6 +2283,7 @@ def phase_main_path(path: str, gather) -> int:
         raise AssertionError(f"{path}: non-finite best reward: {info}")
     if path in FUSED_PATHS and not trainer.last_run_used_fused:
         raise AssertionError(f"{path}: run() did not take the fused fine cycle")
+    _run_collection(path, trainer)
     if path in HOST_PATHS + FUSED_PATHS:
         trainer.train_collector.venv.close()
         trainer.test_collector.venv.close()
@@ -3633,6 +3657,541 @@ def phase_fused(path: str, gather) -> dict:
     return result
 
 
+# the host variants' segments a turn, cut from 2 to 1 to pay for slice 16's
+# collect-graph phase
+HOST_VARIANT_TURN = 1
+# slice 16: the compiled collection (phase_collect_graph).  The host paths
+# whose acting step it holds against eager acting over whole segments, the
+# device paths whose test phase it holds against an eager one, and the
+# episodes of a test phase
+COLLECT_ACTING_PATHS = ("sac_host", "ppo_host", "atari_host", "cpp_cartpole")
+COLLECT_TEST_PATHS = ("cartpole", "atari", "hl_cartpole")
+TEST_EPISODES = 10
+# host launch calls of one replayed acting step at most: the graph launch,
+# the generator's seed and offset fills, the observation's copy in and the
+# action's copy out
+ACTING_REPLAY_HOST_LAUNCHES = 6
+
+
+@contextlib.contextmanager
+def _eager_collection():
+    """The collectors and the fused cycle built inside run their steps
+    eagerly on the card (``compile_step`` returning the step itself), as the
+    reference of the compiled ones: a step keeps the form it was built in."""
+    from tianshou_tpu_torch.collect import collector, host_collector
+    from tianshou_tpu_torch.trainer import offpolicy
+
+    modules = (collector, host_collector, offpolicy)
+    saved = [m.compile_step for m in modules]
+    for m in modules:
+        m.compile_step = lambda fn, *args, **kwargs: fn
+    try:
+        yield
+    finally:
+        for m, fn in zip(modules, saved):
+            m.compile_step = fn
+
+
+def _tree_leaves_named(tree, prefix: str) -> list[tuple[str, torch.Tensor]]:
+    """A tree of numpy arrays and tensors (dicts, Batches, tuples) as named
+    tensors (numpy leaves wrapped, not copied)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves_named(tree[k], f"{prefix}.{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, v in enumerate(tree) for x in _tree_leaves_named(v, f"{prefix}[{i}]")]
+    if isinstance(tree, np.ndarray) or np.isscalar(tree):
+        return [(prefix, torch.from_numpy(np.ascontiguousarray(tree)))]
+    return [(prefix, tree)] if isinstance(tree, torch.Tensor) else []
+
+
+def _hold_equal(what: str, eager: list, graph: list) -> dict:
+    """Each pair of named leaves bitwise equal; a float leaf that is not is
+    held to phase 4's limits and named (``{name: max abs err}``)."""
+    not_bitwise = {}
+    for n in _differing(eager, graph):
+        a, b = dict(eager)[n], dict(graph)[n]
+        if not a.is_floating_point():
+            raise AssertionError(f"{what}: graph and eager differ at {n}")
+        not_bitwise[n] = _assert_close(f"{what} graph vs eager {n}", b.cpu(), a.cpu())
+    if not_bitwise:
+        log(f"{what}: graph vs eager not bitwise at {len(not_bitwise)} leaves, within phase 4's limits: "
+            f"{not_bitwise}")
+    return not_bitwise
+
+
+def _capture_stream_workspace() -> int:
+    """The bytes that one float32 and one bf16 product on the capture
+    stream (``utils.graphs.capture_stream``) leave allocated: its library
+    workspaces, held for the process (0 where an earlier capture made
+    them), counted apart from a capture's peak."""
+    from tianshou_tpu_torch.utils.graphs import capture_stream
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    stream = capture_stream(torch.device("cuda", torch.cuda.current_device()))
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.ones(64, 64, device="cuda", dtype=dtype)
+            x @ x
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() - before
+
+
+def _peak_over(fn) -> float:
+    """``fn()``'s peak device memory above what was allocated before it,
+    in GiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def _state_gib(*trees) -> float:
+    """The GiB of the tensors of ``trees`` (each storage once): a step's
+    static state, which its eager form and its graph both hold."""
+    from tianshou_tpu_torch.utils.graphs import named_tensors
+
+    seen = {}
+    for _, t in named_tensors(trees):
+        if t.is_cuda:
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values()) / 2**30
+
+
+def _hold_peak(what: str, state_gib: float, eager: float, graph: float, workspace: float) -> None:
+    """The peak memory of a step's first graph unit (its warm-up and
+    capture), its static state and the unit's own peak above what was
+    allocated before it, less the capture stream's library workspaces, at
+    most 1.2x the eager unit's over the same state."""
+    if state_gib + graph - workspace > 1.2 * (state_gib + eager):
+        raise AssertionError(f"{what}: peak {state_gib:.4f} GiB of static state + {graph:.4f} over the warm-up and "
+                             f"capture ({workspace:.4f} the capture stream's workspaces), above 1.2x the eager "
+                             f"{state_gib:.4f} + {eager:.4f}")
+
+
+def _compiled_of(obj) -> list:
+    """The compiled steps a collector (acting steps, segments, test chunks)
+    holds, CUDA graphs or not."""
+    steps = [e[0] for a in getattr(obj, "_acting_steps", {}).values() for e in a._steps.values()]
+    acting = getattr(obj, "acting", None)
+    if hasattr(acting, "_steps"):
+        steps += [e[0] for e in acting._steps.values()]
+    return steps + list(getattr(obj, "_compiled", {}).values())
+
+
+def _graph_counts(steps: list) -> tuple[int, int]:
+    """``(captures, replays)`` of compiled steps: each call of a
+    ``CapturedStep`` is one or the other (a capture's call runs the step
+    eagerly, its warm-up)."""
+    from tianshou_tpu_torch.utils.graphs import CapturedStep
+
+    steps = [s for s in steps if isinstance(s, CapturedStep)]
+    return sum(len(s.graphs) for s in steps), sum(g.replays for s in steps for g in s.graphs.values())
+
+
+def _host_segment_case(path: str, pipelined: bool = False) -> dict:
+    """A host path's acting step in the host segment (``sac_host``,
+    ``ppo_host``, ``atari_host``, ``cpp_cartpole``; ``sac_host`` also on the
+    pipelined path, acting on a side stream through a snapshot module): two
+    train collectors of the path, reset alike, one acting eagerly and one
+    through the compiled acting step, over the same acting module, each
+    from its own copy of one collect generator.  Two segments each
+    (``HostCollector.collect``, the first the graph's warm-up and capture),
+    bitwise in every trajectory leaf, the next observations and the
+    generators' states; the first graph trajectory unchanged by the second
+    segment and sharing no storage with it; ms a segment in turns (eager,
+    graph, graph, eager) and of the acting steps alone; one graph segment
+    profiled (host launch calls a step, device records); the peak memory of
+    the graph's first segment (its warm-up and capture) against an eager
+    segment's."""
+    from tianshou_tpu_torch.utils.device import make_generator
+    from tianshou_tpu_torch.utils.graphs import CapturedStep
+
+    _fresh_memory()
+    small = PHASE_SMALL.get(path, {})
+    _, algo, col, _, trainer = build(path, **small)
+    _, _, col_e, _, trainer_e = build(path, **small)
+    col_e.algo = algo  # both act through one algorithm and one acting module
+    ts = algo.init(make_generator(0, "cuda"))
+    side = torch.cuda.Stream() if pipelined else None
+    if pipelined:
+        snapshot = copy.deepcopy(algo.act_params(ts)).requires_grad_(False)
+    for c in (col, col_e):
+        c.reset(seed=5)
+    gens = {"graph": make_generator(1, "cuda")}
+    gens["eager"] = _copy_generator(gens["graph"])
+    steps = trainer.segment_len
+
+    def acting_ts():
+        # the pipelined loop's: a fresh shallow copy each segment, over one snapshot module
+        return algo.with_act_params(ts, snapshot) if pipelined else ts
+
+    def segment(name):
+        c = col if name == "graph" else col_e
+        with _eager_collection() if name == "eager" else contextlib.nullcontext():
+            out = c.collect(acting_ts(), None, steps, gens[name], explore=True, explore_param=0.1, record_traj=True,
+                            stream=side)[2]
+        return out
+
+    def leaves(name, traj):
+        c = col if name == "graph" else col_e
+        return (_tree_leaves_named(traj, "traj") + _tree_leaves_named(c.obs, "obs")
+                + [("generator", gens[name].get_state())])
+
+    workspace = _capture_stream_workspace() / 2**30
+    peaks, trajs, first = {}, {}, []
+    for name in ("eager", "graph"):
+        held = {}
+        peaks[name] = _peak_over(lambda: held.setdefault("traj", segment(name)))
+        if name == "graph":  # the first graph trajectory as returned, before the next segment
+            first = [(n, t.clone()) for n, t in _tree_leaves_named(held["traj"], "traj")]
+        trajs[name] = [held["traj"], segment(name)]
+    not_bitwise = {}
+    for i in range(2):
+        not_bitwise.update(_hold_equal(f"{path} acting segment {i}", leaves("eager", trajs["eager"][i]),
+                                       leaves("graph", trajs["graph"][i])))
+    if _differing(first, _tree_leaves_named(trajs["graph"][0], "traj")):
+        raise AssertionError(f"{path}: a later segment changed an earlier returned trajectory")
+    ptrs = [t.data_ptr() for _, t in _tree_leaves_named(trajs["graph"][1], "traj") if t.is_cuda]
+    if any(t.data_ptr() in ptrs for _, t in _tree_leaves_named(trajs["graph"][0], "traj") if t.is_cuda):
+        raise AssertionError(f"{path}: two segments' trajectories share storage")
+    compiled = col.acting(acting_ts(), gens["graph"], True, 0.1, steps).compiled
+    if not isinstance(compiled, CapturedStep) or len(compiled.graphs) != 1:
+        raise AssertionError(f"{path}: the acting step is a {type(compiled).__name__}")
+    replays = sum(g.replays for g in compiled.graphs.values())
+    if replays != 2 * steps - 1:
+        raise AssertionError(f"{path}: {replays} replays in 2 segments of {steps} steps, 1 capture")
+    del trajs
+    turns = _turns({"eager": lambda: segment("eager"), "graph": lambda: segment("graph")}, 1)
+    obs = col.obs
+
+    def acting_alone(name):
+        c = col if name == "graph" else col_e
+        with _eager_collection() if name == "eager" else contextlib.nullcontext():
+            a = c.acting(acting_ts(), gens[name], True, 0.1, steps)
+        for _ in range(steps):
+            a(obs)
+
+    acting_turns = _turns({"eager": lambda: acting_alone("eager"), "graph": lambda: acting_alone("graph")}, 1)
+    profiled = {"eager": _profile(lambda: segment("eager")), "graph": _profile(lambda: segment("graph"))}
+    calls = profiled["graph"]["host_launch_calls"]
+    launches = calls.get("cudaGraphLaunch", 0) + calls.get("cuGraphLaunch", 0)
+    # a segment: its replays, and the fills of explore_param and the cursor
+    # and the copies out of the segment
+    per_step = profiled["graph"]["host_launches"] / steps
+    if launches != steps or profiled["graph"]["host_launches"] > ACTING_REPLAY_HOST_LAUNCHES * steps + 4:
+        raise AssertionError(f"{path}: a replayed segment's host launches {profiled['graph']}")
+    eager_peak = peaks["eager"]
+    state = _state_gib(algo.act_params(ts), compiled.cstate)
+    _hold_peak(f"{path} acting", state, eager_peak, peaks["graph"], workspace)
+    name = f"{path}{' pipelined' if pipelined else ''}"
+    result = {"bitwise": not not_bitwise, "not_bitwise": not_bitwise, "segment_ms_turns": turns,
+              "acting_steps_alone_ms_turns": acting_turns, "profiled": profiled,
+              "host_launches_per_replay": per_step, "peak_gib": {"eager": eager_peak, "graph": peaks["graph"],
+                                                                 "capture_stream_workspace": workspace,
+                                                                 "static_state": state},
+              "warm_up_s": compiled.warm_up_s, "capture_s": compiled.capture_s, "replays": replays,
+              "copy_back_bytes": compiled.copy_back_bytes}
+    log(f"{name} acting graph: two segments of {steps} steps vs eager acting "
+        f"{'bitwise' if not not_bitwise else 'within limits'} (trajectories, next observations, generator); "
+        f"segments own their trajectories; ms a segment in turns eager {turns['eager']:.2f} graph "
+        f"{turns['graph']:.2f}, the acting steps alone eager {acting_turns['eager']:.2f} graph "
+        f"{acting_turns['graph']:.2f}; profiled segment: eager {profiled['eager']['kernels']} records / "
+        f"{profiled['eager']['host_launches']} host launches, graph {profiled['graph']['kernels']} records / "
+        f"{profiled['graph']['host_launches']} host launches {calls} ({per_step:.2f} a step); peak over the first "
+        f"segment eager {eager_peak * 2**10:.3f} MiB, graph {peaks['graph'] * 2**10:.3f} MiB on a static state of "
+        f"{state * 2**10:.3f} MiB (warm-up "
+        f"{compiled.warm_up_s * 1e3:.1f} ms, capture {compiled.capture_s * 1e3:.1f} ms)")
+    for t in (trainer, trainer_e):
+        t.train_collector.venv.close()
+        t.test_collector.venv.close()
+    return result
+
+
+def _async_case() -> dict:
+    """``AsyncHostCollector`` at ``sac_host``'s configuration, ``wait_num`` 4
+    of 8: segments of 64 transitions acting eagerly and through the
+    compiled acting step in turns (the envs finish in a racing order, so
+    the two are held bitwise on recorded inputs instead: the acting step
+    over the rounds' recorded observations, from one generator state);
+    then a DRQN carry advanced for a random half of the rows each round,
+    eager against the graph, bitwise (carries, actions, generator)."""
+    from tianshou_tpu_torch.algos.drqn import DRQN
+    from tianshou_tpu_torch.collect.async_collector import AsyncHostCollector, AsyncHostVectorEnv
+    from tianshou_tpu_torch.collect.host_collector import ActingStep
+    from tianshou_tpu_torch.envs.spaces import Discrete
+    from tianshou_tpu_torch.networks.common import RecurrentQNet
+    from tianshou_tpu_torch.utils.device import make_generator
+    from tianshou_tpu_torch.utils.graphs import own_storage
+
+    cfg = PATHS["sac_host"]
+    _fresh_memory()
+    _, algo, _, buffer, trainer = build_path("sac_host", "cuda")
+    loop, _ = trainer._host_setup()
+    ts = loop.ts
+    venvs = {k: AsyncHostVectorEnv([HalfCheetahStandIn] * cfg["num_envs"], wait_num=4) for k in ("eager", "graph")}
+    cols = {k: AsyncHostCollector(algo, v, buffer, device="cuda") for k, v in venvs.items()}
+    bstates = {"eager": loop.bstate, "graph": copy.deepcopy(loop.bstate)}
+    gen = make_generator(2, "cuda")
+    recorded = []
+    call = ActingStep.__call__
+
+    def spy(self, obs, mask=None):
+        recorded.append(np.array(obs))
+        return call(self, obs, mask)
+
+    def segment(name):
+        with _eager_collection() if name == "eager" else contextlib.nullcontext():
+            bstates[name], stats = cols[name].collect(ts, bstates[name], cfg["num_envs"] * cfg["segment"], gen)
+        return stats
+
+    try:
+        for c in cols.values():
+            c.reset(seed=1)
+        ActingStep.__call__ = spy
+        try:
+            segment("eager")
+        finally:
+            ActingStep.__call__ = call
+        segment("graph")
+        turns = _turns({"eager": lambda: segment("eager"), "graph": lambda: segment("graph")}, 1)
+        h2d, d2h = _profile_memcpys(lambda: segment("graph"))
+    finally:
+        for v in venvs.values():
+            v.close()
+    # the acting step alone on the recorded rounds, eager against the graph
+    acts, gens_ = {}, {k: make_generator(3, "cuda") for k in ("eager", "graph")}
+    for name in ("eager", "graph"):
+        with _eager_collection() if name == "eager" else contextlib.nullcontext():
+            a = ActingStep(algo, torch.device("cuda")).begin(ts, recorded[0], gens_[name], True, 0.1)
+        acts[name] = [("act", torch.from_numpy(a(o))) for o in recorded * 2]
+    not_bitwise = _hold_equal("async acting rounds", acts["eager"] + [("gen", gens_["eager"].get_state())],
+                              acts["graph"] + [("gen", gens_["graph"].get_state())])
+    # a recurrent carry advanced for the dispatched rows only
+    drqn = DRQN(RecurrentQNet(17, 128, 4), Discrete(4), device="cuda")
+    dts = drqn.init(make_generator(4, "cuda"))
+    rng = np.random.default_rng(5)
+    obs = [rng.normal(size=(8, 17)).astype(np.float32) for _ in range(8)]
+    masks = [rng.random(8) < 0.5 for _ in obs]
+    carry_leaves = {}
+    for name in ("eager", "graph"):
+        carry = own_storage(drqn.init_policy_state(8))
+        g = make_generator(6, "cuda")
+        with _eager_collection() if name == "eager" else contextlib.nullcontext():
+            a = ActingStep(drqn, torch.device("cuda")).begin(dts, obs[0], g, True, 0.3, policy_state=carry)
+        out = [(f"act[{i}]", torch.from_numpy(a(o, m))) for i, (o, m) in enumerate(zip(obs * 2, masks * 2))]
+        carry_leaves[name] = out + [(f"carry[{i}]", t) for i, t in enumerate(carry)] + [("gen", g.get_state())]
+        if name == "graph" and sum(gr.replays for gr in a.compiled.graphs.values()) != 15:
+            raise AssertionError("async DRQN acting: not 15 replays after a capture")
+    not_bitwise.update(_hold_equal("async DRQN carry", carry_leaves["eager"], carry_leaves["graph"]))
+    result = {"segment_ms_turns": turns, "bitwise": not not_bitwise, "not_bitwise": not_bitwise,
+              "rounds_recorded": len(recorded), "h2d_copies_per_segment": h2d, "d2h_copies_per_segment": d2h}
+    log(f"async wait_num 4 of 8 acting graph: ms a segment of {cfg['num_envs'] * cfg['segment']} transitions in turns "
+        f"eager {turns['eager']:.2f} "
+        f"graph {turns['graph']:.2f}; the acting step over {2 * len(recorded)} recorded rounds and a DRQN carry "
+        f"advanced for the dispatched rows over 16 rounds {'bitwise' if not not_bitwise else 'within limits'} "
+        f"against eager; the card ran {h2d} host-to-device and {d2h} device-to-host copies in a graph segment")
+    trainer.train_collector.venv.close()
+    trainer.test_collector.venv.close()
+    return result
+
+
+def _fused_case() -> dict:
+    """``sac_fine``'s fused fine cycle compiled (``_compile_fused_cycle``):
+    after the first cycle (the warm-up and capture), two cycles replayed
+    against two eager cycles (``FusedHostLoop.device_fn`` on a copy of the
+    state and a staging of its own) on the same host transitions, bitwise in
+    the train state, the ring, the staging (the pending raw and env
+    actions), the metrics and the generator; ms a cycle in turns; one replay
+    profiled; the peak memory of the first cycle against an eager cycle's."""
+    from tianshou_tpu_torch.utils.graphs import CapturedStep, named_tensors
+
+    _fresh_memory()
+    _, algo, col, _, trainer = build("sac_fine")
+    loop, _ = trainer._host_setup()
+    loop.prime(0.0)
+    workspace = _capture_stream_workspace() / 2**30
+    _, host = loop.step_envs()
+    graph_peak = _peak_over(lambda: loop.device(loop.upload(host), 0.0))
+    if not isinstance(loop.compiled, CapturedStep):
+        raise AssertionError(f"sac_fine: the fused cycle compiled a {type(loop.compiled).__name__}")
+    loop.env_act = loop.env_act_device.cpu().numpy()
+    memo = {id(loop.generator): _copy_generator(loop.generator)}
+    e_ts, e_staging, e_bstate = copy.deepcopy((loop.ts, loop.staging, loop.bstate), memo)
+    e_gen = memo[id(loop.generator)]
+
+    def eager(host):
+        nonlocal e_ts, e_bstate
+        loop._packer.to_device(host, out=e_staging[0])
+        e_ts, _, e_bstate, _, metrics = loop.device_fn(e_ts, e_staging, e_bstate, e_gen, 0.0)
+        return metrics
+
+    def leaves(ts, staging, bstate, gen, metrics):
+        return (named_tensors((ts, staging[1:], bstate)) + [("generator", gen.get_state())]
+                + [(f"metrics[{k!r}]", v) for k, v in metrics.items()])
+
+    not_bitwise = {}
+    for i in range(2):
+        _, host = loop.step_envs()
+        held = {}
+        peak = _peak_over(lambda: held.setdefault("metrics", eager(host)))
+        eager_peak = peak if i == 0 else eager_peak
+        loop.device(loop.upload(host), 0.0)
+        loop.env_act = loop.env_act_device.cpu().numpy()
+        not_bitwise.update(_hold_equal(f"sac_fine cycle {i}",
+                                       leaves(e_ts, e_staging, e_bstate, e_gen, held["metrics"]),
+                                       leaves(loop.ts, loop.staging, loop.bstate, loop.generator, loop.metrics)))
+    replays = sum(g.replays for g in loop.compiled.graphs.values())
+
+    def eager_cycle():
+        _, h = loop.step_envs()
+        eager(h)
+        e_staging[2].cpu()
+
+    turns = _turns({"eager": eager_cycle, "graph": lambda: loop.cycle(0.0)}, 5)
+    _, host = loop.step_envs()
+    eager_profiled = _profile(lambda: eager(host))
+    profiled = _profile(lambda: loop.device(loop.upload(host), 0.0))
+    loop.env_act = loop.env_act_device.cpu().numpy()
+    calls = profiled["host_launch_calls"]
+    if calls.get("cudaGraphLaunch", 0) + calls.get("cuGraphLaunch", 0) != 1 or profiled["host_launches"] > 8:
+        raise AssertionError(f"sac_fine: a replayed cycle's host launches {profiled}")
+    state = _state_gib(loop.ts, loop.staging, loop.bstate)
+    _hold_peak("sac_fine cycle", state, eager_peak, graph_peak, workspace)
+    result = {"bitwise": not not_bitwise, "not_bitwise": not_bitwise, "cycle_ms_turns": turns,
+              "profiled": {"eager": eager_profiled, "graph": profiled},
+              "peak_gib": {"eager": eager_peak, "graph": graph_peak, "capture_stream_workspace": workspace,
+                           "static_state": state},
+              "warm_up_s": loop.compiled.warm_up_s, "capture_s": loop.compiled.capture_s, "replays": replays,
+              "copy_back_bytes": loop.compiled.copy_back_bytes}
+    log(f"sac_fine cycle graph: {len(loop.compiled.graphs)} graph(s); two replays vs two eager cycles "
+        f"{'bitwise' if not not_bitwise else 'within limits'}; ms a cycle in turns eager {turns['eager']:.2f} graph "
+        f"{turns['graph']:.2f}; profiled: eager {eager_profiled['kernels']} records, busy {eager_profiled['busy_ms']:.2f} "
+        f"ms, {eager_profiled['host_launches']} host launches; a replay {profiled['kernels']} records, busy "
+        f"{profiled['busy_ms']:.2f} ms, {profiled['host_launches']} host launches {calls}; peak eager {eager_peak * 2**10:.2f} MiB, warm-up and "
+        f"capture {graph_peak * 2**10:.2f} MiB on a static state of {state * 2**10:.2f} MiB (warm-up {loop.compiled.warm_up_s:.2f} s, capture "
+        f"{loop.compiled.capture_s:.2f} s)")
+    trainer.train_collector.venv.close()
+    trainer.test_collector.venv.close()
+    return result
+
+
+def _test_phase_case(path: str) -> dict:
+    """A device path's test phase (``Collector.collect_episodes``, 10
+    episodes): the path's test collector replaying its chunk graph against a
+    second collector over the same envs acting eagerly, from one train
+    state and copies of one generator: two test phases each (the graph's
+    first chunk its warm-up and capture; the second phase resets the static
+    collect state in place and re-seeds its registered generator, which the
+    replays must honour), bitwise in the returns, lengths, the collect
+    state and the generators; ms a test phase in turns; one replayed chunk
+    profiled; the peak memory of the first graph phase against an eager
+    phase's."""
+    from tianshou_tpu_torch.collect.collector import Collector
+    from tianshou_tpu_torch.utils.device import fork_generator, make_generator
+    from tianshou_tpu_torch.utils.graphs import CapturedStep
+
+    _fresh_memory()
+    _, algo, _, _, trainer = build(path)
+    col = trainer.test_collector
+    col_e = Collector(algo, col.venv, device="cuda", reward_metric=col.reward_metric)
+    gen = make_generator(0, "cuda")
+    ts = algo.init(fork_generator(gen))
+    gens = {"graph": gen, "eager": _copy_generator(gen)}
+    cols = {"graph": col, "eager": col_e}
+
+    def phase(name):
+        with _eager_collection() if name == "eager" else contextlib.nullcontext():
+            return cols[name].collect_episodes(ts, gens[name], TEST_EPISODES, explore=False)
+
+    def leaves(name, stats):
+        # the eager chunks hand back new collect states, so the draws are
+        # held through both streams' states
+        return [("returns", torch.from_numpy(stats.returns)), ("lens", torch.from_numpy(stats.lens)),
+                ("generator", gens[name].get_state()), ("collect rng", cols[name]._episode_state.rng.get_state())]
+
+    workspace = _capture_stream_workspace() / 2**30
+    stats, peaks = {}, {}
+    for name in ("eager", "graph"):
+        held = {}
+        peaks[name] = _peak_over(lambda: held.setdefault("s", phase(name)))
+        stats[name] = [held["s"], phase(name)]
+        if name == "graph":
+            replays_after = _graph_counts(_compiled_of(col))
+    not_bitwise = {}
+    for i in range(2):
+        not_bitwise.update(_hold_equal(f"{path} test phase {i}", leaves("eager", stats["eager"][i]),
+                                       leaves("graph", stats["graph"][i])))
+    step = col._compiled["episodes"]
+    if not isinstance(step, CapturedStep) or len(step.graphs) != 1 or not replays_after[1]:
+        raise AssertionError(f"{path}: the test phase's chunks {replays_after} (captures, replays)")
+    turns = _turns({"eager": lambda: phase("eager"), "graph": lambda: phase("graph")}, 1)
+    eager_chunk = col_e._compiled["episodes"]  # the step itself (made under _eager_collection)
+    eager_profiled = _profile(lambda: eager_chunk(ts, col_e._episode_state, None, col_e._episode_state.rng, 0.0))
+    profiled = _profile(lambda: step(ts, col._episode_state, None, col._episode_state.rng, 0.0))
+    chunks = sum(g.replays for g in step.graphs.values()) + 1
+    state = _state_gib(ts, col._episode_state)
+    _hold_peak(f"{path} test phase", state, peaks["eager"], peaks["graph"], workspace)
+    s = stats["graph"][0]
+    result = {"bitwise": not not_bitwise, "not_bitwise": not_bitwise, "phase_ms_turns": turns,
+              "returns_mean": s.returns_mean, "episodes": s.n_collected_episodes, "chunks_run": chunks,
+              "profiled_chunk": {"eager": eager_profiled, "graph": profiled},
+              "copy_back_bytes": step.copy_back_bytes, "peak_gib": {"eager": peaks["eager"], "graph": peaks["graph"],
+                                                       "capture_stream_workspace": workspace,
+                                                       "static_state": state},
+              "warm_up_s": step.warm_up_s, "capture_s": step.capture_s}
+    log(f"{path} test-phase graph: {s.n_collected_episodes} episodes (mean return {s.returns_mean:.2f}); two "
+        f"phases vs eager {'bitwise' if not not_bitwise else 'within limits'} (returns, lengths, collect state, "
+        f"generators: the re-seeded registered generator honoured); ms a phase in turns eager {turns['eager']:.2f} "
+        f"graph {turns['graph']:.2f}; {chunks} chunks of 128 steps so far, 1 capture; an eager chunk profiled "
+        f"{eager_profiled['kernels']} records, busy {eager_profiled['busy_ms']:.2f} ms, "
+        f"{eager_profiled['host_launches']} host launches; a replayed chunk {profiled['kernels']} records, busy {profiled['busy_ms']:.2f} ms, {profiled['host_launches']} host launches "
+        f"{profiled['host_launch_calls']}; peak eager {peaks['eager'] * 2**10:.2f} MiB, graph "
+        f"{peaks['graph'] * 2**10:.2f} MiB on a static state of {state * 2**10:.2f} MiB (warm-up {step.warm_up_s:.2f} s, capture {step.capture_s:.2f} s)")
+    return result
+
+
+def phase_collect_graph() -> dict:
+    """Slice 16, the compiled collection, each compiled step against its
+    eager form on the card: the host collectors' acting step in the host
+    segment (``COLLECT_ACTING_PATHS``, and ``sac_host`` pipelined), the
+    async collector's at ``wait_num`` 4 of 8 (with a DRQN carry), the fused
+    fine cycle (``sac_fine``) and a 10-episode test phase of the device
+    ``Collector`` (``COLLECT_TEST_PATHS``)."""
+    out = {}
+    for path in COLLECT_ACTING_PATHS:
+        out[path] = _host_segment_case(path)
+    out["sac_host pipelined"] = _host_segment_case("sac_host", pipelined=True)
+    out["async"] = _async_case()
+    out["sac_fine"] = _fused_case()
+    for path in COLLECT_TEST_PATHS:
+        out[f"{path} test phase"] = _test_phase_case(path)
+    return out
+
+
+def _run_collection(path: str, trainer) -> dict:
+    """The collection steps that ``trainer.run()`` compiled: each call of
+    an acting step, a fused cycle, a segment or a test chunk was a capture's
+    warm-up or a replay (a ``CapturedStep`` has no third way); their counts,
+    with at least one replay on the host paths."""
+    from tianshou_tpu_torch.utils.graphs import CapturedStep
+
+    steps = _compiled_of(getattr(trainer, "train_collector", None)) + _compiled_of(trainer.test_collector)
+    steps += [s for s in (getattr(trainer, "compiled_fused_cycle", None),) if s is not None]
+    captures, replays = _graph_counts(steps)
+    if any(not isinstance(s, CapturedStep) for s in steps):
+        raise AssertionError(f"{path}: run() stepped an eager collection step on the card")
+    if replays == 0 and path in HOST_PATHS + FUSED_PATHS:
+        raise AssertionError(f"{path}: run()'s collection replayed no graph")
+    log(f"{path} run() collection: {len(steps)} compiled steps, {captures} warm-ups (each before its capture), "
+        f"{replays} replays")
+    return {"steps": len(steps), "captures": captures, "replays": replays}
+
+
 def phase_cpp_bench(num_envs: int = 16, steps: int = 2000) -> dict[str, float]:
     """examples/cpp_pool_dqn.py --bench: the native pool's raw step rate,
     env steps a second, on CartPole-v1 and Reacher2 (the host's CPU, no
@@ -4554,9 +5113,11 @@ def main() -> int:
         else:
             launches += timed_phase(f"{path} run", phase_main_path, path, gather_rows_cast)
         results[path]["phase_s"] = time.perf_counter() - t_path
+    # slice 16: the compiled collection against its eager form
+    results["collect_graph"] = timed_phase("collect graph", phase_collect_graph)
     results["hl_atari"]["beside_atari"] = timed_phase("hl_atari beside atari", phase_builder_beside_atari)
     results["cpp_cartpole"]["raw_step_rate"] = timed_phase("cpp pool raw rate", phase_cpp_bench)
-    results["sac_host"]["variants"] = timed_phase("host variants", phase_host_variants)
+    results["sac_host"]["variants"] = timed_phase("host variants", phase_host_variants, HOST_VARIANT_TURN)
     # slice 11: the distributed trainers over NCCL at world size 1, then two
     # gloo ranks sharing the card
     start_nccl_world1()

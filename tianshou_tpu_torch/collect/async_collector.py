@@ -10,6 +10,16 @@ A recurrent policy's per-env state is threaded as the device ``Collector``
 threads it: advanced only for the envs dispatched, reset at each env's
 episode end.  Staged transitions go into the buffer with ``add_masked``;
 the stored action is the env's action, as in the JAX package.
+
+Acting goes through the host collectors' compiled
+:class:`~tianshou_tpu_torch.collect.host_collector.ActingStep` (the JAX
+package's jitted acting step; one graph per ``explore`` on CUDA): the
+policy sees the whole fixed ``[N]`` observation batch every round, and the
+carry is a static tensor that the step advances in place for the rows of a
+static ``[N]`` mask (``torch.where(mask, new, old)``, the JAX
+``old.at[idx].set(new[idx])``), which the host writes each round.  The
+staged rounds still cross one ``add_masked`` copy each, as the JAX
+package's eager loop does.
 """
 
 from __future__ import annotations
@@ -23,11 +33,13 @@ import torch
 
 from tianshou_tpu_torch.algos.base import Algorithm, TrainState
 from tianshou_tpu_torch.collect.collector import CollectStats
+from tianshou_tpu_torch.collect.host_collector import ActingStep
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.tree import tree_leaves, tree_map
 from tianshou_tpu_torch.envs.host import space_from_gym
 from tianshou_tpu_torch.utils.device import resolve_device
+from tianshou_tpu_torch.utils.graphs import own_storage
 
 __all__ = ["AsyncHostVectorEnv", "AsyncHostCollector"]
 
@@ -130,6 +142,21 @@ class AsyncHostCollector:
         self.obs: np.ndarray | None = None
         self.ep_ret = np.zeros(venv.num_envs)
         self.ep_len = np.zeros(venv.num_envs, np.int64)
+        self.acting = ActingStep(algo, self.device)
+        self._policy_state = None
+
+    def _reset_carry(self, rows: slice | int = slice(None)) -> None:
+        """The carry of ``rows`` back to the initial one, in place: the
+        acting step's graphs read the carry where they were captured."""
+        n = self.venv.num_envs
+        init = self.algo.init_policy_state(n if isinstance(rows, slice) else 1)
+        if self._policy_state is None:
+            # a leaf of its own each (DRQN's zero carry is one tensor twice)
+            self._policy_state = own_storage(init)
+            return
+        with torch.no_grad():
+            for s, f in zip(tree_leaves(self._policy_state), tree_leaves(init)):
+                s[rows].copy_(f if isinstance(rows, slice) else f[0])
 
     def reset(self, seed: int = 0) -> None:
         self.obs = self.venv.reset(seed)
@@ -140,7 +167,7 @@ class AsyncHostCollector:
         # (envs dispatched in different rounds differ)
         self._inflight_act: np.ndarray | None = None
         self._inflight_obs: np.ndarray | None = None
-        self._policy_state = self.algo.init_policy_state(self.venv.num_envs)
+        self._reset_carry()
         self._has_state = len(tree_leaves(self._policy_state)) > 0
 
     def collect(
@@ -160,17 +187,13 @@ class AsyncHostCollector:
         collected = 0
         returns, lens = [], []
         staged: list[tuple[np.ndarray, dict]] = []
+        acting = self.acting.begin(ts, self.obs, generator, explore, explore_param,
+                                   policy_state=self._policy_state if self._has_state else ())
         while collected < num_steps:
             if self._ready:
-                obs = torch.as_tensor(self.obs, device=self.device)
-                act, _, new_state = self.algo.act_with_state(ts, obs, self._policy_state, generator, explore,
-                                                             explore_param)
-                if self._has_state:
-                    # carries advance for the dispatched envs only
-                    idx = torch.as_tensor(self._ready, device=self.device)
-                    self._policy_state = tree_map(lambda old, new: old.index_copy(0, idx, new[idx]),
-                                                  self._policy_state, new_state)
-                env_act = self.algo.map_action(act).cpu().numpy()
+                mask = np.zeros(n, bool)
+                mask[self._ready] = True
+                env_act = acting(self.obs, mask if self._has_state else None)
                 if self._inflight_act is None:
                     self._inflight_act = env_act.copy()
                     self._inflight_obs = self.obs.copy()
@@ -205,10 +228,7 @@ class AsyncHostCollector:
                     self.ep_ret[env_id] = 0
                     self.ep_len[env_id] = 0
                     if self._has_state:
-                        # a fresh episode starts from the initial carry
-                        row = torch.tensor([env_id], device=self.device)
-                        self._policy_state = tree_map(lambda s, f: s.index_copy(0, row, f), self._policy_state,
-                                                      self.algo.init_policy_state(1))
+                        self._reset_carry(env_id)  # a fresh episode starts from the initial carry
                 self.obs[env_id] = carry
                 self._ready.append(env_id)
             staged.append((mask, tr))

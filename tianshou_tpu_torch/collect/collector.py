@@ -27,6 +27,20 @@ return then carries that shape and ``reward_metric`` turns the finished
 episodes' per-agent returns ``[K, A]`` into ``[K]`` (default: the first
 agent's column), at episode ends and not per step, so that a metric such
 as the minimum over agents is exact.
+
+:meth:`Collector.collect` and each chunk of :meth:`Collector.collect_episodes`
+run compiled, as the JAX package jits its ``_segment_fn``
+(:func:`~tianshou_tpu_torch.utils.graphs.compile_step`, optimizers left as
+built): on CUDA a CUDA graph per ``(num_steps, explore, record_traj,
+random)`` over the train, collect and buffer states of its first call,
+which it takes and returns as its static state; a call over other states
+drops the graphs and captures again.  ``collect_episodes`` resets a static
+collect state of the collector's own in place (its ``rng`` re-seeded from
+the draw that a fresh reset's ``fork_generator`` makes), so that every test
+phase replays the same chunk graph and draws what an eager one draws, and
+reads each chunk's done flags, returns and lengths in one device-to-host
+copy.  A returned trajectory is the caller's own copy.  On the CPU the
+segments run eagerly.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.tree import tree_map, tree_where
 from tianshou_tpu_torch.envs.base import VectorEnv
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
+from tianshou_tpu_torch.utils.graphs import StaticStep, compile_step, named_tensors
 
 __all__ = ["CollectState", "CollectStats", "Collector", "rollout_segment"]
 
@@ -171,12 +186,30 @@ class Collector:
         self.venv = venv
         self.buffer = buffer
         self.reward_metric = reward_metric
+        # the compiled collect() and collect_episodes() chunk, each with the
+        # key of its next call (num_steps, explore, record_traj, random,
+        # episodes), and the static collect state of the test phases
+        self._compiled: dict[str, Any] = {}
+        self._keys: dict[str, tuple] = {}
+        self._episode_state: CollectState | None = None
 
-    def reset(self, generator: torch.Generator) -> CollectState:
+    def reset(self, generator: torch.Generator, out: CollectState | None = None) -> CollectState:
         """Reset every env from ``generator``; the collector's own stream is
-        forked from it."""
+        forked from it.  With ``out`` (a state of this collector), the reset
+        is written into ``out`` in place and ``out.rng`` re-seeded from the
+        same draw; returns ``out``."""
         env_state, obs = self.venv.reset(generator)
         n = self.venv.num_envs
+        if out is not None:
+            init = self.algo.init_policy_state(n)
+            dst = named_tensors((out.env_state, out.obs, out.policy_state))
+            src = named_tensors((env_state, obs, init))
+            with torch.no_grad():
+                torch._foreach_copy_([t for _, t in dst], [t for _, t in src])
+                out.ep_ret.zero_()
+                out.ep_len.zero_()
+            fork_generator(generator, out=out.rng)
+            return out
         return CollectState(
             env_state=env_state,
             obs=obs,
@@ -227,11 +260,37 @@ class Collector:
         ``record_traj``, else ``None`` (the JAX package's signature and
         result).  ``random`` (keyword only) acts uniformly at random
         (warm-up)."""
-        seg = rollout_segment(self.algo, self.venv, self.buffer, num_steps, explore, random, record_traj,
-                              reward_metric=self.reward_metric)
-        cstate, bstate, outputs = seg(ts, cstate, bstate, explore_param)
+        step = self._step("collect", ts, cstate, bstate, (num_steps, explore, record_traj, random, False))
+        _, cstate, bstate, outputs, _ = step(ts, cstate, bstate, cstate.rng, explore_param)
         stats = self.summarize(outputs, self.venv.num_envs * num_steps)
-        return cstate, bstate, stats, outputs.get("traj")
+        traj = outputs.get("traj")
+        if traj is not None and isinstance(step, StaticStep):
+            traj = tree_map(torch.clone, traj)  # the caller's own: the next replay writes the graph's
+        return cstate, bstate, stats, traj
+
+    def _step(self, name: str, ts, cstate, bstate, key: tuple):
+        """The compiled segment ``name`` ("collect" or "episodes") over
+        ``(ts, cstate, bstate)``, set to run ``key``'s segment at its next
+        call; made anew over other states (:mod:`utils.graphs`)."""
+        step = self._compiled.get(name)
+        if not isinstance(step, StaticStep) or any(a is not b for a, b in zip(step.states, (ts, cstate, bstate))):
+            step = self._compiled[name] = compile_step(
+                lambda *args: self._run_segment(self._keys[name], *args), self.device, ts, cstate, bstate,
+                key=lambda: self._keys[name], prepare_optimizers=False)
+        self._keys[name] = key
+        return step
+
+    def _run_segment(self, key: tuple, ts, cstate, bstate, generator, explore_param):
+        """The eager segment of ``key``: ``(ts, cstate, bstate, outputs,
+        None)``; an "episodes" chunk packs its done flags, returns and
+        lengths into one float64 ``[3, T, N]`` output."""
+        num_steps, explore, record_traj, random, episodes = key
+        seg = rollout_segment(self.algo, self.venv, None if episodes else self.buffer, num_steps, explore, random,
+                              record_traj, reward_metric=self.reward_metric)
+        cstate, bstate, outputs = seg(ts, cstate, bstate, explore_param)
+        if episodes:
+            outputs = {"episodes": torch.stack([outputs[k].to(torch.float64) for k in ("done", "ep_ret", "ep_len")])}
+        return ts, cstate, bstate, outputs, None
 
     @staticmethod
     def summarize(outputs: dict, n_steps: int) -> CollectStats:
@@ -264,16 +323,15 @@ class Collector:
         n = self.venv.num_envs
         quota = np.full(n, n_episode // n, np.int64)
         quota[: n_episode % n] += 1
-        cstate = self.reset(generator)
-        seg = rollout_segment(self.algo, self.venv, None, chunk_size, explore, reward_metric=self.reward_metric)
+        cstate = self._episode_state = self.reset(generator, out=self._episode_state)
+        step = self._step("episodes", ts, cstate, None, (chunk_size, explore, False, False, True))
         per_env_returns: list[list[float]] = [[] for _ in range(n)]
         per_env_lens: list[list[int]] = [[] for _ in range(n)]
         counts = np.zeros(n, np.int64)
         for _ in range(max_chunks):
-            cstate, _, outputs = seg(ts, cstate, None, explore_param)
-            done = outputs["done"].cpu().numpy()
-            rets = outputs["ep_ret"].cpu().numpy()
-            lens = outputs["ep_len"].cpu().numpy()
+            _, cstate, _, outputs, _ = step(ts, cstate, None, cstate.rng, explore_param)
+            done, rets, lens = outputs["episodes"].cpu().numpy()  # the chunk's one device-to-host copy
+            done = done > 0
             for t, i in zip(*np.nonzero(done)):
                 if counts[i] < quota[i]:
                     per_env_returns[i].append(float(rets[t, i]))

@@ -32,12 +32,27 @@ JAX package.
 A multi-agent env's reward is ``[N, A]``: the episode returns carry that
 shape, and ``reward_metric`` scalarises the finished episodes' ``[K, A]``
 per-agent returns to ``[K]`` (default: the first agent's column).
+
+Every env step acts through an :class:`ActingStep` (the JAX package's
+jitted ``_act_fn``): ``act_with_extras`` and ``map_action`` over a static
+observation batch, which the step's one host-to-device copy writes from a
+pinned host buffer; the raw actions and extras land in row ``t`` of a
+preallocated ``[T, N]`` segment, the env action in a static tensor whose
+copy back is the step's one synchronisation.  On CUDA the step is a CUDA
+graph (:func:`~tianshou_tpu_torch.utils.graphs.compile_step`), captured at
+its first call and replayed at every later one; a collector on the CPU
+runs it eagerly.  A returned segment's ``act`` and ``policy`` are copied
+once out of the static segment: two segments' trajectories never alias.
+Two kinds of acting stay eager: ``random=True`` draws on the host with
+numpy, and ``act_on_host=True`` acts on the CPU.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -50,9 +65,181 @@ from tianshou_tpu_torch.data.tree import tree_leaves, tree_map
 from tianshou_tpu_torch.envs.host import HostVectorEnv
 from tianshou_tpu_torch.envs.spaces import Box
 from tianshou_tpu_torch.utils.device import make_generator, resolve_device
+from tianshou_tpu_torch.utils.graphs import CapturedStep, compile_step, named_tensors, write_row
 from tianshou_tpu_torch.utils.transfer import TreePacker
 
-__all__ = ["HostCollector"]
+__all__ = ["ActingIO", "ActingStep", "HostCollector"]
+
+
+@dataclasses.dataclass
+class ActingIO:
+    """The static inputs and outputs of an acting step (its compiled step's
+    collect state): the host writes ``obs`` (and ``mask``) before a step and
+    reads ``env_act`` after it."""
+
+    obs: Any  # [N, ...] tensor, or a Batch of them for dict observations
+    act: torch.Tensor | None = None  # the raw action [N, ...]
+    env_act: torch.Tensor | None = None  # map_action of it
+    segment: Batch | None = None  # [T, N, ...] raw actions and extras of a segment
+    cursor: torch.Tensor | None = None  # 0-d int64: the segment's next row
+    policy_state: Any = ()  # a recurrent policy's per-env carry
+    mask: torch.Tensor | None = None  # [N] bool: the rows whose carry advances
+
+
+def _schema(obs) -> tuple:
+    if isinstance(obs, dict):
+        return tuple((k, *_schema(v)) for k, v in sorted(obs.items()))
+    obs = np.asarray(obs)
+    return obs.shape, obs.dtype.str
+
+
+class _HostInput:
+    """A static device tensor and the host buffer (pinned on CUDA) that a
+    step's observation or mask crosses from: :meth:`write` copies ``x``
+    into the host buffer, then the host buffer to the tensor in one
+    asynchronous copy.  The step's synchronisation (the action's copy back)
+    ends that copy before the host writes the buffer again."""
+
+    def __init__(self, example: np.ndarray, device: torch.device):
+        example = np.asarray(example)
+        pinned = device.type == "cuda"
+        self.host = torch.empty(example.shape, dtype=torch.from_numpy(example[:0]).dtype, pin_memory=pinned)
+        self.view = self.host.numpy()
+        self.device = self.host.to(device) if pinned else self.host.clone()
+
+    def write(self, x) -> None:
+        np.copyto(self.view, x)
+        self.device.copy_(self.host, non_blocking=True)
+
+
+class ActingStep:
+    """The acting step of the host collectors, the fused cycle's first action
+    and ``collect_dataset_episodes``: ``act_with_extras`` (or, with a
+    recurrent carry, ``act_with_state``) and ``map_action`` over a static
+    :class:`ActingIO`, compiled with
+    :func:`~tianshou_tpu_torch.utils.graphs.compile_step` (on CUDA a CUDA
+    graph captured at its first call; on the CPU run eagerly).
+
+    :meth:`begin` readies it for a run of steps through ``ts``'s acting
+    module (:meth:`Algorithm.act_params`), drawing from ``generator``; each
+    call then takes the host observations (and, with a carry, the host mask
+    of the rows being dispatched) and returns the env action as numpy.
+    With ``num_steps`` the raw actions and the policy's extras are written
+    into row ``t`` of a ``[num_steps, N]`` segment, which :meth:`segment`
+    copies out.
+
+    A compiled step is kept for each ``(explore, num_steps, generator,
+    observation schema, carry)``, all over one acting module, identified by
+    its tensors (the pipelined host loop acts through a fresh shallow
+    ``with_act_params`` every segment, over the same snapshot module): a
+    call through another module drops them all and captures again.  A graph
+    is never replayed over a state it was not captured over.  The first
+    call of each compiled step allocates its outputs (eagerly: the capture's
+    warm-up on CUDA)."""
+
+    def __init__(self, algo, device: torch.device):
+        self.algo = algo
+        self.device = device
+        self._steps: dict[tuple, tuple] = {}
+        self._module: torch.nn.Module | None = None
+        self._tensors: list[torch.Tensor] | None = None
+        self._ts = None
+        self._current: tuple | None = None
+
+    def _build(self, explore: bool, num_steps: int, io: ActingIO):
+        algo = self.algo
+
+        def step(module, io: ActingIO, bstate, generator, explore_param):
+            ts = self._ts if module is None else algo.with_act_params(self._ts, module)
+            if io.mask is None:
+                act, extras = algo.act_with_extras(ts, io.obs, generator, explore, explore_param)
+            else:
+                act, extras, new_state = algo.act_with_state(ts, io.obs, io.policy_state, generator, explore,
+                                                             explore_param)
+                # the carries advance for the dispatched rows only
+                for old, new in zip(tree_leaves(io.policy_state), tree_leaves(new_state)):
+                    old.copy_(torch.where(io.mask.view((-1,) + (1,) * (old.dim() - 1)), new, old))
+            env_act = algo.map_action(act)
+            rows = Batch(act=act, policy=extras)
+            if io.act is None:  # the first call: the outputs take the step's shapes
+                io.act, io.env_act = torch.empty_like(act), torch.empty_like(env_act)
+                if io.cursor is not None:
+                    io.segment = tree_map(lambda x: x.new_empty((num_steps,) + x.shape), rows)
+            io.act.copy_(act)
+            io.env_act.copy_(env_act)
+            if io.cursor is not None:
+                for out, row in zip(tree_leaves(io.segment), tree_leaves(rows)):
+                    write_row(out, io.cursor, row)
+                io.cursor.add_(1)
+            return module, io, bstate, None, None
+
+        return compile_step(step, self.device, self._module, io, None, prepare_optimizers=False)
+
+    def begin(self, ts, obs, generator: torch.Generator, explore: bool, explore_param: float = 0.0,
+              num_steps: int = 0, policy_state: Any = ()) -> ActingStep:
+        """Ready the step for calls through ``ts``'s acting module on
+        observations shaped as ``obs``; with ``num_steps``, the segment's
+        row cursor is reset (one fill).  ``policy_state`` is a recurrent
+        carry (static: advanced in place).  Returns ``self``."""
+        # no train state (a policy without parameters, injected actions): no module
+        module = None if ts is None else self.algo.act_params(ts)
+        tensors = [t for _, t in named_tensors(module)]
+        if self._tensors is None or len(tensors) != len(self._tensors) or any(
+                a is not b for a, b in zip(tensors, self._tensors)):
+            self._steps.clear()
+            self._module, self._tensors = module, tensors
+        carry = tree_leaves(policy_state)
+        key = (explore, num_steps, id(generator), _schema(obs), tuple(id(t) for t in carry))
+        if key not in self._steps:
+            inputs = ({k: _HostInput(v, self.device) for k, v in obs.items()} if isinstance(obs, dict)
+                      else _HostInput(obs, self.device))
+            static_obs = (Batch({k: v.device for k, v in inputs.items()}) if isinstance(inputs, dict)
+                          else inputs.device)
+            mask = _HostInput(np.zeros(len(tree_leaves(static_obs)[0]), bool), self.device) if carry else None
+            io = ActingIO(obs=static_obs, policy_state=policy_state, mask=None if mask is None else mask.device,
+                          cursor=torch.zeros((), dtype=torch.int64, device=self.device) if num_steps else None)
+            self._steps[key] = (self._build(explore, num_steps, io), io, inputs, mask, generator)
+        self._ts, self._current = ts, self._steps[key]
+        compiled, io = self._current[:2]
+        if isinstance(compiled, CapturedStep):
+            compiled.explore.fill_(float(explore_param))
+            self._explore = compiled.explore
+        else:
+            self._explore = explore_param
+        if io.cursor is not None:
+            io.cursor.zero_()
+        return self
+
+    def __call__(self, obs, mask: np.ndarray | None = None) -> np.ndarray:
+        """One step on the host observations ``obs`` (with a carry, ``mask``
+        marks the rows being dispatched): the env action, copied back."""
+        compiled, io, inputs, mask_input, generator = self._current
+        if isinstance(inputs, dict):
+            for k, v in inputs.items():
+                v.write(obs[k])
+        else:
+            inputs.write(obs)
+        if mask_input is not None:
+            mask_input.write(mask)
+        compiled(self._module, io, None, generator, self._explore)
+        # the step's one synchronisation; a copy of the caller's own, on the
+        # CPU too, where the next step writes the static tensor again
+        return io.env_act.to("cpu", copy=True).numpy()
+
+    @property
+    def io(self) -> ActingIO:
+        return self._current[1]
+
+    @property
+    def compiled(self):
+        """The current compiled step (a ``CapturedStep`` on CUDA)."""
+        return self._current[0]
+
+    def segment(self) -> tuple[torch.Tensor, Batch | None]:
+        """The segment's raw actions and extras (None without extras),
+        copied out of the static segment: the caller's own."""
+        seg = tree_map(torch.clone, self.io.segment)
+        return seg["act"], (seg["policy"] if tree_leaves(seg["policy"]) else None)
 
 
 def _split_tensors(tree: dict) -> tuple[dict, dict]:
@@ -108,17 +295,14 @@ class HostCollector:
         # act_on_host: the host copy of the acting module and its stream
         self._host_module: torch.nn.Module | None = None
         self._host_generator: torch.Generator | None = None
+        # the acting step on each device it acts on (the card; the CPU with
+        # act_on_host)
+        self._acting_steps: dict[torch.device, ActingStep] = {}
 
     def reset(self, seed: int = 0) -> None:
         self.obs = self.venv.reset(seed)
         self.ep_ret[:] = 0
         self.ep_len[:] = 0
-
-    def _device_obs(self, obs, device: torch.device | None = None):
-        device = device or self.device
-        if isinstance(obs, dict):
-            return Batch({k: torch.as_tensor(v, device=device) for k, v in obs.items()})
-        return torch.as_tensor(obs, device=device)
 
     def _sync_host_actor(self, ts: TrainState) -> TrainState:
         """``ts`` acting through the host copy of its acting module, whose
@@ -147,6 +331,16 @@ class HostCollector:
             seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device).item())
             self._host_generator = make_generator(seed, torch.device("cpu"))
         return self._sync_host_actor(ts), self._host_generator, torch.device("cpu")
+
+    def acting(self, ts: TrainState, generator: torch.Generator, explore: bool, explore_param: float = 0.0,
+               num_steps: int = 0, device: torch.device | None = None) -> ActingStep:
+        """The collector's :class:`ActingStep` on ``device`` (default: the
+        collector's), begun for steps through ``ts`` on the current
+        observations."""
+        device = device or self.device
+        if device not in self._acting_steps:
+            self._acting_steps[device] = ActingStep(self.algo, device)
+        return self._acting_steps[device].begin(ts, self.obs, generator, explore, explore_param, num_steps)
 
     def _episode_metric(self, ep_rew: np.ndarray) -> np.ndarray:
         """The finished episodes' returns: ``reward_metric`` of per-agent
@@ -213,32 +407,27 @@ class HostCollector:
         sample = self._random_sampler(generator) if random else None
         on_host = self.act_on_host and not random
         ts, generator, act_device = self._acting(ts, generator) if on_host else (ts, generator, self.device)
-        host_steps, acts, extras, returns, lens = [], [], [], [], []
+        host_steps, acts, returns, lens = [], [], [], []
         ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
         with ctx:
+            acting = None if random else self.acting(ts, generator, explore, explore_param, num_steps, act_device)
             for _ in range(num_steps):
                 if random:
                     raw_act, env_act = sample(self.venv.num_envs)
+                    acts.append(raw_act)
                 else:
-                    raw_act, step_extras = self.algo.act_with_extras(
-                        ts, self._device_obs(self.obs, act_device), generator, explore, explore_param)
-                    env_act = self.algo.map_action(raw_act).cpu().numpy()
-                    if on_host:
-                        # host tensors: the segment's packed copy carries them
-                        raw_act, step_extras = raw_act.numpy(), tree_map(lambda x: x.numpy(), step_extras)
-                    if step_extras:
-                        extras.append(step_extras)
+                    env_act = acting(self.obs)
                 res, carry = self.venv.step(env_act)
                 r, l_ = self._track(res)
                 returns += r
                 lens += l_
                 host_steps.append(Batch(obs=self.obs, rew=res.reward, terminated=res.terminated,
                                         truncated=res.truncated, obs_next=res.obs))
-                acts.append(raw_act)
                 self.obs = carry
-            stack = np.stack if random or on_host else torch.stack
-            act = stack(acts)
-            policy = tree_map(lambda *xs: stack(xs), *extras) if extras else None
+            act, policy = (np.stack(acts), None) if random else acting.segment()
+            if on_host:
+                # host tensors: the segment's packed copy carries them
+                act, policy = act.numpy(), tree_map(lambda x: x.numpy(), policy) if policy is not None else None
         if stream is not None and not random and not on_host:
             current = torch.cuda.current_stream(self.device)
             current.wait_stream(stream)
@@ -317,9 +506,9 @@ class HostCollector:
         ts, generator, act_device = self._acting(ts, generator)
         counts = np.zeros(n, np.int64)
         returns, lens = [], []
+        acting = self.acting(ts, generator, explore, explore_param, device=act_device)
         for _ in range(max_steps):
-            raw_act = self.algo.act(ts, self._device_obs(self.obs, act_device), generator, explore, explore_param)
-            res, carry = self.venv.step(self.algo.map_action(raw_act).cpu().numpy())
+            res, carry = self.venv.step(acting(self.obs))
             done = res.terminated | res.truncated
             self._accumulate_rew(res.reward)
             for i in np.nonzero(done)[0]:

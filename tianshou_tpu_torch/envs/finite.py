@@ -7,7 +7,10 @@ exhausted.  The vector env then marks it dead and fills its rows with a
 default observation until every env is exhausted: one pass over the
 dataset plays every episode exactly once across the envs.  Dead-env masking
 is host control flow, so this lives on the host path; the card acts on the
-batched observations as for :class:`HostVectorEnv`.
+batched observations as for :class:`HostVectorEnv`, through the host
+collectors' compiled acting step
+(:class:`~tianshou_tpu_torch.collect.host_collector.ActingStep`, the JAX
+package's jitted ``act``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from tianshou_tpu_torch.collect.collector import CollectStats
+from tianshou_tpu_torch.collect.host_collector import ActingStep
 from tianshou_tpu_torch.envs.host import HostStepResult, HostVectorEnv, _stack_obs
 
 __all__ = ["FiniteHostVectorEnv", "collect_dataset_episodes", "FiniteEvalCollector"]
@@ -94,10 +98,14 @@ def collect_dataset_episodes(
     explore: bool = False,
     explore_param: float = 0.0,
     max_steps: int = 1_000_000,
+    acting: ActingStep | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """One full pass of the dataset under the policy (every episode exactly
-    once): ``(returns, lens)`` of the real transitions only."""
+    once): ``(returns, lens)`` of the real transitions only.  Acting goes
+    through ``acting`` (a caller's, kept across passes so that its graphs
+    replay; by default one for this pass)."""
     obs = venv.reset()
+    acting = (acting or ActingStep(algo, algo.device)).begin(ts, obs, generator, explore, explore_param)
     n = venv.num_envs
     ep_ret = np.zeros(n)
     ep_len = np.zeros(n, np.int64)
@@ -106,8 +114,7 @@ def collect_dataset_episodes(
     for _ in range(max_steps):
         if venv.exhausted:
             break
-        act = algo.act(ts, torch.as_tensor(obs, device=algo.device), generator, explore, explore_param)
-        res, carry, was_alive = venv.step_masked(algo.map_action(act).cpu().numpy())
+        res, carry, was_alive = venv.step_masked(acting(obs))
         ep_ret[was_alive] += res.reward[was_alive]
         ep_len[was_alive] += 1
         for i in np.nonzero((res.terminated | res.truncated) & was_alive)[0]:
@@ -129,6 +136,7 @@ class FiniteEvalCollector:
         self.algo = algo
         self.venv = venv
         self.device = algo.device
+        self.acting = ActingStep(algo, self.device)
 
     def collect_episodes(
         self,
@@ -139,7 +147,8 @@ class FiniteEvalCollector:
         explore_param: float = 0.0,
         **_: Any,
     ) -> CollectStats:
-        returns, lens = collect_dataset_episodes(self.algo, ts, self.venv, generator, explore, explore_param)
+        returns, lens = collect_dataset_episodes(self.algo, ts, self.venv, generator, explore, explore_param,
+                                                 acting=self.acting)
         return CollectStats(
             n_collected_steps=int(lens.sum()),
             n_collected_episodes=int(len(returns)),

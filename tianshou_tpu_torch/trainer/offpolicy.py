@@ -70,6 +70,7 @@ from tianshou_tpu_torch.data.tree import tree_map
 from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext, log_test, log_train, save_epoch
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 from tianshou_tpu_torch.utils.graphs import compile_step
+from tianshou_tpu_torch.utils.transfer import TreePacker
 
 __all__ = ["FusedHostLoop", "HostStep", "OffPolicyTrainer", "build_update_scan"]
 
@@ -205,12 +206,21 @@ class FusedHostLoop:
 
     :meth:`step_envs` steps the envs with the pending action (host);
     :meth:`upload` sends the transition and the next observation in ONE
-    packed copy; :meth:`device` adds the transition to the ring, runs the k
-    updates and acts on the next observation with the updated parameters,
-    all queued without a host synchronisation; :meth:`cycle` does the three
-    and fetches the env action, the cycle's one synchronisation.  The
-    updates and the acting draw from one stream, in order, so a seed fixes
-    the run."""
+    packed copy into a static staging buffer; :meth:`device` adds the
+    transition to the ring, runs the k updates and acts on the next
+    observation with the updated parameters, all queued without a host
+    synchronisation; :meth:`cycle` does the three and fetches the env
+    action, the cycle's one synchronisation.  The updates and the acting
+    draw from one stream, in order, so a seed fixes the run.
+
+    The device part is compiled as the JAX package jits its ``cycle``
+    (:meth:`OffPolicyTrainer._compile_fused_cycle`): on CUDA a CUDA graph
+    per pattern of the algorithm's host-keyed branches, over the train and
+    buffer states and the static staging ``(flat, raw_act, env_act)``: the
+    packed transition, and the pending raw action, which the graph reads
+    into the transition and then overwrites with the next action, and the
+    next env action.  :meth:`prime` (the JAX ``act_only``) is the host
+    collector's acting step (:class:`~tianshou_tpu_torch.collect.host_collector.ActingStep`)."""
 
     def __init__(self, trainer: OffPolicyTrainer, ts, bstate, generator):
         self.trainer = trainer
@@ -219,16 +229,18 @@ class FusedHostLoop:
         self.updates_fn = build_update_scan(trainer.algo, trainer.buffer, trainer.batch_size,
                                             trainer.updates_per_segment)
         self.metrics: dict[str, torch.Tensor] | None = None
-        self.raw_act: torch.Tensor | None = None  # the pending action, on the device
-        self.env_act_device: torch.Tensor | None = None
         self.env_act: np.ndarray | None = None  # the pending action, fetched
-        self._packer = None
+        self.staging: tuple | None = None  # (flat, raw_act, env_act), static on the card
+        self.compiled = None
+        self._packer: TreePacker | None = None
+        self._raw_act: torch.Tensor | None = None  # the first pending action (prime)
 
     def prime(self, explore_param: float) -> None:
         """The first action, from the current observations."""
-        col, algo = self.trainer.train_collector, self.trainer.algo
-        self.raw_act = algo.act(self.ts, col._device_obs(col.obs), self.generator, True, explore_param)
-        self.env_act = algo.map_action(self.raw_act).cpu().numpy()
+        col = self.trainer.train_collector
+        acting = col.acting(self.ts, self.generator, True, explore_param)
+        self.env_act = acting(col.obs)
+        self._raw_act = acting.io.act.clone()
 
     def step_envs(self) -> tuple[CollectStats, dict]:
         """One step of every env with the pending action: ``(stats, the
@@ -244,21 +256,49 @@ class FusedHostLoop:
         return stats, host
 
     def upload(self, host: dict) -> torch.Tensor:
-        """``host`` packed and sent to the card in one copy."""
-        self._packer = self.trainer.train_collector._packer(host)
-        return self._packer.to_device(host)
+        """``host`` packed and sent to the card in one copy, into the static
+        staging buffer (made by the first cycle's copy); returns it."""
+        if self._packer is None:
+            self._packer = TreePacker(host, self.trainer.device)
+            flat = self._packer.to_device(host)
+            self.staging = (flat, self._raw_act, torch.empty_like(
+                self.trainer.algo.map_action(self._raw_act)))
+            return flat
+        self._packer.to_device(host, out=self.staging[0])
+        return self.staging[0]
+
+    def device_fn(self, ts, staging, bstate, generator, explore_param):
+        """The eager device part over ``staging`` (the compiled cycle's
+        step, and its reference): ``(ts, staging, bstate, None,
+        metrics)``."""
+        flat, raw_act, env_act = staging
+        t, algo = self.trainer, self.trainer.algo
+        h = self._packer.unpack(flat)
+        transition = Batch(obs=h["obs"], act=raw_act, rew=h["rew"], terminated=h["terminated"],
+                           truncated=h["truncated"], obs_next=h["obs_next"])
+        bstate = t.buffer.add(bstate, transition)
+        ts, bstate, metrics = self.updates_fn(ts, bstate, generator)
+        act = algo.act(ts, h["carry"], generator, True, explore_param)
+        raw_act.copy_(act)  # the graph read the pending action into the ring first, in stream order
+        env_act.copy_(algo.map_action(act))
+        return ts, staging, bstate, None, metrics
 
     def device(self, flat: torch.Tensor, explore_param: float) -> None:
         """The transition into the ring, the k updates, and the next action
-        from the updated parameters, queued on the card."""
-        algo = self.trainer.algo
-        h = self._packer.unpack(flat)
-        transition = Batch(obs=h["obs"], act=self.raw_act, rew=h["rew"], terminated=h["terminated"],
-                           truncated=h["truncated"], obs_next=h["obs_next"])
-        self.bstate = self.trainer.buffer.add(self.bstate, transition)
-        self.ts, self.bstate, self.metrics = self.updates_fn(self.ts, self.bstate, self.generator)
-        self.raw_act = algo.act(self.ts, h["carry"], self.generator, True, explore_param)
-        self.env_act_device = algo.map_action(self.raw_act)
+        from the updated parameters, queued on the card (a replay on CUDA);
+        ``flat`` is the staging buffer :meth:`upload` wrote."""
+        if flat is not self.staging[0]:
+            raise ValueError("the fused cycle reads the static staging buffer that upload() writes")
+        if self.compiled is None:
+            self.compiled = self.trainer.compiled_fused_cycle = self.trainer._compile_fused_cycle(self)
+            self.staging = getattr(self.compiled, "cstate", self.staging)
+        self.ts, self.staging, self.bstate, _, self.metrics = self.compiled(
+            self.ts, self.staging, self.bstate, self.generator, explore_param)
+
+    @property
+    def env_act_device(self) -> torch.Tensor:
+        """The next env action on the card, written by :meth:`device`."""
+        return self.staging[2]
 
     def cycle(self, explore_param: float) -> CollectStats:
         """One cycle; ``explore_param`` is the schedule's value for the step
@@ -350,10 +390,12 @@ class OffPolicyTrainer:
         self.fused_fine_host = fused_fine_host
         self.last_run_used_fused = False
         # what the last run() launched: the superstep (on-device path,
-        # _compile_superstep) or the host step's device part (host path,
-        # _compile_host_step)
+        # _compile_superstep), the host step's device part (host path,
+        # _compile_host_step) or the fused fine cycle's
+        # (_compile_fused_cycle)
         self.compiled_superstep = None
         self.compiled_host_step = None
+        self.compiled_fused_cycle = None
 
         num_envs = train_collector.venv.num_envs
         # steps per env per collect segment (the reference counts total env steps)
@@ -417,6 +459,18 @@ class OffPolicyTrainer:
 
         k = self.updates_per_segment
         return compile_step(step, self.device, ts, staging, bstate, key=lambda: self.algo.update_pattern(ts, k))
+
+    def _compile_fused_cycle(self, loop: FusedHostLoop):
+        """The fused fine cycle's device part as the host path launches it
+        (the JAX package's jitted ``cycle``), called ``(ts, staging, bstate,
+        generator, explore_param)``: on CUDA a
+        :class:`~tianshou_tpu_torch.utils.graphs.CapturedStep` over
+        :meth:`FusedHostLoop.device_fn` with ``loop``'s train state, staging
+        and buffer state as its static state and a graph per pattern of the
+        algorithm's host-keyed branches; on the CPU the eager device part."""
+        k, ts = self.updates_per_segment, loop.ts
+        return compile_step(loop.device_fn, self.device, ts, loop.staging, loop.bstate,
+                            key=lambda: self.algo.update_pattern(ts, k))
 
     def _fused_fine_applicable(self, probe: Batch) -> bool:
         """Whether the fused fine cycle applies: one step per env a segment,

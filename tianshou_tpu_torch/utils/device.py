@@ -41,11 +41,16 @@ def make_generator(seed: int, device: torch.device) -> torch.Generator:
     return g
 
 
-def fork_generator(g: torch.Generator) -> torch.Generator:
+def fork_generator(g: torch.Generator, out: torch.Generator | None = None) -> torch.Generator:
     """A new generator on ``g``'s device seeded from one draw of ``g`` (the
-    counterpart of ``jax.random.split``).  Reads the draw on the host, so
-    call it at set-up, not inside a superstep."""
+    counterpart of ``jax.random.split``); with ``out``, ``out`` re-seeded
+    from that draw instead (the same stream, in a generator that a CUDA
+    graph has registered).  Reads the draw on the host, so call it at
+    set-up, not inside a superstep."""
     seed = torch.randint(
         0, 2**62, (1,), generator=g, device=g.device, dtype=torch.int64
     )
-    return make_generator(int(seed.item()), g.device)
+    if out is None:
+        return make_generator(int(seed.item()), g.device)
+    out.manual_seed(int(seed.item()))
+    return out

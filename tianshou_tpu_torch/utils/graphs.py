@@ -2,7 +2,9 @@
 JAX package's ``jax.jit`` plus ``.lower().compile()`` of the trainers' hot
 steps (``OffPolicyTrainer._compile_superstep`` and ``_compile_host_step``,
 ``OnPolicyTrainer._compile_superstep`` and ``_compile_learn``,
-``OfflineTrainer._compile_superstep``).
+``OfflineTrainer._compile_superstep``; the collection: the host
+collectors' acting step, the fused fine cycle and the device
+``Collector``'s segments).
 
 A step ``fn(ts, cstate, bstate, generator, explore_param) -> (ts, cstate,
 bstate, outputs, metrics)`` runs eagerly, one launch per operation.
@@ -25,8 +27,13 @@ eagerly):
   never copied.  Train-state leaves must be written in place: a step that
   rebinds one (``ts.x = new``) raises;
 - a step whose input arrives from outside each call (the host paths'
-  segment) reads it from a static staging tree carried as the collect
-  state, which the caller writes in place before each call;
+  segment, an acting step's observation batch) reads it from a static
+  staging tree carried as the collect state, which the caller writes in
+  place before each call; a step with no buffer state carries ``None``;
+- a step that fills one row of a preallocated ``[T, ...]`` output a call
+  (an acting step's segment of actions) writes row ``cursor``, a 0-d int64
+  tensor of its static state that the step advances (:func:`write_row`);
+  the caller resets it with one fill a segment;
 - anything that keeps a state across calls must clone it: the next call
   overwrites the static tensors, and the ``outputs`` and ``metrics`` a
   replay returns are the graph's own, overwritten by the next replay.  A
@@ -37,7 +44,8 @@ eagerly):
 
 Capture (the first call of each branch pattern, :meth:`CapturedStep._capture`):
 
-1. every optimizer of the train state is made ready
+1. every optimizer of the train state is made ready (not for a step that
+   only acts, ``prepare_optimizers=False``, which leaves them as built)
    (:func:`prepare_optimizer`): the port's own Adam
    (:func:`mark_capturable`) is made capturable here, and only here, so
    that the paths that stay eager keep its cheaper host-side step count;
@@ -50,8 +58,9 @@ Capture (the first call of each branch pattern, :meth:`CapturedStep._capture`):
    first-call set-up (a kernel library's build and its shared-memory
    limit, cuBLAS and cuDNN handles and workspaces) happens outside the
    capture.  Nothing is copied for it, the ring least of all;
-3. capture on the static state, with the generators registered with the
-   graph: each replay then draws from where the generators stand and
+3. capture on the static state, with Python's garbage collector paused
+   (collecting a dead step's graph during a capture invalidates it) and the
+   generators registered with the graph: each replay then draws from where the generators stand and
    advances them by the capture's draws, so that replays and eager draws
    between them (the test collector's) form one stream.  Capturing runs no
    work and draws nothing; the host ``step`` counters are put back to where
@@ -67,6 +76,7 @@ applies a graph captured for another pattern.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from collections.abc import Callable, Hashable
 from typing import Any
@@ -76,7 +86,7 @@ from torch import nn
 
 __all__ = ["CapturedStep", "StaticStep", "capture_stream", "check_capturable", "compile_step",
            "init_optimizer_state", "mark_capturable", "named_tensors", "optimizers", "own_storage",
-           "prepare_optimizer", "step_counters"]
+           "prepare_optimizer", "step_counters", "write_row"]
 
 
 def named_tensors(state: Any, prefix: str = "state") -> list[tuple[str, torch.Tensor]]:
@@ -109,6 +119,13 @@ def named_tensors(state: Any, prefix: str = "state") -> list[tuple[str, torch.Te
 
     walk(state, prefix)
     return out
+
+
+def write_row(out: torch.Tensor, cursor: torch.Tensor, row: torch.Tensor) -> None:
+    """``out[cursor] = row`` with the row index on the device: ``cursor``
+    is a 0-d int64 tensor, so that a graph writes the row its replay
+    finds there."""
+    out.index_copy_(0, cursor.view(1), row.unsqueeze(0))
 
 
 def own_storage(x: Any, seen: set | None = None) -> Any:
@@ -362,10 +379,15 @@ class CapturedStep(StaticStep):
     without host-keyed branches).  The first call of a pattern runs ``fn``
     eagerly as the warm-up and captures its graph; later calls of the
     pattern replay it.  ``explore_param`` is copied into a static 0-d
-    float32 tensor, which the graph reads."""
+    float32 tensor, which the graph reads (a caller that passes that tensor,
+    written once for many calls, saves the copy).  ``prepare_optimizers``
+    False leaves the train state's optimizers as built: a step that only
+    acts steps none."""
 
-    def __init__(self, fn: Callable, ts: Any, cstate: Any, bstate: Any, key: Callable[[], Hashable] = tuple):
+    def __init__(self, fn: Callable, ts: Any, cstate: Any, bstate: Any, key: Callable[[], Hashable] = tuple,
+                 prepare_optimizers: bool = True):
         super().__init__(fn, ts, cstate, bstate)
+        self.prepare_optimizers = prepare_optimizers
         leaves = named_tensors(self.states)
         self.device = leaves[0][1].device
         if self.device.type != "cuda":
@@ -389,7 +411,7 @@ class CapturedStep(StaticStep):
         """The first call of pattern ``key``: the warm-up step, then the
         capture (module docstring); returns the warm-up's results."""
         t0 = time.perf_counter()
-        for opt in optimizers(self.ts):
+        for opt in optimizers(self.ts) if self.prepare_optimizers else ():
             prepare_optimizer(opt)
         counters = step_counters(self.ts)
         before = [c.step for c in counters]
@@ -406,8 +428,17 @@ class CapturedStep(StaticStep):
         graph = torch.cuda.CUDAGraph()
         for g in self._generators():
             graph.register_generator_state(g)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            g_outputs, g_metrics = self.run_fn(self.generator, self.explore)
+        # a garbage collection inside the capture could destroy another
+        # step's graph (a collector's compiled steps sit in reference
+        # cycles), which invalidates the capture
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                g_outputs, g_metrics = self.run_fn(self.generator, self.explore)
+        finally:
+            if gc_was_enabled:
+                gc.enable()
         if [c.step for c in counters] != after:
             raise RuntimeError(f"the capture counted {[c.step for c in counters]} updates, its warm-up {after}")
         self.graphs[key] = _Graph(graph, g_outputs, g_metrics, [(c, a - b) for c, a, b in zip(counters, after, before)])
@@ -438,9 +469,11 @@ class CapturedStep(StaticStep):
 
 
 def compile_step(fn: Callable, device: torch.device, ts: Any, cstate: Any, bstate: Any,
-                 key: Callable[[], Hashable] = tuple) -> Callable:
-    """A trainer's compiled step: on CUDA a :class:`CapturedStep` over
-    ``fn`` with ``ts``, ``cstate`` and ``bstate`` as its static state; on
-    another device, which the caller asked for, ``fn`` itself, run
-    eagerly: CUDA graphs exist only on CUDA."""
-    return CapturedStep(fn, ts, cstate, bstate, key=key) if device.type == "cuda" else fn
+                 key: Callable[[], Hashable] = tuple, prepare_optimizers: bool = True) -> Callable:
+    """A compiled step: on CUDA a :class:`CapturedStep` over ``fn`` with
+    ``ts``, ``cstate`` and ``bstate`` as its static state; on another
+    device, which the caller asked for, ``fn`` itself, run eagerly: CUDA
+    graphs exist only on CUDA."""
+    if device.type != "cuda":
+        return fn
+    return CapturedStep(fn, ts, cstate, bstate, key=key, prepare_optimizers=prepare_optimizers)

@@ -286,31 +286,51 @@ Phases, in order; any failure ends the run with a non-zero exit:
    presampling its own 512 rows, 52 ``gather_rows_cast`` launches a
    segment; ``dist_rainbow_per`` the same trainer on ``rainbow_per``'s
    prioritized ring; ``dist_ppo_cartpole`` ``DistributedOnPolicyTrainer`` at
-   ``ppo_cartpole``'s): 1 warm-up and 2 timed segments, segments in turns
-   with the plain trainer's, one profiled (device kernels, busy time, NCCL
-   kernels), the all-reduces of a segment (calls, bytes), the per-update
-   presample and gradient all-reduce alone, then ``run()`` for one epoch of
-   two segments, the launches read over exactly that run; ``dist_atari``
-   also holds one distributed update against the plain one on the same
-   batch.  Last, two gloo ranks share the card (this script again, with
-   ``--gloo-rank``, as two subprocesses on CUDA tensors): DQN on the
-   on-device CartPole through ``DistributedOffPolicyTrainer``, their
-   parameters bitwise equal after the run and the losses they read equal.
-   Between the two, ``redq_ep`` (slice 12, ``REDQ_EP``): REDQ at
-   ``redq_pendulum``'s configuration with its 10 critics sharded over the
-   ``"ep"`` axis of a ``make_mesh2`` mesh.  At world size 1 on the NCCL
-   group (``dp 1 x ep 1``) one sharded update equals the plain one
-   bitwise; then two gloo ranks share the card (``--redq-ep-rank``
+   ``ppo_cartpole``'s), each compiled since slice 17 (``phase_dist_graph``:
+   ``_compile_superstep``, CUDA graphs of the eager segment with the NCCL
+   collectives as nodes): an eager segment's peak memory, the compiled
+   segment's warm-up and capture (the peak with the static state at most
+   1.2x the eager one's), two replays against two eager segments from
+   copies of the state, bitwise (``dist_rainbow_per`` within phase 4's
+   limits where ``C51._project``'s ``scatter_add_`` forbids it), the
+   collectives each capture counted (every one on the capturing stream)
+   against the eager segment's ``all_reduce`` calls and bytes, ms a segment
+   in turns (eager, graph, the plain trainer's graph, and back), an eager
+   segment and a replay profiled (kernels, busy time, NCCL kernels, host
+   launch calls), a replay under the sync guard; then the per-update
+   presample and gradient all-reduce alone, and ``run()`` for one epoch of
+   two segments, each a warm-up or a replay, the kernel's launches read
+   over exactly that run (52 from the host in ``dist_atari``'s warm-up, 104
+   on the card); ``dist_atari`` also holds one distributed update against
+   the plain one on the same batch.  Then ``make_distributed_update``
+   (``DIST_UPDATE``: cartpole's widths, one-step targets, batch 1024):
+   two replays against eager updates bitwise, the capture's collectives
+   against the eager update's, and the plain ``update_sampled`` within
+   rtol 1e-4 / atol 1e-5.  Last, two gloo ranks share the card (this script
+   again, with ``--gloo-rank``, as two subprocesses on CUDA tensors): DQN
+   on the on-device CartPole through ``DistributedOffPolicyTrainer``, their
+   parameters bitwise equal after the run and the losses they read equal,
+   the segment eager (gloo's collectives run on the host, which a stream
+   capture cannot record).  Between the two, ``redq_ep`` (slice 12,
+   ``REDQ_EP``): REDQ at ``redq_pendulum``'s configuration with its 10
+   critics sharded over the ``"ep"`` axis of a ``make_mesh2`` mesh.  At
+   world size 1 on the NCCL group (``dp 1 x ep 1``) one sharded update
+   equals the plain one bitwise, and the trainer's segment replays a graph
+   per pattern of the actor delay, held as the distributed paths' are
+   (the ensembles' gathers and their backward all-reduce among the
+   counted collectives), and its ``run()`` for ``REDQ_EP_GRAPH_SEGMENTS``
+   segments is warm-ups and replays; then two gloo ranks share the card (``--redq-ep-rank``
    subprocesses, ``dp 1 x ep 2``, 5 critics each): REDQ's first update
    (its critics' step) sharded against the one-process update from the
    same parameters, batch and draws (losses rtol 1e-5, gathered parameters
    rtol 2e-5 / atol 1e-6, float32, TF32 off; an update that steps the
    actor too is measured beside it), ms a segment of ``DistributedOffPolicyTrainer`` in
-   turns with the plain ``redq_pendulum`` superstep (plain, ep, ep, plain;
-   the plain one on rank 0 alone), the all-reduces and ensemble gathers of
-   a segment with their bytes, rank 0's kernels a segment, and ``run()``
-   for 3 segments after the warm-up, after which the ranks' parameters
-   (replicated, and the critics gathered) are bitwise equal;
+   turns with the plain ``redq_pendulum`` superstep (plain, ep, ep, plain,
+   one segment a turn; the plain one on rank 0 alone), the all-reduces and
+   ensemble gathers of a segment with their bytes, rank 0's kernels a
+   segment, and ``run()`` for 3 segments after the warm-up (the segment
+   eager over gloo), after which the ranks' parameters (replicated, and the
+   critics gathered) are bitwise equal;
 7. ``Batch`` on the card: ``cat``, ``stack``, ``split``, index reads and
    slice assignment on CUDA tensors equal the same calls on the CPU;
 8. examples (slice 13): the example scripts of ``tianshou_tpu_torch/examples/``
@@ -472,7 +492,17 @@ DIST_PATHS = {"dist_atari": "atari", "dist_rainbow_per": "rainbow_per", "dist_pp
 # launches of gather_rows_cast a segment of the distributed trainer: each of
 # atari's 26 updates presamples its own 512 rows (obs and obs_next), as the
 # JAX distributed trainer does
-DIST_KERNEL_LAUNCHES = {"dist_atari": 52, "dist_rainbow_per": 0, "dist_ppo_cartpole": 0}
+DIST_KERNEL_LAUNCHES = {"dist_atari": 52, "dist_rainbow_per": 0, "dist_ppo_cartpole": 0, "redq_ep": 0}
+# slice 17: the one distributed path whose replays may differ from eager
+# segments (held to phase 4's limits), and the operation that forbids bitwise
+DIST_NOT_BITWISE = {"dist_rainbow_per": "C51._project's Tensor.scatter_add_, not deterministic on the card"}
+# slice 17: make_distributed_update on the world-1 NCCL group at cartpole's
+# widths, one-step targets: a batch of 1024 rows, 3 staged calls (the
+# capture's warm-up and two replays)
+DIST_UPDATE = dict(batch=1024, updates=3)
+# the compiled segments' launches are read where the supersteps' are
+# (_counted_run, _run_launches)
+KERNEL_LAUNCHES.update(DIST_KERNEL_LAUNCHES)
 # two gloo ranks on the one card: DQN on the on-device CartPole at
 # tests/_dist_trainer_worker.py's widths (QNet (64, 64), n 3, 8 envs a rank,
 # batch 64 global), 3 segments of 10 steps a env after 1,000 warm-up steps
@@ -483,6 +513,11 @@ GLOO_RANK_TIMEOUT = 300
 # one sharded update held against the one-process update (the JAX test's
 # limits), then run() for 3 segments after the path's warm-up
 REDQ_EP = dict(base="redq_pendulum", ranks=2, ep=2, segments=3, loss_rtol=1e-5, param_rtol=2e-5, param_atol=1e-6)
+# slice 17: redq_ep at dp 1 x ep 1 on the NCCL group, compiled: run() for 5
+# segments, the first meeting of each of the actor delay's 4 branch
+# patterns a capture's warm-up, the fifth a replay (redq_pendulum's
+# main_supersteps)
+REDQ_EP_GRAPH_SEGMENTS = 5
 # slice 14: the paths whose superstep OffPolicyTrainer.run() launches as CUDA
 # graphs (_compile_superstep), each held bitwise against the eager superstep
 # (phase_graph), and the supersteps of each turn of its timing
@@ -503,7 +538,9 @@ GRAPH_COVERED = ("minatar_space_invaders", "minatar_freeway", "minatar_asterix",
 # (_compile_learn) and the off-policy host step (_compile_host_step)
 LEARN_GRAPH_PATHS = ("cql_d4rl", "discrete_cql_cartpole", "ppo_cartpole", "trpo_pendulum", "gail_pendulum",
                      "ppo_host", "sac_host", "atari_host", "cpp_cartpole")
-COMPILED_PATHS = GRAPH_PATHS + LEARN_GRAPH_PATHS
+# slice 17: the distributed trainers' segments on the world-1 NCCL group
+# (phase_dist_graph), redq_ep's at dp 1 x ep 1
+COMPILED_PATHS = GRAPH_PATHS + LEARN_GRAPH_PATHS + tuple(DIST_KERNEL_LAUNCHES)
 # a replayed learn step's host launch calls at most: the graph launch, the
 # fills of explore_param and the generators' offsets, and on the host paths
 # the segment's packed copy into the staging and the copies of its tensor
@@ -660,7 +697,8 @@ def phase_device() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(smi)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+    nccl = ".".join(map(str, torch.cuda.nccl.version())) if torch.distributed.is_nccl_available() else "none"
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} nccl {nccl} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     return smi
 
@@ -2847,14 +2885,16 @@ def _busy_ms(events) -> float:
 
 def _profile(fn) -> dict:
     """``fn`` under ``torch.profiler``: the card's records (kernels, of which
-    memsets and memcpys), its busy milliseconds, the host's launch calls
-    (``LAUNCH_CALLS``, by name) and ``gather_rows_cast``'s device ms a
-    launch."""
+    memsets and memcpys), its busy milliseconds, its NCCL kernels and their
+    busy milliseconds, the host's launch calls (``LAUNCH_CALLS``, by name)
+    and ``gather_rows_cast``'s device ms a launch."""
     host: list = []
     events = _device_records(fn, host)
     names = [e.name() for e in events]
+    nccl = [e for e in events if "nccl" in e.name().lower()]
     return {"kernels": len(events), "memsets": sum("Memset" in n for n in names),
             "memcpys": sum("Memcpy" in n for n in names), "busy_ms": _busy_ms(events), "host_launches": len(host),
+            "nccl_kernels": len(nccl), "nccl_ms": _busy_ms(nccl),
             "host_launch_calls": dict(collections.Counter(e.name() for e in host)),
             "gather_rows_cast_ms": [(e.end_ns() - e.start_ns()) / 1e6 for e in events
                                     if "gather_rows_cast" in e.name()]}
@@ -4368,12 +4408,10 @@ def build_dist_path(path: str):
 
 
 def dist_superstep_of(trainer, state: list, generators):
-    """The distributed trainer's segment over ``state`` (``[ts, cstate,
+    """The distributed trainer's eager segment over ``state`` (``[ts, cstate,
     bstate]``, updated in place; ``bstate`` None on-policy), its metrics
-    averaged over the ranks on the device, as ``run()`` averages them:
-    ``step() -> device metrics``."""
-    from tianshou_tpu_torch.parallel.distributed import average_metrics
-
+    averaged over the ranks inside it, as ``run()`` reads them: ``step() ->
+    device metrics``."""
     fn = trainer._build_superstep()
 
     def step():
@@ -4381,7 +4419,7 @@ def dist_superstep_of(trainer, state: list, generators):
             state[0], state[1], _, metrics = fn(state[0], state[1], generators)
         else:
             state[0], state[1], state[2], _, metrics = fn(*state, generators, 0.1)
-        return average_metrics(metrics, trainer.group)
+        return metrics
 
     return step
 
@@ -4433,86 +4471,285 @@ def phase_dist_update_check(algo, buffer, bstate, group) -> float:
     return err
 
 
+def _dist_gens(state: list) -> list:
+    """A distributed run state's generators (``[ts, cstate, bstate,
+    generators]``): the step's (one, or the learn and sample pair), then
+    the collect state's."""
+    g = state[3]
+    return [*(g if isinstance(g, tuple) else (g,)), state[1].rng]
+
+
+def _clone_dist_state(state: list) -> list:
+    """``[ts, cstate, bstate, generators]`` copied, sharing no tensor or
+    generator with the original."""
+    memo = {id(g): _copy_generator(g) for g in _dist_gens(state)}
+    g = state[3]
+    return [*copy.deepcopy(tuple(state[:3]), memo),
+            tuple(memo[id(x)] for x in g) if isinstance(g, tuple) else memo[id(g)]]
+
+
+def _dist_leaves(state: list, outputs=None, metrics=None, ring: bool = True) -> list[tuple[str, torch.Tensor]]:
+    """The named tensors of a distributed run state, its generators' states
+    included (the ring's storage only with ``ring``), and of a segment's
+    outputs and metrics."""
+    from tianshou_tpu_torch.data.tree import tree_leaves
+    from tianshou_tpu_torch.utils.graphs import named_tensors
+
+    leaves = [(n, t) for n, t in named_tensors(tuple(state[:3])) if ring or not n.startswith("state[2].storage")]
+    leaves += [(f"generator[{i}]", g.get_state()) for i, g in enumerate(_dist_gens(state))]
+    if outputs is not None:
+        leaves += [(f"outputs[{i}]", t) for i, t in enumerate(tree_leaves(outputs))]
+        leaves += [(f"metrics[{k!r}]", v) for k, v in metrics.items()]
+    return leaves
+
+
+def _dist_eager(trainer):
+    """The distributed trainer's eager segment in the compiled step's form
+    ``(ts, cstate, bstate, generators, explore_param) -> (ts, cstate,
+    bstate, outputs, metrics)``."""
+    from tianshou_tpu_torch.trainer.distributed import DistributedOnPolicyTrainer
+
+    fn = trainer._build_superstep()
+    if not isinstance(trainer, DistributedOnPolicyTrainer):
+        return fn
+
+    def step(ts, cstate, bstate, generator, explore_param):
+        ts, cstate, outputs, metrics = fn(ts, cstate, generator)
+        return ts, cstate, bstate, outputs, metrics
+
+    return step
+
+
+def phase_dist_graph(what: str, trainer, state: list, gather, launches: int, beside: dict | None = None,
+                     not_bitwise_op: str | None = None) -> dict:
+    """A distributed trainer's compiled segment (``_compile_superstep``: CUDA
+    graphs of ``_build_superstep`` with the collectives as nodes) on the
+    world-1 NCCL group, from ``state`` (``[ts, cstate, bstate,
+    generators]``).  An eager segment's peak memory on a copy of the state,
+    then the compiled segment's first calls until every branch pattern is
+    captured (each an eager warm-up, then its capture; the peak over them
+    with the static state at most 1.2x the eager one's, the capture
+    stream's workspace apart; ``gather_rows_cast``'s host launches:
+    ``launches`` a warm-up); from copies of the state they leave, two eager
+    segments (optimizers capturable, as the graph's) against two replays,
+    bitwise in every carried tensor, every generator's state, ``outputs``
+    and ``metrics`` (where ``not_bitwise_op`` names an operation that
+    forbids it, a leaf that is not bitwise is held to phase 4's limits and
+    named), none from the host in the replays (as many of each as there are
+    patterns, where more than two); the
+    collectives each capture counted against the eager segment's
+    ``all_reduce`` calls and bytes of the same pattern, every one issued on
+    the capturing stream; ms a segment in turns (eager,
+    graph and ``beside``'s steps, then back); an eager segment and a replay
+    profiled (kernels, busy time, NCCL kernels, host launch calls: one graph
+    launch and a few fills a replay; the kernel's device launches in the
+    replay); a replay under the sync guard; the peak a replay; the ring's
+    storage unmoved."""
+    from tianshou_tpu_torch.data.tree import tree_leaves
+    from tianshou_tpu_torch.utils.graphs import CapturedStep
+
+    explore = torch.full((), 0.1, device="cuda")
+    eager_fn = _dist_eager(trainer)
+
+    def eager_step(st):
+        st[0], st[1], st[2], outputs, metrics = eager_fn(*st[:3], st[3], explore)
+        return outputs, metrics
+
+    workspace = _capture_stream_workspace() / 2**30
+    state_gib = _state_gib(*state[:3])
+    spare = _clone_dist_state(state)
+    eager_peak = _peak_over(lambda: eager_step(spare))
+    del spare
+    compiled = trainer._compile_superstep(*state[:2]) if state[2] is None else trainer._compile_superstep(*state[:3])
+    if not isinstance(compiled, CapturedStep):
+        raise AssertionError(f"{what}: _compile_superstep gave a {type(compiled).__name__} on the NCCL group")
+
+    def graph_step(st):
+        st[0], st[1], st[2], outputs, metrics = compiled(*st[:3], st[3], explore)
+        return outputs, metrics
+
+    storage = [t.data_ptr() for t in tree_leaves(state[2].storage)] if state[2] is not None else []
+    patterns = _pattern_count(trainer.algo, state[0], trainer.updates_per_segment)
+    calls = 0
+
+    def warm_up():
+        nonlocal calls
+        while len(compiled.graphs) < patterns and calls < 64:
+            graph_step(state)
+            calls += 1
+
+    gather.launches = 0
+    t0 = time.perf_counter()
+    capture_peak = _peak_over(warm_up)
+    warm_s = time.perf_counter() - t0
+    warm_launches = gather.launches
+    if len(compiled.graphs) != patterns or warm_launches != launches * patterns:
+        raise AssertionError(f"{what}: {len(compiled.graphs)} graphs for {patterns} patterns in {calls} calls, "
+                             f"gather_rows_cast launched {warm_launches} times from the host")
+    _hold_peak(what, state_gib, eager_peak, capture_peak, workspace)
+    eager_state = _clone_dist_state(state)
+    snaps: dict[str, list] = {"eager": [], "graph": []}
+    eager_reduces, graph_collectives, seen = [], [], {}
+    replays, compared = sum(g.replays for g in compiled.graphs.values()), max(2, patterns)
+    for name in ("eager", "graph"):
+        gather.launches = 0
+        for _ in range(compared):
+            if name == "eager":
+                out = []
+                eager_reduces.append(_all_reduces(lambda: out.append(eager_step(eager_state))))
+                outputs, metrics = out[0]
+            else:
+                graph_collectives.append(compiled.graphs[compiled.key()].collectives)
+                outputs, metrics = graph_step(state)
+            st = eager_state if name == "eager" else state
+            snaps[name].append([(n, t.detach().clone()) for n, t in _dist_leaves(st, outputs, metrics, ring=False)])
+        seen[name] = gather.launches
+    if sum(g.replays for g in compiled.graphs.values()) != replays + compared:
+        raise AssertionError(f"{what}: the {compared} compared graph segments were not all replays")
+    if seen["graph"] != 0 or seen["eager"] != compared * launches:
+        raise AssertionError(f"{what}: gather_rows_cast launched {seen} times from the host in {compared} segments")
+    for got, sizes in zip(graph_collectives, eager_reduces):
+        if got != [("allreduce_", b) for b in sizes]:
+            raise AssertionError(f"{what}: a capture counted the collectives {got}, an eager segment all_reduce "
+                                 f"{sizes}")
+    differ = sorted(set(sum((_differing(e, g) for e, g in zip(snaps["eager"], snaps["graph"])), [])
+                        + _differing(_dist_leaves(eager_state), _dist_leaves(state))))
+    # the collect stream draws every step: it advances across replays (the
+    # others, as far as the eager segments advance them)
+    rngs = [[v for n, v in s if n.startswith("generator[")][-1] for s in snaps["graph"][:2]]
+    if torch.equal(*rngs):
+        raise AssertionError(f"{what}: the collect generator did not advance between two replays")
+    if differ and not_bitwise_op is None:
+        raise AssertionError(f"{what}: graph and eager segments differ at {differ[:8]}")
+    not_bitwise = {}
+    for n in differ:
+        errs = []
+        for i in range(compared):
+            got, ref = dict(snaps["graph"][i]), dict(snaps["eager"][i])
+            if n in got and not _bitwise(got[n], ref[n]):
+                if not got[n].is_floating_point():
+                    raise AssertionError(f"{what}: graph and eager segments differ at {n}")
+                errs.append(_assert_close(f"{what} graph vs eager {n}", got[n], ref[n]))
+        not_bitwise[n] = max(errs, default=0.0)
+    if differ:
+        log(f"{what}: graph vs eager not bitwise at {len(differ)} leaves ({not_bitwise_op}), within phase 4's "
+            f"limits, largest difference {max(not_bitwise.values()):.3e} at {max(not_bitwise, key=not_bitwise.get)}")
+    del snaps
+    runs = {"eager": lambda: eager_step(eager_state), "graph": lambda: graph_step(state), **(beside or {})}
+    turns = _turns(runs, 1)
+    profiled = {"eager": _profile(lambda: eager_step(eager_state)), "graph": _profile(lambda: graph_step(state))}
+    host_calls = profiled["graph"]["host_launch_calls"]
+    if (host_calls.get("cudaGraphLaunch", 0) + host_calls.get("cuGraphLaunch", 0) != 1
+            or profiled["graph"]["host_launches"] > LEARN_REPLAY_HOST_LAUNCHES):
+        raise AssertionError(f"{what}: a replayed segment's host launches {profiled['graph']}")
+    if len(profiled["graph"]["gather_rows_cast_ms"]) != launches:
+        raise AssertionError(f"{what}: a profiled replay ran gather_rows_cast "
+                             f"{len(profiled['graph']['gather_rows_cast_ms'])} times, not {launches}")
+    del eager_state
+    sync_guarded(lambda: graph_step(state))
+    replay_peak = _peak_over(lambda: graph_step(state))
+    metrics = _read(graph_step(state)[1])
+    if storage and [t.data_ptr() for t in tree_leaves(state[2].storage)] != storage:
+        raise AssertionError(f"{what}: the ring's storage moved")
+    collectives = [c for g in compiled.graphs.values() for c in g.collectives]
+    result = {"graphs": len(compiled.graphs), "patterns": patterns, "warm_up_calls": calls,
+              "warm_up_and_capture_s": warm_s, "warm_ups_s": compiled.warm_up_s, "captures_s": compiled.capture_s,
+              "warm_up_gather_launches": warm_launches, "bitwise": not differ, "not_bitwise": not_bitwise,
+              "turns_ms": turns, "ms_per_segment": turns["graph"], "eager_ms_per_segment": turns["eager"],
+              "profiled": profiled, "device_busy_share": {k: profiled[k]["busy_ms"] / turns[k] for k in profiled},
+              "graphs_replayed": sum(g.replays > 0 for g in compiled.graphs.values()),
+              "collectives_per_capture": [len(g.collectives) for g in compiled.graphs.values()],
+              "collective_bytes_per_capture": [sum(b for _, b in g.collectives) for g in compiled.graphs.values()],
+              "eager_all_reduce_calls": [len(x) for x in eager_reduces],
+              "eager_all_reduce_bytes": [sum(x) for x in eager_reduces],
+              "state_gib": state_gib, "eager_peak_gib": eager_peak, "capture_peak_gib": capture_peak,
+              "replay_peak_gib": replay_peak, "capture_stream_workspace_gib": workspace,
+              "copy_back_bytes": compiled.copy_back_bytes, "metrics": metrics,
+              "gather_rows_cast_per_replay_profiled": len(profiled["graph"]["gather_rows_cast_ms"])}
+    log(f"{what} graph: {len(compiled.graphs)} graph(s) for {patterns} pattern(s) in {calls} call(s), {warm_s:.2f} s "
+        f"(warm-ups {compiled.warm_up_s:.2f} s, captures {compiled.capture_s:.2f} s); {compared} replays (of "
+        f"{result['graphs_replayed']} graphs) vs {compared} eager segments {'bitwise' if not differ else 'within limits'}; collectives counted at the captures "
+        f"{result['collectives_per_capture']} ({result['collective_bytes_per_capture']} bytes; {len(collectives)} "
+        f"in all, every one on the capturing stream), an eager segment's all_reduce {result['eager_all_reduce_calls']}"
+        f" ({result['eager_all_reduce_bytes']} bytes); ms a segment in turns "
+        + ", ".join(f"{k} {v:.2f}" for k, v in turns.items())
+        + f"; profiled: eager {profiled['eager']['kernels']} records ({profiled['eager']['nccl_kernels']} NCCL) / "
+        f"{profiled['eager']['host_launches']} host launches, graph {profiled['graph']['kernels']} records "
+        f"({profiled['graph']['nccl_kernels']} NCCL) / {profiled['graph']['host_launches']} host launches "
+        f"{host_calls}; busy share eager {result['device_busy_share']['eager']:.3f} graph "
+        f"{result['device_busy_share']['graph']:.3f}; peak {state_gib:.3f} GiB of static state + eager "
+        f"{eager_peak:.3f} / warm-ups and captures {capture_peak:.3f} (workspace {workspace:.3f}) / a replay "
+        f"{replay_peak:.3f}; {compiled.copy_back_bytes} bytes copied back a segment; gather_rows_cast "
+        f"{warm_launches} host launches in the warm-ups, {result['gather_rows_cast_per_replay_profiled']} device "
+        f"launches in a profiled replay; a replay under the sync guard raised nothing")
+    return result
+
+
 def phase_distributed(path: str, gather) -> dict:
-    """A distributed path on the world-1 NCCL group: 1 warm-up and 2 timed
-    segments of the distributed trainer (the launches of the kernel counted
-    over them), its segments in turns with the plain trainer's (plain, dist,
-    dist, plain; ms a segment), one under the profiler (device kernels, busy
-    time, the NCCL kernels and their device ms), the all-reduces of one
-    segment (calls and bytes, the gradient bucket of an update) and the peak
-    memory.  ``dist_atari`` also holds one distributed update against the
-    plain one."""
+    """A distributed path on the world-1 NCCL group: the compiled segment
+    against its eager form (:func:`phase_dist_graph`), the plain trainer's
+    compiled superstep beside it in the turns; on the off-policy paths the
+    per-update presample and gradient all-reduce alone; ``dist_atari`` also
+    holds one distributed update against the plain one."""
     base = DIST_PATHS[path]
     cfg = PATHS[base]
     _fresh_memory()
     algo, buffer, plain, trainer = build_dist_path(path)
     gen, *plain_state = init_states(algo, plain.train_collector, buffer)
-    plain_step = superstep_of(plain, plain_state, gen)
+    plain_state.append(gen)
+    plain_compiled = (plain._compile_superstep(*plain_state[:2]) if buffer is None
+                      else plain._compile_superstep(*plain_state[:3]))
+
+    def plain_graph():
+        st = plain_state
+        st[0], st[1], st[2], _, metrics = plain_compiled(*st[:3], st[3], 0.1)
+        return metrics
+
+    plain_graph()  # its warm-up and capture, before the turns
     if buffer is None:
-        generators, *dist_state = init_states(algo, trainer.train_collector, None, seed=1)
+        g, ts, cstate, _ = init_states(algo, trainer.train_collector, None, seed=1)
+        state = [ts, cstate, None, g]
     else:
         ts, cstate, bstate, generators, _ = trainer.init_states()
-        dist_state = [ts, cstate, bstate]
-    dist_step = dist_superstep_of(trainer, dist_state, generators)
-    gather.launches = 0
-    dt, metrics = timed(dist_step, TIMED)
-    launches = gather.launches
-    if launches != DIST_KERNEL_LAUNCHES[path] * (TIMED + WARMUP):
-        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in {TIMED + WARMUP} segments, "
-                             f"not {DIST_KERNEL_LAUNCHES[path] * (TIMED + WARMUP)}")
-    _check_metrics(base, metrics)
-    timed(plain_step, 0)
-    turns = _turns({"plain": plain_step, "distributed": dist_step}, TIMED)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    records = _device_records(dist_step)
-    nccl = [e for e in records if "nccl" in e.name().lower()]
-    sizes = _all_reduces(dist_step)
-    updates = trainer.updates_per_segment
-    grad_bytes = (sum(p.numel() * p.element_size() for p in algo.act_params(dist_state[0]).parameters())
-                  if buffer is not None else 0)
-    result = {"ms_per_segment": dt / TIMED * 1e3, "turns_ms": turns, **metrics, "updates_per_segment": updates,
-              "gather_rows_cast_per_segment": launches / (TIMED + WARMUP),
-              "device_kernels_per_segment": len(records), "device_busy_ms_per_segment_profiled": _busy_ms(records),
-              "nccl_kernels_per_segment": len(nccl), "nccl_device_ms_per_segment": _busy_ms(nccl),
-              "nccl_kernel_names": sorted({e.name() for e in nccl}),
-              "all_reduce_calls_per_segment": len(sizes), "all_reduce_bytes_per_segment": sum(sizes),
-              "gradient_bytes_per_update": grad_bytes, "max_memory_allocated_gib": peak}
-    result["device_busy_share"] = result["device_busy_ms_per_segment_profiled"] / turns["distributed"]
+        state = [ts, cstate, bstate, generators]
+    result = phase_dist_graph(path, trainer, state, gather, DIST_KERNEL_LAUNCHES[path], {"plain graph": plain_graph},
+                              DIST_NOT_BITWISE.get(path))
+    _check_metrics(base, result["metrics"])
+    result["updates_per_segment"] = updates = trainer.updates_per_segment
+    result["gradient_bytes_per_update"] = (
+        sum(p.numel() * p.element_size() for p in algo.act_params(state[0]).parameters()) if buffer is not None else 0)
     if buffer is not None:
         # the two parts the distributed segment adds per update, each alone
         from tianshou_tpu_torch.algos.base import sync_gradients
 
-        ts, bstate = dist_state[0], dist_state[2]
+        ts, bstate, generators = state[0], state[2], state[3]
         result["breakdown_ms"] = breakdown({
             "presample (one update)": lambda: algo.presample(buffer, bstate, generators[1], trainer.batch_local),
             "gradient all-reduce (one update)": lambda: sync_gradients(ts.optimizer, trainer.group)})
         log(f"{path} breakdown (median of 3, ms): " + ", ".join(
             f"{k} {v:.3f}" for k, v in result["breakdown_ms"].items()))
     log(f"{path}: {cfg['num_envs']} envs x {cfg['segment']} steps + {updates} updates of batch {cfg['batch']} "
-        f"(world 1, NCCL): {result['ms_per_segment']:.2f} ms a segment, metrics {metrics}; in turns with the plain "
-        f"trainer: plain {turns['plain']:.2f} ms, distributed {turns['distributed']:.2f} ms; gather_rows_cast "
-        f"{launches} launches in {TIMED + WARMUP} segments; profiled segment: {len(records)} device kernels, busy "
-        f"{result['device_busy_ms_per_segment_profiled']:.2f} ms ({result['device_busy_share']:.3f}), {len(nccl)} "
-        f"NCCL kernels {result['nccl_device_ms_per_segment']:.4f} ms {result['nccl_kernel_names']}; all_reduce "
-        f"{len(sizes)} calls {sum(sizes)} bytes a segment (gradients {grad_bytes} bytes an update); "
-        f"max_memory_allocated {peak:.3f} GiB")
+        f"(world 1, NCCL): replayed {result['ms_per_segment']:.2f} ms a segment, eager "
+        f"{result['eager_ms_per_segment']:.2f}, the plain trainer's graph {result['turns_ms']['plain graph']:.2f}; "
+        f"metrics {result['metrics']}; gradients {result['gradient_bytes_per_update']} bytes an update")
     if path == "dist_atari":
-        result["update_check_max_abs_err"] = phase_dist_update_check(algo, buffer, dist_state[2], trainer.group)
+        result["update_check_max_abs_err"] = phase_dist_update_check(algo, buffer, state[2], trainer.group)
+    del plain_compiled, plain_state, state
+    _fresh_memory()
     result["trainer"] = trainer
     return result
 
 
 def phase_dist_main(path: str, trainer, gather) -> int:
     """The distributed trainer's ``run()`` for one epoch of two segments with
-    a test phase; the kernel's launches are read over exactly that run."""
+    a test phase: every segment a warm-up (before its capture) or a
+    replay, at least one a replay; the kernel's launches from the host (the
+    warm-up's) and on the card (the profiler's, every segment's) over
+    exactly that run."""
     cfg = PATHS[DIST_PATHS[path]]
-    gather.launches = 0
-    info = trainer.run()
-    launches = gather.launches
+    info, host, device = _counted_run(path, gather, trainer.run)
     log(f"{path} {type(trainer).__name__}.run(): {info}")
-    if launches != DIST_KERNEL_LAUNCHES[path] * 2:
-        raise AssertionError(f"{path}: gather_rows_cast launched {launches} times in run(), "
-                             f"not {DIST_KERNEL_LAUNCHES[path] * 2}")
+    launches = _run_launches(path, host, device, 2, _run_captures(path, trainer, 2))
     warmup = cfg.get("warmup", 0) // cfg["num_envs"] * cfg["num_envs"]
     if info.env_step != warmup + 2 * cfg["num_envs"] * cfg["segment"] or info.gradient_step != 2 * cfg["updates"]:
         raise AssertionError(f"{path}: counters env_step={info.env_step} gradient_step={info.gradient_step}")
@@ -4520,6 +4757,87 @@ def phase_dist_main(path: str, trainer, gather) -> int:
     if not math.isfinite(info.best_reward):
         raise AssertionError(f"{path}: non-finite best reward: {info}")
     return launches
+
+
+def phase_dist_update_graph() -> dict:
+    """``make_distributed_update`` on the world-1 NCCL group at
+    ``cartpole``'s widths (QNet (128, 128, 128), gamma 0.9, target every
+    320) with one-step targets (the function serves those only), batch
+    1024 made from a seed: three staged calls (the warm-up and capture, then
+    two replays) against three eager updates (``update.eager``, Adam
+    capturable as the graph's), bitwise in the train state and the metrics,
+    the capture's collectives against the eager update's all-reduces, and
+    against the plain ``update_sampled`` (no group, Adam as built) within
+    rtol 1e-4 / atol 1e-5; ms an update in turns."""
+    import torch.distributed as dist
+
+    from tianshou_tpu_torch.algos.dqn import DQN
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.envs.classic import CartPole
+    from tianshou_tpu_torch.networks.common import QNet
+    from tianshou_tpu_torch.parallel.distributed import make_distributed_update
+    from tianshou_tpu_torch.utils.device import make_generator
+    from tianshou_tpu_torch.utils.graphs import CapturedStep, named_tensors, optimizers, prepare_optimizer
+
+    batch = DIST_UPDATE["batch"]
+    env = CartPole()
+    algo = DQN(QNet(4, (128, 128, 128), 2), env.action_space, gamma=0.9, n_step=1, target_update_freq=320,
+               device="cuda")
+    rng = np.random.default_rng(11)
+
+    def transitions():
+        terminated = rng.random(batch) < 0.05
+        on = lambda x: torch.from_numpy(x).to("cuda")  # noqa: E731
+        return dict(obs=on(rng.normal(size=(batch, 4)).astype(np.float32)), act=on(rng.integers(0, 2, batch)),
+                    rew=on(rng.normal(size=batch).astype(np.float32)), terminated=on(terminated),
+                    truncated=on((rng.random(batch) < 0.05) & ~terminated),
+                    obs_next=on(rng.normal(size=(batch, 4)).astype(np.float32)))
+
+    batches = [transitions() for _ in range(DIST_UPDATE["updates"])]
+    ts, e_ts, p_ts = (algo.init(make_generator(5, "cuda")) for _ in range(3))
+    for opt in optimizers(e_ts):  # as the capture prepares the graph's
+        prepare_optimizer(opt)
+    update = make_distributed_update(algo)
+    gen, e_gen, p_gen = (make_generator(7, "cuda") for _ in range(3))
+    differ = []
+    for tr in batches:
+        out, metrics = update(ts, tr, gen)
+        eager = []
+        sizes = _all_reduces(lambda: eager.append(update.eager(e_ts, tr, e_gen)))
+        e_ts, e_metrics = eager[0]
+        graph = next(iter(update.compiled.graphs.values()))
+        if graph.collectives != [("allreduce_", b) for b in sizes]:
+            raise AssertionError(f"make_distributed_update: the capture counted {graph.collectives}, the eager update "
+                                 f"all_reduce {sizes}")
+        differ += _differing(named_tensors(out) + [(f"metrics[{k!r}]", v) for k, v in metrics.items()],
+                             named_tensors(e_ts) + [(f"metrics[{k!r}]", v) for k, v in e_metrics.items()])
+        done = tr["terminated"] | tr["truncated"]
+        sampled = (torch.zeros(batch, dtype=torch.int64, device="cuda"),
+                   torch.zeros(batch, dtype=torch.int64, device="cuda"), torch.ones(batch, device="cuda"),
+                   Batch(obs=tr["obs"], act=tr["act"]), tr["rew"][:, None], done.to(torch.int32)[:, None],
+                   Batch(obs_next=tr["obs_next"], terminated=tr["terminated"]))
+        p_ts, _, p_metrics = algo.update_sampled(p_ts, None, None, sampled, p_gen)
+    compiled = update.compiled
+    if not isinstance(compiled, CapturedStep) or len(compiled.graphs) != 1 or graph.replays != len(batches) - 1:
+        raise AssertionError(f"make_distributed_update: {type(compiled).__name__}, {len(compiled.graphs)} graphs, "
+                             f"{graph.replays} replays")
+    if differ:
+        raise AssertionError(f"make_distributed_update: replays differ from eager updates at {sorted(set(differ))}")
+    err = max(_assert_close(f"make_distributed_update vs update_sampled {k}", v, p_ts.online.state_dict()[k])
+              for k, v in ts.online.state_dict().items())
+    for k, v in _read(metrics).items():
+        if not math.isclose(v, float(p_metrics[k]), rel_tol=1e-4, abs_tol=1e-5):
+            raise AssertionError(f"make_distributed_update: {k} {v} vs update_sampled {float(p_metrics[k])}")
+    replays, tr = graph.replays, batches[-1]
+    turns = _turns({"eager": lambda: update.eager(e_ts, tr, e_gen), "graph": lambda: update(ts, tr, gen)}, 3)
+    result = {"backend": dist.get_backend(), "batch": batch, "replays": replays, "bitwise": True,
+              "collectives": graph.collectives, "plain_max_abs_err": err, "turns_ms": turns,
+              "metrics": _read(metrics)}
+    log(f"make_distributed_update (world 1, NCCL, batch {batch}, cartpole widths, n 1): {replays} replays of "
+        f"one graph bitwise equal to eager updates, the capture's collectives {graph.collectives} equal to the "
+        f"eager update's all-reduces; against the plain update_sampled: largest parameter difference {err:.3e}; ms "
+        f"an update in turns eager {turns['eager']:.3f} graph {turns['graph']:.3f}")
+    return result
 
 
 def gloo_rank_main(rank: int, port: int, out: str) -> int:
@@ -4558,7 +4876,7 @@ def gloo_rank_main(rank: int, port: int, out: str) -> int:
         torch.save({"params": {k: v.cpu() for k, v in trainer.train_state.online.state_dict().items()},
                     "metrics": info.last_metrics, "env_step": info.env_step, "gradient_step": info.gradient_step,
                     "best_reward": info.best_reward, "seconds": time.perf_counter() - t0,
-                    "backend": dist.get_backend()}, out)
+                    "backend": dist.get_backend(), "segment": type(trainer.compiled_superstep).__name__}, out)
     finally:
         dist.destroy_process_group()
     return 0
@@ -4567,8 +4885,10 @@ def gloo_rank_main(rank: int, port: int, out: str) -> int:
 def phase_gloo_ranks() -> dict:
     """Two ranks on the one card over gloo, each a subprocess of this script
     on CUDA tensors: after the run their parameters must be bitwise equal
-    and the losses they read equal.  Every process is killed in a
-    ``finally``; each wait is bounded."""
+    and the losses they read equal, and ``run()`` must have stepped the
+    eager segment (gloo's collectives run on the host, which a stream
+    capture cannot record).  Every process is killed in a ``finally``; each
+    wait is bounded."""
     import tempfile
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -4600,11 +4920,14 @@ def phase_gloo_ranks() -> dict:
                              f"{b['metrics']}")
     if not all(math.isfinite(v) for v in a["metrics"].values()):
         raise AssertionError(f"gloo ranks: non-finite metrics {a['metrics']}")
-    result = {k: a[k] for k in ("metrics", "env_step", "gradient_step", "best_reward", "backend")}
+    if a["segment"] == "CapturedStep" or b["segment"] == "CapturedStep":
+        raise AssertionError("gloo ranks: run() captured a segment over a gloo group")
+    result = {k: a[k] for k in ("metrics", "env_step", "gradient_step", "best_reward", "backend", "segment")}
     result["seconds"] = [r["seconds"] for r in ranks]
     log(f"two gloo ranks on one card (CUDA tensors): parameters bitwise equal, losses read equal {a['metrics']}; "
         f"env_step {a['env_step']}, gradient_step {a['gradient_step']}, best {a['best_reward']}, run() "
-        f"{result['seconds'][0]:.1f} / {result['seconds'][1]:.1f} s")
+        f"{result['seconds'][0]:.1f} / {result['seconds'][1]:.1f} s; the segment eager ({a['segment']}): gloo runs "
+        f"its collectives on the host, which a stream capture cannot record")
     return result
 
 
@@ -4785,8 +5108,8 @@ def redq_ep_rank_main(rank: int, port: int, out: str) -> int:
         for kind in ("plain", "ep", "ep", "plain"):
             dist.barrier()
             if kind == "ep" or rank == 0:
-                dt, _ = timed(ep_step if kind == "ep" else plain_step, TIMED)
-                turns[kind].append(dt / TIMED * 1e3)
+                dt, _ = timed(ep_step if kind == "ep" else plain_step, 1)
+                turns[kind].append(dt * 1e3)
             dist.barrier()
         with _Collectives() as coll:
             metrics = _read(ep_step())
@@ -4807,29 +5130,72 @@ def redq_ep_rank_main(rank: int, port: int, out: str) -> int:
         result.update(run_seconds=time.perf_counter() - t0, env_step=info.env_step, gradient_step=info.gradient_step,
                       best_reward=info.best_reward, last_metrics=info.last_metrics,
                       params=_redq_state(main.train_state),
-                      critics_a_rank=main.train_state.critic.weights[0].shape[0])
+                      critics_a_rank=main.train_state.critic.weights[0].shape[0],
+                      segment=type(main.compiled_superstep).__name__)
         torch.save(result, out)
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def phase_redq_ep() -> dict:
+def phase_redq_ep_graph(mesh, gather) -> dict:
+    """``redq_ep`` at ``dp 1 x ep 1`` on the NCCL group, compiled: the
+    segment's graphs, one per pattern of the actor delay, against eager
+    segments (:func:`phase_dist_graph`: the ensembles' gathers and their
+    backward all-reduce among the collectives counted at each capture, on
+    the capturing stream), then ``run()`` for ``REDQ_EP_GRAPH_SEGMENTS``
+    segments, each a pattern's warm-up or a replay, at least one a
+    replay."""
+    from tianshou_tpu_torch.trainer.distributed import DistributedOffPolicyTrainer
+
+    cfg = PATHS[REDQ_EP["base"]]
+    _, algo, train, buffer, plain = build(REDQ_EP["base"])
+    steps = cfg["num_envs"] * cfg["segment"]
+
+    def trainer():
+        return DistributedOffPolicyTrainer(
+            algo, train, plain.test_collector, buffer, max_epoch=1, step_per_epoch=REDQ_EP_GRAPH_SEGMENTS * steps,
+            step_per_collect=steps, update_per_step=plain.update_per_step, batch_size=cfg["batch"],
+            episode_per_test=plain.episode_per_test, warmup_steps=plain.warmup_steps, mesh=mesh, device="cuda")
+
+    t = trainer()
+    ts, cstate, bstate, generators, _ = t.init_states()
+    result = phase_dist_graph("redq_ep (dp 1 x ep 1)", t, [ts, cstate, bstate, generators], gather, 0)
+    del ts, cstate, bstate, generators
+    main = trainer()
+    info = main.run()
+    result["run_captures"] = _run_captures("redq_ep", main, REDQ_EP_GRAPH_SEGMENTS)
+    warmup = cfg["warmup"] // cfg["num_envs"] * cfg["num_envs"]
+    if (info.env_step != warmup + REDQ_EP_GRAPH_SEGMENTS * steps
+            or info.gradient_step != REDQ_EP_GRAPH_SEGMENTS * cfg["updates"]):
+        raise AssertionError(f"redq_ep (dp 1 x ep 1): counters env_step={info.env_step} "
+                             f"gradient_step={info.gradient_step}")
+    _check_metrics(REDQ_EP["base"], info.last_metrics)
+    result["run"] = {"env_step": info.env_step, "gradient_step": info.gradient_step, "best_reward": info.best_reward,
+                     "last_metrics": info.last_metrics}
+    return result
+
+
+def phase_redq_ep(gather) -> dict:
     """``redq_ep``: at world size 1 over NCCL (``dp 1 x ep 1``; the default
-    group must be up) the sharded update equals the plain one bitwise; then
-    two gloo ranks share the card as ``dp 1 x ep 2`` (this script again,
-    with ``--redq-ep-rank``, as two subprocesses): the sharded update within
-    the JAX test's limits, ms a segment in turns with the plain superstep,
-    the segment's all-reduces and gathers with their bytes, its kernels, and
-    after ``run()`` the two ranks' parameters (replicated and gathered)
-    bitwise equal.  Every process is killed in a ``finally``."""
+    group must be up) the sharded update equals the plain one bitwise, and
+    the trainer's segment replays CUDA graphs (:func:`phase_redq_ep_graph`);
+    then two gloo ranks share the card as ``dp 1 x ep 2`` (this script
+    again, with ``--redq-ep-rank``, as two subprocesses), whose segment
+    stays eager (gloo's collectives run on the host): the sharded update
+    within the JAX test's limits, ms a segment in turns with the plain
+    superstep, the segment's all-reduces and gathers with their bytes, its
+    kernels, and after ``run()`` the two ranks' parameters (replicated and
+    gathered) bitwise equal.  Every process is killed in a ``finally``."""
     import tempfile
 
     from tianshou_tpu_torch.parallel.mesh import make_mesh2
 
-    world1 = redq_ep_update_check(make_mesh2(1, second_size=1, device="cuda"), bitwise=True)
+    mesh = make_mesh2(1, second_size=1, device="cuda")
+    world1 = redq_ep_update_check(mesh, bitwise=True)
     log(f"redq_ep at world size 1 over NCCL (dp 1 x ep 1): the sharded update equals the plain one bitwise, "
         f"with an actor step too, metrics {world1['metrics']}")
+    world1["graph"] = phase_redq_ep_graph(mesh, gather)
     root = os.path.dirname(os.path.abspath(__file__))
     port = _free_port()
     env = {**os.environ, "PYTHONPATH": root}
@@ -4862,6 +5228,8 @@ def phase_redq_ep() -> dict:
             or a["gradient_step"] != REDQ_EP["segments"] * cfg["updates"] or a["critics_a_rank"] != 5):
         raise AssertionError(f"redq_ep: env_step {a['env_step']}, gradient_step {a['gradient_step']}, "
                              f"{a['critics_a_rank']} critics a rank")
+    if "CapturedStep" in (a["segment"], b["segment"]):
+        raise AssertionError("redq_ep: run() captured a segment over the gloo groups")
     _check_metrics(REDQ_EP["base"], a["last_metrics"])
     turns = {k: sum(v) / len(v) for k, v in a["turns_ms"].items()}
     result = {"world1_update_check": world1, "update_check": a["update_check"],
@@ -4869,7 +5237,8 @@ def phase_redq_ep() -> dict:
               **{k: a[k] for k in ("metrics", "all_reduce_calls_per_segment", "all_reduce_bytes_per_segment",
                                    "gathers_per_segment", "gather_bytes_per_segment", "device_kernels_per_segment",
                                    "device_busy_ms_per_segment_profiled", "updates_per_segment", "run_seconds",
-                                   "env_step", "gradient_step", "best_reward", "last_metrics", "backend")},
+                                   "env_step", "gradient_step", "best_reward", "last_metrics", "backend",
+                                   "segment")},
               "critics_a_rank": a["critics_a_rank"], "gather_rows_cast_launches": 0}
     log(f"redq_ep (dp 1 x ep 2, two gloo ranks on one card, {a['critics_a_rank']} critics a rank): one sharded "
         f"update vs one process: largest parameter difference {a['update_check']['max_abs_err']:.3e} (bitwise "
@@ -4883,7 +5252,8 @@ def phase_redq_ep() -> dict:
         f"({a['all_reduce_bytes_per_segment']} bytes, the gathers' included), rank 0's {a['device_kernels_per_segment']} "
         f"device kernels busy {a['device_busy_ms_per_segment_profiled']:.2f} ms; run(): env_step {a['env_step']}, "
         f"gradient_step {a['gradient_step']}, best {a['best_reward']:.2f}, {a['run_seconds']:.1f} s; the two ranks' "
-        f"parameters bitwise equal")
+        f"parameters bitwise equal; the segment eager ({a['segment']}): gloo runs its collectives on the host, which "
+        f"a stream capture cannot record")
     return result
 
 
@@ -5126,11 +5496,13 @@ def main() -> int:
         results[path] = timed_phase(path, phase_distributed, path, gather_rows_cast)
         launches += timed_phase(f"{path} run", phase_dist_main, path, results[path].pop("trainer"), gather_rows_cast)
         results[path]["phase_s"] = time.perf_counter() - t_path
-    # slice 12: the ensemble axis, at world size 1 on the NCCL group, then
-    # as two gloo ranks sharing the card
+    # slice 17: make_distributed_update compiled on the NCCL group
+    results["dist_update"] = timed_phase("make_distributed_update", phase_dist_update_graph)
+    # slice 12: the ensemble axis, at world size 1 on the NCCL group (compiled
+    # since slice 17), then as two gloo ranks sharing the card
     t_path = time.perf_counter()
     gather_rows_cast.launches = 0
-    results["redq_ep"] = timed_phase("redq_ep", phase_redq_ep)
+    results["redq_ep"] = timed_phase("redq_ep", phase_redq_ep, gather_rows_cast)
     if gather_rows_cast.launches:
         raise AssertionError(f"redq_ep: gather_rows_cast launched {gather_rows_cast.launches} times")
     results["redq_ep"]["phase_s"] = time.perf_counter() - t_path

@@ -42,6 +42,7 @@ from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.tree import tree_leaves, tree_map
 from tianshou_tpu_torch.parallel.mesh import make_mesh, mesh_device
 from tianshou_tpu_torch.utils.device import resolve_device
+from tianshou_tpu_torch.utils.graphs import compile_step, named_tensors
 
 __all__ = [
     "init_distributed",
@@ -247,19 +248,50 @@ def make_distributed_update(algo, mesh: DeviceMesh | None = None, axis_name: str
     algorithm's device), ``generator`` the learn generator every rank holds
     in lockstep.  The gradients are averaged over the mesh's group (the
     default group without a mesh), so every rank ends the step with the same
-    parameters, and so are the metrics (:func:`average_metrics`).  Needs the ``presample``/``update_sampled`` split; one-step
-    targets only, as in the JAX package: replay-backed n-step training
-    across processes is :class:`~tianshou_tpu_torch.trainer.distributed.
-    DistributedOffPolicyTrainer`."""
+    parameters, and so are the metrics (:func:`average_metrics`).  Needs the
+    ``presample``/``update_sampled`` split; one-step targets only, as in the
+    JAX package: replay-backed n-step training across processes is
+    :class:`~tianshou_tpu_torch.trainer.distributed.DistributedOffPolicyTrainer`.
+
+    It runs compiled, as the JAX package jits it (:class:`_StagedUpdate`):
+    on CUDA over NCCL (or without a process group) each call copies
+    ``transitions`` into a static staging dict and replays a CUDA graph of
+    the eager update (``update.eager``), the gradient all-reduces and the
+    metrics' among its nodes; it returns the graph's static ``ts`` and
+    metrics, which the next call overwrites.  On the CPU, or over a gloo
+    group, the eager update runs on the staging."""
     if not getattr(algo, "supports_presampled", False):
         raise ValueError("make_distributed_update needs the presample/update_sampled split (supports_presampled)")
     n_step = int(getattr(algo, "n_step", 1))
     assert n_step == 1, (
         f"make_distributed_update serves 1-step targets only, but the algorithm is configured with "
         f"n_step={n_step}; use DistributedOffPolicyTrainer for the replay-backed pipeline")
-    group = group_of(mesh, axis_name)
+    return _StagedUpdate(algo, group_of(mesh, axis_name))
 
-    def update(ts, transitions: dict, generator: torch.Generator):
+
+class _StagedUpdate:
+    """:func:`make_distributed_update`'s ``update``.  :meth:`eager` is the
+    update op by op.  A call copies ``transitions`` into the static staging
+    dict (one multi-tensor copy) and runs the compiled step over ``(ts,
+    staging)`` (:func:`~tianshou_tpu_torch.utils.graphs.compile_step`: on
+    CUDA over NCCL, or without a process group, a ``CapturedStep``, its
+    first call the warm-up and the capture, later ones replays; on the CPU
+    or over a gloo group :meth:`eager` on the staging).  The step is kept
+    for the train state, its tensors, the transitions' shapes and dtypes and
+    the generator of its first call: a call with another of them compiles
+    (captures) again, so that a graph never replays over a state it was not
+    captured over."""
+
+    def __init__(self, algo, group):
+        self.algo, self.group = algo, group
+        self.compiled = None
+        self.staging: dict[str, torch.Tensor] | None = None
+        self._key: tuple = ()
+        self._schema: list = []
+
+    def eager(self, ts, transitions: dict, generator: torch.Generator):
+        """The update op by op: ``(ts, metrics)``, the metrics averaged over
+        the group."""
         b = transitions["act"].shape[0]
         dev = transitions["act"].device
         done = transitions["terminated"] | transitions["truncated"]
@@ -272,8 +304,26 @@ def make_distributed_update(algo, mesh: DeviceMesh | None = None, axis_name: str
             done.to(torch.int32)[:, None],
             Batch(obs_next=transitions["obs_next"], terminated=transitions["terminated"]),
         )
-        with data_parallel(algo, group, b):
-            ts, _, metrics = algo.update_sampled(ts, None, None, sampled, generator)
-        return ts, average_metrics(metrics, group)
+        with data_parallel(self.algo, self.group, b):
+            ts, _, metrics = self.algo.update_sampled(ts, None, None, sampled, generator)
+        return ts, average_metrics(metrics, self.group)
 
-    return update
+    def _step(self, ts, staging, bstate, generator, explore_param):
+        ts, metrics = self.eager(ts, staging, generator)
+        return ts, staging, bstate, None, metrics
+
+    def __call__(self, ts, transitions: dict, generator: torch.Generator):
+        schema = [(k, v.shape, v.dtype) for k, v in transitions.items()]
+        key = (ts, generator, *(t for _, t in named_tensors(ts)))
+        if len(key) != len(self._key) or any(a is not b for a, b in zip(key, self._key)) or schema != self._schema:
+            self.staging = {k: torch.empty_like(v) for k, v in transitions.items()}
+            self.compiled = compile_step(self._step, transitions["act"].device, ts, self.staging, None,
+                                         key=lambda: self.algo.update_pattern(ts, 1), groups=(self.group,))
+            self._schema = schema
+        with torch.no_grad():
+            torch._foreach_copy_(list(self.staging.values()), list(transitions.values()))
+        ts, _, _, _, metrics = self.compiled(ts, self.staging, None, generator, 0.0)
+        # as the call left it: the first step (the capture) creates the
+        # optimizer's state
+        self._key = (ts, generator, *(t for _, t in named_tensors(ts)))
+        return ts, metrics

@@ -31,8 +31,9 @@ batch.  A prioritized buffer takes the priorities the rank's own update
 writes for its rows, under the parameters before the step: what the JAX
 trainer recomputes through ``priority_scores``, which an algorithm must
 still implement (a ``TypeError`` otherwise, as in the JAX package).  The
-metrics are averaged over a segment's updates on the device and over the
-ranks once a segment, when they are read.
+metrics are averaged over a segment's updates and over the ranks (one
+``all_reduce``) on the device, inside the segment, and read once a
+segment.
 
 On a two-axis mesh (``parallel.mesh.make_mesh2``, ``("dp", "ep")``) the
 ``axis_name`` axis (``"dp"``) sets the rows, the gradient average and the
@@ -47,13 +48,29 @@ equal too.  The JAX package gets this layout by placing a train state
 with ``shard_ensemble_axis`` and running the plain superstep on it.
 
 :class:`DistributedOnPolicyTrainer`: each rank records its segment
-(``Collector.collect(record_traj=True)``), the global env-major trajectory
-is assembled on every rank (:func:`gather_env_axis`) and every rank runs
-the one-process learn (:func:`build_rollout_learn`) on it from the
-lockstep generator.  Its reductions (the return statistics, the advantage
-normalisation of a minibatch from a global permutation, the gradient
-clipping, NPG's and TRPO's Fisher products) are then global and exact; the
-learn compute is replicated where XLA would shard it.
+(``rollout_segment(record_traj=True)``, as
+:class:`~tianshou_tpu_torch.trainer.onpolicy.OnPolicyTrainer` does), the
+global env-major trajectory is assembled on every rank
+(:func:`gather_env_axis`) and every rank runs the one-process learn
+(:func:`build_rollout_learn`) on it from the lockstep generator.  Its
+reductions (the return statistics, the advantage normalisation of a
+minibatch from a global permutation, the gradient clipping, NPG's and
+TRPO's Fisher products) are then global and exact; the learn compute is
+replicated where XLA would shard it.
+
+Both trainers compile their segment as the JAX package jits its global
+step (``_compile_superstep``): ``run()`` launches, on CUDA, a
+:class:`~tianshou_tpu_torch.utils.graphs.CapturedStep` that replays a CUDA
+graph of the eager segment (``_build_superstep``), its collectives (the
+gradient buckets, the ensembles' gathers and their backward all-reduce,
+the metrics, the trajectory's assembly) nodes of the graph; a segment's
+first call of each branch pattern runs eagerly as its capture's warm-up.
+A segment over a gloo group (the ``dp`` group or the ensemble group) stays
+eager, on the card too: gloo's collectives run on the host, which a stream
+capture cannot record (:func:`~tianshou_tpu_torch.utils.graphs.capturable_groups`).
+On the CPU the eager segment runs.  The warm-up collection and the test
+phase run the collector's compiled segments; the test phase's average over
+the ranks stays on the host.
 """
 
 from __future__ import annotations
@@ -83,8 +100,10 @@ from tianshou_tpu_torch.parallel.distributed import (
 )
 from tianshou_tpu_torch.parallel.mesh import shard_ensemble_modules
 from tianshou_tpu_torch.trainer.hooks import log_test, log_train
+from tianshou_tpu_torch.trainer.onpolicy import _read as _read_metrics
 from tianshou_tpu_torch.trainer.onpolicy import build_rollout_learn
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
+from tianshou_tpu_torch.utils.graphs import compile_step
 
 __all__ = ["DistributedOffPolicyTrainer", "DistributedOnPolicyTrainer"]
 
@@ -101,14 +120,6 @@ def _test(collector: Collector, ts, generator, episodes: int, test_param: float,
     stats = collector.collect_episodes(ts, generator, episodes, explore=False, explore_param=test_param)
     rew, rew_std = mean_over_ranks([stats.returns_mean, stats.returns_std], group, device)
     return rew, rew_std
-
-
-def _global_metrics(metrics: dict[str, torch.Tensor], group) -> dict[str, float]:
-    """Device metrics averaged over the ranks and read on the host, in one
-    ``all_reduce`` and one copy."""
-    if not metrics:
-        return {}
-    return dict(zip(metrics, torch.stack(list(average_metrics(metrics, group).values())).tolist()))
 
 
 class DistributedOffPolicyTrainer:
@@ -182,6 +193,8 @@ class DistributedOffPolicyTrainer:
         self.steps_per_segment = self.segment_len * self.global_envs
         self.updates_per_segment = max(1, round(update_per_step * self.steps_per_segment))
         self.batch_local = max(1, batch_size // n_proc)
+        # what the last run() launched: the compiled segment
+        self.compiled_superstep = None
 
     def _check_priorities(self) -> None:
         """Prioritized replay needs ``priority_scores``: an algorithm that
@@ -200,8 +213,8 @@ class DistributedOffPolicyTrainer:
         its buffer, then the segment's updates, each on ``batch_size //
         ranks`` rows presampled from the rank's buffer with the sampling
         generator and updated with the lockstep one (``generators = (learn,
-        sample)``).  ``metrics`` are this rank's means over the updates, on
-        the device."""
+        sample)``).  ``metrics`` are the means over the updates and the
+        ranks, on the device, the same on every rank."""
         algo, buffer = self.algo, self.buffer
         seg = rollout_segment(algo, self.train_collector.venv, buffer, self.segment_len, explore=True,
                               reward_metric=self.train_collector.reward_metric)
@@ -217,9 +230,26 @@ class DistributedOffPolicyTrainer:
                     ts, bstate, metrics = algo.update_sampled(ts, buffer, bstate, sampled, g_learn)
                     for k, v in metrics.items():
                         history.setdefault(k, []).append(v)
-            return ts, cstate, bstate, outputs, {k: torch.stack(v).mean() for k, v in history.items()}
+            metrics = average_metrics({k: torch.stack(v).mean() for k, v in history.items()}, group)
+            return ts, cstate, bstate, outputs, metrics
 
         return superstep
+
+    def _compile_superstep(self, ts, cstate, bstate):
+        """The segment ``run`` launches (the JAX package's jitted global
+        update with the rank's rollout and presamples): on CUDA, over NCCL or
+        without a process group, a
+        :class:`~tianshou_tpu_torch.utils.graphs.CapturedStep` over
+        :meth:`_build_superstep` with ``ts``, ``cstate`` and ``bstate`` as
+        its static state and a graph per pattern of the algorithm's
+        host-keyed branches (:meth:`Algorithm.update_pattern`: TD3's and
+        REDQ's delayed actor), each pattern's first call run eagerly as the
+        warm-up; its calls take ``generators = (learn, sample)``, the same
+        tuple each call.  Over a gloo group, and on the CPU, the eager
+        segment (module docstring)."""
+        k = self.updates_per_segment
+        return compile_step(self._build_superstep(), self.device, ts, cstate, bstate,
+                            key=lambda: self.algo.update_pattern(ts, k), groups=(self.group, self.ensemble_group))
 
     def init_states(self):
         """``(ts, cstate, bstate, (learn, sample) generators, test
@@ -256,7 +286,7 @@ class DistributedOffPolicyTrainer:
                                                    random=self.warmup_random)
             env_step += stats.n_collected_steps * n_proc
 
-        superstep = self._build_superstep()
+        superstep = self.compiled_superstep = self._compile_superstep(ts, cstate, bstate)
         stop_triggered = False
         epoch = 0
         for epoch in range(1, self.max_epoch + 1):
@@ -265,7 +295,7 @@ class DistributedOffPolicyTrainer:
                 explore_param = float(self.train_param_fn(epoch, env_step))
                 t0 = time.time()
                 ts, cstate, bstate, outputs, metrics = superstep(ts, cstate, bstate, generators, explore_param)
-                last_metrics = _global_metrics(metrics, group)  # the one read of the segment
+                last_metrics = _read_metrics(metrics)  # the one read of the segment
                 train_time += time.time() - t0
                 env_step += self.steps_per_segment
                 steps_this_epoch += self.steps_per_segment
@@ -349,6 +379,8 @@ class DistributedOnPolicyTrainer:
         self.steps_per_segment = self.segment_len * self.global_envs
         bs = min(batch_size, self.steps_per_segment)
         self.updates_per_segment = repeat_per_collect * max(1, self.steps_per_segment // bs)
+        # what the last run() launched: the compiled segment
+        self.compiled_superstep = None
 
     def _build_global_learn(self):
         """``(ts, traj, generator) -> (ts, metrics)``: the one-process learn
@@ -356,20 +388,41 @@ class DistributedOnPolicyTrainer:
         return build_rollout_learn(self.algo, self.steps_per_segment, self.batch_size, self.repeat_per_collect)
 
     def _build_superstep(self):
-        """``superstep(ts, cstate, generator) -> (ts, cstate, stats,
-        metrics)``: this rank's recorded segment, the global trajectory
-        assembled, the learn; ``metrics`` on the device, the same on every
-        rank."""
-        learn = self._build_global_learn()
+        """``superstep(ts, cstate, generator) -> (ts, cstate, outputs,
+        metrics)``: this rank's recorded segment (``outputs``, for
+        :meth:`Collector.summarize`), the global trajectory assembled, the
+        learn; ``metrics`` on the device, the same on every rank."""
         col, group = self.train_collector, self.group
+        seg = rollout_segment(self.algo, col.venv, None, self.segment_len, explore=True, record_traj=True,
+                              reward_metric=col.reward_metric)
+        learn = self._build_global_learn()
 
         def superstep(ts, cstate, generator):
-            cstate, _, stats, traj = col.collect(ts, cstate, None, self.segment_len, explore=True,
-                                                 record_traj=True)
-            ts, metrics = learn(ts, gather_env_axis(traj, group), generator)
-            return ts, cstate, stats, metrics
+            cstate, _, outputs = seg(ts, cstate, None, 0.0)
+            ts, metrics = learn(ts, gather_env_axis(outputs["traj"], group), generator)
+            return ts, cstate, outputs, metrics
 
         return superstep
+
+    def _compile_superstep(self, ts, cstate):
+        """The segment ``run`` launches (the JAX package's jitted global
+        learn with the rank's recorded rollout), called ``(ts, cstate,
+        bstate, generator, explore_param) -> (ts, cstate, bstate, outputs,
+        metrics)`` with ``bstate = None`` (``explore_param`` is unused): on
+        CUDA, over NCCL or without a process group, a
+        :class:`~tianshou_tpu_torch.utils.graphs.CapturedStep` over
+        :meth:`_build_superstep` with ``ts`` and ``cstate`` as its static
+        state, captured after its first call runs eagerly as the warm-up
+        (the trajectory's global buffer then comes from the graph's pool,
+        its ``all_reduce`` a node); over a gloo group, and on the CPU, the
+        eager segment in the same form."""
+        superstep = self._build_superstep()
+
+        def step(ts, cstate, bstate, generator, explore_param):
+            ts, cstate, outputs, metrics = superstep(ts, cstate, generator)
+            return ts, cstate, bstate, outputs, metrics
+
+        return compile_step(step, self.device, ts, cstate, None, groups=(self.group,))
 
     def run(self) -> InfoStats:
         t_start = time.time()
@@ -379,7 +432,7 @@ class DistributedOnPolicyTrainer:
         local = make_generator(rank_seed(self.seed, pid), self.device)
         cstate = self.train_collector.reset(fork_generator(local))
         ts = self.algo.init(g_init)
-        superstep = self._build_superstep()
+        superstep = self.compiled_superstep = self._compile_superstep(ts, cstate)
 
         env_step = grad_step = 0
         best_reward, best_reward_std = -np.inf, 0.0
@@ -391,8 +444,9 @@ class DistributedOnPolicyTrainer:
             steps_this_epoch = 0
             while steps_this_epoch < self.step_per_epoch:
                 t0 = time.time()
-                ts, cstate, stats, metrics = superstep(ts, cstate, gen)
-                last_metrics = _global_metrics(metrics, None)  # replicated: the same on every rank
+                ts, cstate, _, outputs, metrics = superstep(ts, cstate, None, gen, 0.0)
+                last_metrics = _read_metrics(metrics)  # replicated: the same on every rank
+                stats = Collector.summarize(outputs, self.train_collector.venv.num_envs * self.segment_len)
                 train_time += time.time() - t0
                 env_step += self.steps_per_segment
                 steps_this_epoch += self.steps_per_segment

@@ -4,7 +4,8 @@ steps (``OffPolicyTrainer._compile_superstep`` and ``_compile_host_step``,
 ``OnPolicyTrainer._compile_superstep`` and ``_compile_learn``,
 ``OfflineTrainer._compile_superstep``; the collection: the host
 collectors' acting step, the fused fine cycle and the device
-``Collector``'s segments).
+``Collector``'s segments; the distributed trainers' segments and
+``make_distributed_update``).
 
 A step ``fn(ts, cstate, bstate, generator, explore_param) -> (ts, cstate,
 bstate, outputs, metrics)`` runs eagerly, one launch per operation.
@@ -71,10 +72,22 @@ The graphs are kept by ``key()``, the host-known pattern of the step's
 branches (TD3's and REDQ's delayed actor step, from the host update count):
 one graph per pattern a run meets, all in one memory pool.  A replay never
 applies a graph captured for another pattern.
+
+A step over ``torch.distributed`` process groups (the distributed trainers,
+``make_distributed_update``) is captured with its collectives as nodes of
+its graph, which the capture counts with their bytes
+(``_Graph.collectives``: at world size 1 NCCL may launch no kernel, and the
+count is then the evidence that they are there).  Only a step whose every
+group is ``None`` or NCCL is captured (:func:`capturable_groups`): gloo
+runs its collectives on the host and copies CUDA tensors through host
+memory, which a stream capture cannot record, so :func:`compile_step`
+keeps a step over a gloo group eager, on the card too.  That is a rule of
+the group's backend, not a fall-back: a capture that fails raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import time
@@ -83,8 +96,10 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
-__all__ = ["CapturedStep", "StaticStep", "capture_stream", "check_capturable", "compile_step",
+__all__ = ["CapturedStep", "StaticStep", "capturable_groups", "capture_stream", "check_capturable", "compile_step",
            "init_optimizer_state", "mark_capturable", "named_tensors", "optimizers", "own_storage",
            "prepare_optimizer", "step_counters", "write_row"]
 
@@ -293,6 +308,41 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
     return _CAPTURE_STREAMS[device]
 
 
+def capturable_groups(*groups) -> bool:
+    """Whether a step whose collectives run over ``groups`` may be captured
+    into a CUDA graph: every group ``None`` (one process, no collective) or
+    NCCL (module docstring: a gloo group keeps the step eager)."""
+    import torch.distributed as dist
+
+    return all(g is None or dist.get_backend(g) == "nccl" for g in groups)
+
+
+class _Collectives(TorchDispatchMode):
+    """While on, records each ``torch.distributed`` collective dispatched
+    (the ``c10d`` operators, those the autograd engine runs in a backward
+    pass included) as ``(operator, bytes of its first argument's
+    tensors)``, and counts those issued while the current stream was not
+    capturing (``off_capture``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls: list[tuple[str, int]] = []
+        self.off_capture = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "c10d" and args:
+            tensors = [t for t in tree_leaves(args[0]) if isinstance(t, torch.Tensor)]
+            self.calls.append((func.__name__.split(".")[0], sum(t.numel() * t.element_size() for t in tensors)))
+            self.off_capture += not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing())
+        return func(*args, **(kwargs or {}))
+
+
+def _generator_list(generator) -> list:
+    """The generators of a step's ``generator`` argument: one, or each of a
+    tuple or list."""
+    return list(generator) if isinstance(generator, (tuple, list)) else [generator]
+
+
 class StaticStep:
     """``fn`` under the static-state protocol (module docstring), run
     eagerly: each call runs ``fn`` on the static state, copies the returned
@@ -371,6 +421,9 @@ class _Graph:
     metrics: Any
     steps: list  # (counter, updates a replay)
     replays: int = 0
+    #: the collectives the capture recorded, ``(operator, bytes)`` each
+    #: (counted for a step over process groups only)
+    collectives: list = dataclasses.field(default_factory=list)
 
 
 class CapturedStep(StaticStep):
@@ -382,12 +435,18 @@ class CapturedStep(StaticStep):
     float32 tensor, which the graph reads (a caller that passes that tensor,
     written once for many calls, saves the copy).  ``prepare_optimizers``
     False leaves the train state's optimizers as built: a step that only
-    acts steps none."""
+    acts steps none.  ``generator`` may be one generator or a tuple of them,
+    each registered with the graphs.  ``groups``: the process groups of the
+    step's collectives, which each capture then counts
+    (``_Graph.collectives``); every one must be ``None`` or NCCL."""
 
     def __init__(self, fn: Callable, ts: Any, cstate: Any, bstate: Any, key: Callable[[], Hashable] = tuple,
-                 prepare_optimizers: bool = True):
+                 prepare_optimizers: bool = True, groups: tuple = ()):
         super().__init__(fn, ts, cstate, bstate)
+        if not capturable_groups(*groups):
+            raise ValueError("a step over a gloo process group cannot be captured: its collectives run on the host")
         self.prepare_optimizers = prepare_optimizers
+        self.count_collectives = any(g is not None for g in groups)
         leaves = named_tensors(self.states)
         self.device = leaves[0][1].device
         if self.device.type != "cuda":
@@ -397,15 +456,15 @@ class CapturedStep(StaticStep):
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = capture_stream(self.device)
         self.graphs: dict[Hashable, _Graph] = {}
-        self.generator: torch.Generator | None = None
+        self.generator: torch.Generator | tuple | None = None
         #: seconds spent in warm-up steps, and in captures (instantiation
         #: included)
         self.warm_up_s = 0.0
         self.capture_s = 0.0
 
     def _generators(self) -> list[torch.Generator]:
-        gens = [self.generator, getattr(self.cstate, "rng", None)]
-        return [g for i, g in enumerate(gens) if isinstance(g, torch.Generator) and g not in gens[:i]]
+        gens = [*_generator_list(self.generator), getattr(self.cstate, "rng", None)]
+        return [g for i, g in enumerate(gens) if isinstance(g, torch.Generator) and all(g is not h for h in gens[:i])]
 
     def _capture(self, key: Hashable) -> tuple:
         """The first call of pattern ``key``: the warm-up step, then the
@@ -433,15 +492,20 @@ class CapturedStep(StaticStep):
         # cycles), which invalidates the capture
         gc_was_enabled = gc.isenabled()
         gc.disable()
+        counting = _Collectives() if self.count_collectives else contextlib.nullcontext()
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream), counting:
                 g_outputs, g_metrics = self.run_fn(self.generator, self.explore)
         finally:
             if gc_was_enabled:
                 gc.enable()
         if [c.step for c in counters] != after:
             raise RuntimeError(f"the capture counted {[c.step for c in counters]} updates, its warm-up {after}")
-        self.graphs[key] = _Graph(graph, g_outputs, g_metrics, [(c, a - b) for c, a, b in zip(counters, after, before)])
+        if getattr(counting, "off_capture", 0):
+            raise RuntimeError(f"{counting.off_capture} collective(s) of the step were issued on a stream that was not "
+                               f"capturing: the graph would replay without them")
+        self.graphs[key] = _Graph(graph, g_outputs, g_metrics, [(c, a - b) for c, a, b in zip(counters, after, before)],
+                                  collectives=getattr(counting, "calls", []))
         self.warm_up_s += t1 - t0
         self.capture_s += time.perf_counter() - t1
         return outputs, metrics
@@ -450,8 +514,9 @@ class CapturedStep(StaticStep):
         self._check_static(ts, cstate, bstate)
         if self.generator is None:
             self.generator = generator
-        elif generator is not self.generator:
-            raise ValueError("every call of a captured step draws from the generator of its first call")
+        elif len(given := _generator_list(generator)) != len(mine := _generator_list(self.generator)) or any(
+                a is not b for a, b in zip(given, mine)):
+            raise ValueError("every call of a captured step draws from the generators of its first call")
         if explore_param is not self.explore:
             if isinstance(explore_param, torch.Tensor):
                 self.explore.copy_(explore_param)
@@ -469,11 +534,13 @@ class CapturedStep(StaticStep):
 
 
 def compile_step(fn: Callable, device: torch.device, ts: Any, cstate: Any, bstate: Any,
-                 key: Callable[[], Hashable] = tuple, prepare_optimizers: bool = True) -> Callable:
+                 key: Callable[[], Hashable] = tuple, prepare_optimizers: bool = True, groups: tuple = ()) -> Callable:
     """A compiled step: on CUDA a :class:`CapturedStep` over ``fn`` with
     ``ts``, ``cstate`` and ``bstate`` as its static state; on another
     device, which the caller asked for, ``fn`` itself, run eagerly: CUDA
-    graphs exist only on CUDA."""
-    if device.type != "cuda":
+    graphs exist only on CUDA.  ``groups``: the process groups whose
+    collectives ``fn`` issues; where one of them is not NCCL (gloo),
+    ``fn`` itself as well (:func:`capturable_groups`)."""
+    if device.type != "cuda" or not capturable_groups(*groups):
         return fn
-    return CapturedStep(fn, ts, cstate, bstate, key=key, prepare_optimizers=prepare_optimizers)
+    return CapturedStep(fn, ts, cstate, bstate, key=key, prepare_optimizers=prepare_optimizers, groups=groups)

@@ -1,0 +1,10 @@
+"""Seconds of set-up in the compiled steps' warm-ups: the eager first call
+of each graph pattern before its capture, summed over those that ended
+before the window.  From the program's graph events, which its tracer
+records on or off (:mod:`benchmark.program_trace`)."""
+
+from benchmark.program_trace import setup_graph_s
+
+
+def read(run):
+    return setup_graph_s(run, "graph.warm_up")

@@ -82,7 +82,7 @@ def static_steps(monkeypatch):
     eagerly)."""
     made = []
 
-    def compile_static(fn, device, ts, cstate, bstate, key=tuple, prepare_optimizers=True):
+    def compile_static(fn, device, ts, cstate, bstate, key=tuple, prepare_optimizers=True, name="step"):
         made.append(StaticStep(fn, ts, cstate, bstate))
         return made[-1]
 

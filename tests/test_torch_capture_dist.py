@@ -239,7 +239,7 @@ def _one_step_update(ctx) -> dict:
 
     made = []
 
-    def compile_static(fn, device, ts, cstate, bstate, key=tuple, prepare_optimizers=True, groups=()):
+    def compile_static(fn, device, ts, cstate, bstate, key=tuple, prepare_optimizers=True, groups=(), name="step"):
         made.append(StaticStep(fn, ts, cstate, bstate))
         return made[-1]
 

@@ -56,6 +56,7 @@ from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.tree import tree_map, tree_where
 from tianshou_tpu_torch.envs.base import VectorEnv
+from tianshou_tpu_torch.utils import trace
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 from tianshou_tpu_torch.utils.graphs import StaticStep, compile_step, named_tensors
 
@@ -276,7 +277,7 @@ class Collector:
         if not isinstance(step, StaticStep) or any(a is not b for a, b in zip(step.states, (ts, cstate, bstate))):
             step = self._compiled[name] = compile_step(
                 lambda *args: self._run_segment(self._keys[name], *args), self.device, ts, cstate, bstate,
-                key=lambda: self._keys[name], prepare_optimizers=False)
+                key=lambda: self._keys[name], prepare_optimizers=False, name=f"collect.{name}")
         self._keys[name] = key
         return step
 
@@ -319,18 +320,23 @@ class Collector:
 
         Env ``i`` contributes ``n // N + (i < n % N)`` episodes; surplus
         episodes are discarded, so fast envs do not bias the statistics.
+        The reset is the tracer's span ``tianshou.test.reset``, and each
+        chunk, its replay with its one device-to-host copy,
+        ``tianshou.test.chunk`` (:mod:`~tianshou_tpu_torch.utils.trace`).
         """
         n = self.venv.num_envs
         quota = np.full(n, n_episode // n, np.int64)
         quota[: n_episode % n] += 1
-        cstate = self._episode_state = self.reset(generator, out=self._episode_state)
-        step = self._step("episodes", ts, cstate, None, (chunk_size, explore, False, False, True))
+        with trace.span("tianshou.test.reset"):
+            cstate = self._episode_state = self.reset(generator, out=self._episode_state)
+            step = self._step("episodes", ts, cstate, None, (chunk_size, explore, False, False, True))
         per_env_returns: list[list[float]] = [[] for _ in range(n)]
         per_env_lens: list[list[int]] = [[] for _ in range(n)]
         counts = np.zeros(n, np.int64)
         for _ in range(max_chunks):
-            _, cstate, _, outputs, _ = step(ts, cstate, None, cstate.rng, explore_param)
-            done, rets, lens = outputs["episodes"].cpu().numpy()  # the chunk's one device-to-host copy
+            with trace.span("tianshou.test.chunk"):
+                _, cstate, _, outputs, _ = step(ts, cstate, None, cstate.rng, explore_param)
+                done, rets, lens = outputs["episodes"].cpu().numpy()  # the chunk's one device-to-host copy
             done = done > 0
             for t, i in zip(*np.nonzero(done)):
                 if counts[i] < quota[i]:

@@ -173,7 +173,8 @@ class ActingStep:
                 io.cursor.add_(1)
             return module, io, bstate, None, None
 
-        return compile_step(step, self.device, self._module, io, None, prepare_optimizers=False)
+        return compile_step(step, self.device, self._module, io, None, prepare_optimizers=False,
+                            name="collect.acting")
 
     def begin(self, ts, obs, generator: torch.Generator, explore: bool, explore_param: float = 0.0,
               num_steps: int = 0, policy_state: Any = ()) -> ActingStep:

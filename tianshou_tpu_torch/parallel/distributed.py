@@ -318,7 +318,8 @@ class _StagedUpdate:
         if len(key) != len(self._key) or any(a is not b for a, b in zip(key, self._key)) or schema != self._schema:
             self.staging = {k: torch.empty_like(v) for k, v in transitions.items()}
             self.compiled = compile_step(self._step, transitions["act"].device, ts, self.staging, None,
-                                         key=lambda: self.algo.update_pattern(ts, 1), groups=(self.group,))
+                                         key=lambda: self.algo.update_pattern(ts, 1), groups=(self.group,),
+                                         name="distributed.update")
             self._schema = schema
         with torch.no_grad():
             torch._foreach_copy_(list(self.staging.values()), list(transitions.values()))

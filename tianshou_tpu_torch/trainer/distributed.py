@@ -249,7 +249,8 @@ class DistributedOffPolicyTrainer:
         segment (module docstring)."""
         k = self.updates_per_segment
         return compile_step(self._build_superstep(), self.device, ts, cstate, bstate,
-                            key=lambda: self.algo.update_pattern(ts, k), groups=(self.group, self.ensemble_group))
+                            key=lambda: self.algo.update_pattern(ts, k), groups=(self.group, self.ensemble_group),
+                            name="distributed.offpolicy_segment")
 
     def init_states(self):
         """``(ts, cstate, bstate, (learn, sample) generators, test
@@ -422,7 +423,8 @@ class DistributedOnPolicyTrainer:
             ts, cstate, outputs, metrics = superstep(ts, cstate, generator)
             return ts, cstate, bstate, outputs, metrics
 
-        return compile_step(step, self.device, ts, cstate, None, groups=(self.group,))
+        return compile_step(step, self.device, ts, cstate, None, groups=(self.group,),
+                            name="distributed.onpolicy_segment")
 
     def run(self) -> InfoStats:
         t_start = time.time()

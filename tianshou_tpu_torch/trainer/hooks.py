@@ -6,7 +6,10 @@ The JAX package traces with ``jax.profiler``; here ``profile_dir`` runs the
 whole ``run()`` under ``torch.profiler.profile`` (host activity, and the
 card's kernels when CUDA is present) and writes a Chrome trace into
 ``profile_dir`` on exit.  It is off by default: the profiler roughly
-doubles a superstep's wall time.
+doubles a superstep's wall time.  With the port's tracer on
+(:func:`tianshou_tpu_torch.utils.trace.enable`, also off by default) the
+trace carries the program's own spans (``tianshou.superstep.launch``,
+``tianshou.test_phase``, ...) as ranges beside the device records.
 """
 
 from __future__ import annotations
@@ -45,7 +48,10 @@ class RunContext(contextlib.AbstractContextManager):
     """One training run's instrumentation: a tqdm bar over total env steps
     when ``show_progress`` is set, and a ``torch.profiler`` trace of the run
     written to ``profile_dir/<desc>_<pid>_<ns>.pt.trace.json`` (its path in
-    :attr:`trace_path` after the run) when ``profile_dir`` is set."""
+    :attr:`trace_path` after the run) when ``profile_dir`` is set.  The
+    trace holds the program's spans where the tracer
+    (:mod:`tianshou_tpu_torch.utils.trace`) is on, which it is not by
+    default."""
 
     def __init__(self, total_steps: int, show_progress: bool = False, profile_dir: str | None = None,
                  desc: str = "train"):

@@ -111,7 +111,8 @@ class OfflineTrainer:
             return ts, cstate, bstate, None, metrics
 
         k = self.updates_per_superstep
-        return compile_step(step, self.device, ts, (), bstate, key=lambda: self.algo.update_pattern(ts, k))
+        return compile_step(step, self.device, ts, (), bstate, key=lambda: self.algo.update_pattern(ts, k),
+                            name="offline.superstep")
 
     def run(self) -> InfoStats:
         t_start = time.time()

@@ -46,8 +46,18 @@ Both loops take a ``logger`` (train data each superstep, from the metrics
 ``run`` already read; the counters at each epoch's end, with
 ``save_checkpoint_fn``; test results), ``resume_from_log`` (the counters
 restored from the logger, epochs continued) and ``profile_dir`` (a device
-trace of the run, :class:`~tianshou_tpu_torch.trainer.hooks.RunContext`).
+trace of the run, :class:`~tianshou_tpu_torch.trainer.hooks.RunContext`,
+which carries the program's spans where the tracer is on).
 None of them adds a launch or a host synchronisation to a superstep.
+
+The port's tracer (:mod:`~tianshou_tpu_torch.utils.trace`) is off by
+default, and off it adds nothing to a superstep but a flag test a span
+and, in a replay, a counter's increment.
+On, ``run`` records spans of set-up, of each superstep and of each epoch's
+end (:meth:`OffPolicyTrainer._run_device`); a superstep compiled while it
+is on holds four event-record nodes, its device marks, and ``run`` reads
+their three elapsed times after the superstep's one host read: no launch
+and no synchronisation more.  The host path records only ``tianshou.run``.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
 from tianshou_tpu_torch.data.stats import InfoStats
 from tianshou_tpu_torch.data.tree import tree_map
 from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext, log_test, log_train, save_epoch
+from tianshou_tpu_torch.utils import trace
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 from tianshou_tpu_torch.utils.graphs import compile_step
 from tianshou_tpu_torch.utils.transfer import TreePacker
@@ -75,7 +86,8 @@ from tianshou_tpu_torch.utils.transfer import TreePacker
 __all__ = ["FusedHostLoop", "HostStep", "OffPolicyTrainer", "build_update_scan"]
 
 
-def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_updates: int):
+def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_updates: int,
+                      marks: trace.DeviceMarks | None = None):
     """Build ``(ts, bstate, generator) -> (ts, bstate, mean_metrics)``: the
     ``n_updates`` updates of a superstep, each drawing its own noise from
     ``generator`` (the JAX package splits a key per update).
@@ -87,7 +99,9 @@ def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_
     ``batch_size`` slices of it.  Otherwise (a
     :class:`PrioritizedReplayBuffer`, whose priorities change with every
     update, or an overridden ``update``) each update samples its own batch
-    through ``algo.update``."""
+    through ``algo.update``.  ``marks`` (:func:`trace.device_marks`)
+    records ``presample`` after the presample and ``updates`` after the
+    updates."""
     presampled = (
         algo.supports_presampled
         # a subclass that overrides update() while inheriting
@@ -100,6 +114,8 @@ def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_
         if presampled:
             sampled = algo.presample(buffer, bstate, generator, n_updates * batch_size)
             views = tree_map(lambda x: x.reshape((n_updates, batch_size) + x.shape[1:]), sampled)
+            if marks is not None:
+                marks.record("presample")
         history: dict[str, list[torch.Tensor]] = {}
         for i in range(n_updates):
             if presampled:
@@ -109,7 +125,10 @@ def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_
                 ts, bstate, metrics = algo.update(ts, buffer, bstate, generator, batch_size)
             for k, v in metrics.items():
                 history.setdefault(k, []).append(v)
-        return ts, bstate, {k: torch.stack(v).mean() for k, v in history.items()}
+        means = {k: torch.stack(v).mean() for k, v in history.items()}
+        if marks is not None:
+            marks.record("updates")
+        return ts, bstate, means
 
     return updates
 
@@ -394,6 +413,8 @@ class OffPolicyTrainer:
         # _compile_host_step) or the fused fine cycle's
         # (_compile_fused_cycle)
         self.compiled_superstep = None
+        # the device marks of the superstep built last (_build_superstep)
+        self.superstep_marks: trace.DeviceMarks | None = None
         self.compiled_host_step = None
         self.compiled_fused_cycle = None
 
@@ -405,17 +426,26 @@ class OffPolicyTrainer:
 
     def _build_superstep(self):
         """``superstep(ts, cstate, bstate, generator, explore_param) -> (ts,
-        cstate, bstate, outputs, metrics)``."""
+        cstate, bstate, outputs, metrics)``.  Built while tracing is on, on
+        CUDA, it records the device marks ``start``, ``rollout``,
+        ``presample`` (where the updates presample) and ``updates``, kept in
+        :attr:`superstep_marks` (:mod:`~tianshou_tpu_torch.utils.trace`);
+        built while it is off, none."""
         seg = rollout_segment(
             self.algo, self.train_collector.venv, self.buffer, self.segment_len, explore=True,
             reward_metric=self.train_collector.reward_metric,
         )
+        marks = self.superstep_marks = trace.device_marks(self.device)
         updates_fn = build_update_scan(
-            self.algo, self.buffer, self.batch_size, self.updates_per_segment
+            self.algo, self.buffer, self.batch_size, self.updates_per_segment, marks
         )
 
         def superstep(ts, cstate, bstate, generator, explore_param):
+            if marks is not None:
+                marks.record("start")
             cstate, bstate, outputs = seg(ts, cstate, bstate, explore_param)
+            if marks is not None:
+                marks.record("rollout")
             ts, bstate, metrics = updates_fn(ts, bstate, generator)
             return ts, cstate, bstate, outputs, metrics
 
@@ -434,7 +464,7 @@ class OffPolicyTrainer:
         the eager superstep: CUDA graphs exist only on CUDA."""
         k = self.updates_per_segment
         return compile_step(self._build_superstep(), self.device, ts, cstate, bstate,
-                            key=lambda: self.algo.update_pattern(ts, k))
+                            key=lambda: self.algo.update_pattern(ts, k), name="offpolicy.superstep")
 
     def _build_host_step(self) -> HostStep:
         updates_fn = build_update_scan(self.algo, self.buffer, self.batch_size, self.updates_per_segment)
@@ -458,7 +488,8 @@ class OffPolicyTrainer:
             return ts, staging, bstate, None, metrics
 
         k = self.updates_per_segment
-        return compile_step(step, self.device, ts, staging, bstate, key=lambda: self.algo.update_pattern(ts, k))
+        return compile_step(step, self.device, ts, staging, bstate, key=lambda: self.algo.update_pattern(ts, k),
+                            name="offpolicy.host_step")
 
     def _compile_fused_cycle(self, loop: FusedHostLoop):
         """The fused fine cycle's device part as the host path launches it
@@ -470,7 +501,7 @@ class OffPolicyTrainer:
         algorithm's host-keyed branches; on the CPU the eager device part."""
         k, ts = self.updates_per_segment, loop.ts
         return compile_step(loop.device_fn, self.device, ts, loop.staging, loop.bstate,
-                            key=lambda: self.algo.update_pattern(ts, k))
+                            key=lambda: self.algo.update_pattern(ts, k), name="offpolicy.fused_cycle")
 
     def _fused_fine_applicable(self, probe: Batch) -> bool:
         """Whether the fused fine cycle applies: one step per env a segment,
@@ -609,18 +640,31 @@ class OffPolicyTrainer:
         )
 
     def run(self) -> InfoStats:
-        if getattr(self.train_collector, "is_host_collector", False):
-            return self._run_host()
+        with trace.span("tianshou.run"):
+            if getattr(self.train_collector, "is_host_collector", False):
+                return self._run_host()
+            return self._run_device()
+
+    def _run_device(self) -> InfoStats:
+        """The on-device path: supersteps of the compiled superstep, each
+        the tracer's ``tianshou.superstep`` span with the children
+        ``.param``, ``.launch``, ``.host_read``, ``.summarize`` and ``.log``
+        and, where the superstep has device marks, its device milliseconds
+        (``rollout_ms``, ``presample_ms``, ``updates_ms``) read after the
+        host read; set-up's ``tianshou.setup.init`` and
+        ``tianshou.setup.ring_fill``; each epoch's ``tianshou.epoch_end``
+        and ``tianshou.test_phase``."""
         t_start = time.time()
         smooth = MetricSmoother(self.smooth_window)
         gen = make_generator(self.seed, self.device)
         g_init, g_reset = fork_generator(gen), fork_generator(gen)
 
-        cstate = self.train_collector.reset(g_reset)
-        ts = self.algo.init(g_init)
-        bstate = self.buffer.init(
-            self.train_collector.example_transition(ts, cstate), device=self.device
-        )
+        with trace.span("tianshou.setup.init"):
+            cstate = self.train_collector.reset(g_reset)
+            ts = self.algo.init(g_init)
+            bstate = self.buffer.init(
+                self.train_collector.example_transition(ts, cstate), device=self.device
+            )
 
         env_step = grad_step = start_epoch = 0
         if self.resume_from_log and self.logger is not None:
@@ -633,12 +677,15 @@ class OffPolicyTrainer:
         # warm-up collection (reference start_timesteps)
         if self.warmup_steps > 0:
             warm_len = max(1, self.warmup_steps // self.train_collector.venv.num_envs)
-            cstate, bstate, stats, _ = self.train_collector.collect(
-                ts, cstate, bstate, warm_len, explore=True, random=self.warmup_random,
-            )
+            with trace.span("tianshou.setup.ring_fill"):
+                cstate, bstate, stats, _ = self.train_collector.collect(
+                    ts, cstate, bstate, warm_len, explore=True, random=self.warmup_random,
+                )
             env_step += stats.n_collected_steps
 
         superstep = self.compiled_superstep = self._compile_superstep(ts, cstate, bstate)
+        marks = self.superstep_marks
+        n_superstep = 0
         stop_triggered = False
         epoch = 0
         with RunContext((self.max_epoch - start_epoch) * self.step_per_epoch, self.show_progress, self.profile_dir,
@@ -646,46 +693,58 @@ class OffPolicyTrainer:
             for epoch in range(start_epoch + 1, self.max_epoch + 1):
                 steps_this_epoch = 0
                 while steps_this_epoch < self.step_per_epoch:
-                    explore_param = float(self.train_param_fn(epoch, env_step))
-                    t0 = time.time()
-                    ts, cstate, bstate, outputs, metrics = superstep(
-                        ts, cstate, bstate, gen, explore_param
-                    )
-                    # the one host read of the superstep
-                    host_metrics = _read_metrics(metrics)
-                    train_time += time.time() - t0
-                    env_step += self.steps_per_segment
-                    steps_this_epoch += self.steps_per_segment
-                    grad_step += self.updates_per_segment
-                    stats = Collector.summarize(outputs, self.steps_per_segment)
-                    # in-training test: when training returns already clear
-                    # the bar, confirm with a real test phase and stop early
-                    if (
-                        self.test_in_train
-                        and self.stop_fn is not None
-                        and stats.returns.size
-                        and self.stop_fn(stats.returns_mean)
-                    ):
-                        tt = self.test_collector.collect_episodes(
-                            ts, gen, self.episode_per_test,
-                            explore=False, explore_param=self.test_param,
-                        )
-                        if self.stop_fn(tt.returns_mean):
-                            best_reward = max(best_reward, tt.returns_mean)
-                            best_reward_std = tt.returns_std
-                            stop_triggered = True
-                            break
-                    last_metrics = smooth(host_metrics)
-                    rc.step(self.steps_per_segment, last_metrics)
-                    log_train(self.logger, env_step, stats, last_metrics)
+                    n_superstep += 1
+                    trace.set_superstep(n_superstep)
+                    with trace.span("tianshou.superstep") as span:
+                        with trace.span("tianshou.superstep.param"):
+                            explore_param = float(self.train_param_fn(epoch, env_step))
+                        t0 = time.time()
+                        with trace.span("tianshou.superstep.launch"):
+                            ts, cstate, bstate, outputs, metrics = superstep(
+                                ts, cstate, bstate, gen, explore_param
+                            )
+                        # the one host read of the superstep
+                        with trace.span("tianshou.superstep.host_read"):
+                            host_metrics = _read_metrics(metrics)
+                        train_time += time.time() - t0
+                        if marks is not None and trace.enabled():
+                            span.set(**marks.read())
+                        env_step += self.steps_per_segment
+                        steps_this_epoch += self.steps_per_segment
+                        grad_step += self.updates_per_segment
+                        with trace.span("tianshou.superstep.summarize"):
+                            stats = Collector.summarize(outputs, self.steps_per_segment)
+                        # in-training test: when training returns already clear
+                        # the bar, confirm with a real test phase and stop early
+                        if (
+                            self.test_in_train
+                            and self.stop_fn is not None
+                            and stats.returns.size
+                            and self.stop_fn(stats.returns_mean)
+                        ):
+                            tt = self.test_collector.collect_episodes(
+                                ts, gen, self.episode_per_test,
+                                explore=False, explore_param=self.test_param,
+                            )
+                            if self.stop_fn(tt.returns_mean):
+                                best_reward = max(best_reward, tt.returns_mean)
+                                best_reward_std = tt.returns_std
+                                stop_triggered = True
+                                break
+                        with trace.span("tianshou.superstep.log"):
+                            last_metrics = smooth(host_metrics)
+                            rc.step(self.steps_per_segment, last_metrics)
+                            log_train(self.logger, env_step, stats, last_metrics)
 
                 if stop_triggered:
                     break
-                save_epoch(self.logger, self.save_checkpoint_fn, epoch, env_step, grad_step)
-                test_stats = self.test_collector.collect_episodes(
-                    ts, gen, self.episode_per_test,
-                    explore=False, explore_param=self.test_param,
-                )
+                with trace.span("tianshou.epoch_end"):
+                    save_epoch(self.logger, self.save_checkpoint_fn, epoch, env_step, grad_step)
+                with trace.span("tianshou.test_phase"):
+                    test_stats = self.test_collector.collect_episodes(
+                        ts, gen, self.episode_per_test,
+                        explore=False, explore_param=self.test_param,
+                    )
                 rew, rew_std = test_stats.returns_mean, test_stats.returns_std
                 if rew > best_reward:
                     best_reward, best_reward_std = rew, rew_std

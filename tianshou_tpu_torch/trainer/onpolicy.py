@@ -201,7 +201,7 @@ class OnPolicyTrainer:
             ts, cstate, outputs, metrics = superstep(ts, cstate, generator)
             return ts, cstate, bstate, outputs, metrics
 
-        return compile_step(step, self.device, ts, cstate, None)
+        return compile_step(step, self.device, ts, cstate, None, name="onpolicy.superstep")
 
     def _compile_learn(self, ts, staging):
         """The host path's learning as ``run`` launches it (the JAX
@@ -219,7 +219,7 @@ class OnPolicyTrainer:
             ts, metrics = learn(ts, col.unpack(staging), generator)
             return ts, staging, bstate, None, metrics
 
-        return compile_step(step, self.device, ts, staging, None)
+        return compile_step(step, self.device, ts, staging, None, name="onpolicy.learn")
 
     def _host_setup(self):
         """The host path's start: ``(ts, generator, collect generator)``

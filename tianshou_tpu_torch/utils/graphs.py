@@ -68,6 +68,11 @@ Capture (the first call of each branch pattern, :meth:`CapturedStep._capture`):
    the warm-up found them before it, so that the capture takes the
    warm-up's branches, and each replay advances them as the warm-up did.
 
+Each warm-up and capture is a graph event of the tracer
+(:mod:`~tianshou_tpu_torch.utils.trace`), recorded on or off, tagged with
+the step's ``name`` and pattern key; ``graph.capture`` and
+``graph.replay`` count them, and a graph's first replay is an event too.
+
 The graphs are kept by ``key()``, the host-known pattern of the step's
 branches (TD3's and REDQ's delayed actor step, from the host update count):
 one graph per pattern a run meets, all in one memory pool.  A replay never
@@ -98,6 +103,8 @@ import torch
 from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+
+from tianshou_tpu_torch.utils import trace
 
 __all__ = ["CapturedStep", "StaticStep", "capturable_groups", "capture_stream", "check_capturable", "compile_step",
            "init_optimizer_state", "mark_capturable", "named_tensors", "optimizers", "own_storage",
@@ -424,6 +431,8 @@ class _Graph:
     #: the collectives the capture recorded, ``(operator, bytes)`` each
     #: (counted for a step over process groups only)
     collectives: list = dataclasses.field(default_factory=list)
+    #: ``<step name>:<pattern key>``, the graph's tag in the tracer
+    tag: str = ""
 
 
 class CapturedStep(StaticStep):
@@ -438,11 +447,16 @@ class CapturedStep(StaticStep):
     acts steps none.  ``generator`` may be one generator or a tuple of them,
     each registered with the graphs.  ``groups``: the process groups of the
     step's collectives, which each capture then counts
-    (``_Graph.collectives``); every one must be ``None`` or NCCL."""
+    (``_Graph.collectives``); every one must be ``None`` or NCCL.
+    ``name`` (``offpolicy.superstep``, ``collect.episodes``) tags the step's
+    spans, graph events and counters in
+    :mod:`~tianshou_tpu_torch.utils.trace`: ``graph.capture`` and
+    ``graph.replay`` per name and pattern key."""
 
     def __init__(self, fn: Callable, ts: Any, cstate: Any, bstate: Any, key: Callable[[], Hashable] = tuple,
-                 prepare_optimizers: bool = True, groups: tuple = ()):
+                 prepare_optimizers: bool = True, groups: tuple = (), name: str = "step"):
         super().__init__(fn, ts, cstate, bstate)
+        self.name = name
         if not capturable_groups(*groups):
             raise ValueError("a step over a gloo process group cannot be captured: its collectives run on the host")
         self.prepare_optimizers = prepare_optimizers
@@ -468,19 +482,38 @@ class CapturedStep(StaticStep):
 
     def _capture(self, key: Hashable) -> tuple:
         """The first call of pattern ``key``: the warm-up step, then the
-        capture (module docstring); returns the warm-up's results."""
-        t0 = time.perf_counter()
-        for opt in optimizers(self.ts) if self.prepare_optimizers else ():
-            prepare_optimizer(opt)
-        counters = step_counters(self.ts)
-        before = [c.step for c in counters]
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            outputs, metrics = self.run_fn(self.generator, self.explore)
-        current.wait_stream(self.stream)
-        torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
+        capture (module docstring); returns the warm-up's results.  The two
+        are the spans ``tianshou.graph.warm_up`` and
+        ``tianshou.graph.capture`` and the graph events ``graph.warm_up``
+        and ``graph.capture``, tagged ``<name>:<key>``
+        (:mod:`~tianshou_tpu_torch.utils.trace`)."""
+        tag = f"{self.name}:{key!r}"
+        t0 = time.perf_counter_ns()
+        with trace.span("tianshou.graph.warm_up", tag):
+            for opt in optimizers(self.ts) if self.prepare_optimizers else ():
+                prepare_optimizer(opt)
+            counters = step_counters(self.ts)
+            before = [c.step for c in counters]
+            current = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                outputs, metrics = self.run_fn(self.generator, self.explore)
+            current.wait_stream(self.stream)
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter_ns()
+        with trace.span("tianshou.graph.capture", tag):
+            self.graphs[key] = self._capture_graph(counters, before, tag)
+        t2 = time.perf_counter_ns()
+        trace.note("graph.warm_up", tag, t0, t1)
+        trace.note("graph.capture", tag, t1, t2)
+        trace.count("graph.capture", tag)
+        self.warm_up_s += (t1 - t0) / 1e9
+        self.capture_s += (t2 - t1) / 1e9
+        return outputs, metrics
+
+    def _capture_graph(self, counters: list, before: list[int], tag: str) -> _Graph:
+        """The capture of the pattern whose warm-up just ran (``before``:
+        the host ``step`` counters before the warm-up)."""
         after = [c.step for c in counters]
         for c, s in zip(counters, before):
             c.step = s
@@ -504,11 +537,8 @@ class CapturedStep(StaticStep):
         if getattr(counting, "off_capture", 0):
             raise RuntimeError(f"{counting.off_capture} collective(s) of the step were issued on a stream that was not "
                                f"capturing: the graph would replay without them")
-        self.graphs[key] = _Graph(graph, g_outputs, g_metrics, [(c, a - b) for c, a, b in zip(counters, after, before)],
-                                  collectives=getattr(counting, "calls", []))
-        self.warm_up_s += t1 - t0
-        self.capture_s += time.perf_counter() - t1
-        return outputs, metrics
+        return _Graph(graph, g_outputs, g_metrics, [(c, a - b) for c, a, b in zip(counters, after, before)],
+                      collectives=getattr(counting, "calls", []), tag=tag)
 
     def __call__(self, ts, cstate, bstate, generator, explore_param):
         self._check_static(ts, cstate, bstate)
@@ -527,20 +557,26 @@ class CapturedStep(StaticStep):
         if entry is None:
             return (*self.states, *self._capture(key))
         entry.graph.replay()
+        if not entry.replays:
+            trace.note("graph.first_replay", entry.tag)
         entry.replays += 1
+        trace.count("graph.replay", entry.tag)
         for counter, n in entry.steps:
             counter.step += n
         return (*self.states, entry.outputs, entry.metrics)
 
 
 def compile_step(fn: Callable, device: torch.device, ts: Any, cstate: Any, bstate: Any,
-                 key: Callable[[], Hashable] = tuple, prepare_optimizers: bool = True, groups: tuple = ()) -> Callable:
+                 key: Callable[[], Hashable] = tuple, prepare_optimizers: bool = True, groups: tuple = (),
+                 name: str = "step") -> Callable:
     """A compiled step: on CUDA a :class:`CapturedStep` over ``fn`` with
     ``ts``, ``cstate`` and ``bstate`` as its static state; on another
     device, which the caller asked for, ``fn`` itself, run eagerly: CUDA
     graphs exist only on CUDA.  ``groups``: the process groups whose
     collectives ``fn`` issues; where one of them is not NCCL (gloo),
-    ``fn`` itself as well (:func:`capturable_groups`)."""
+    ``fn`` itself as well (:func:`capturable_groups`).  ``name``: the
+    captured step's name in the tracer (:class:`CapturedStep`)."""
     if device.type != "cuda" or not capturable_groups(*groups):
         return fn
-    return CapturedStep(fn, ts, cstate, bstate, key=key, prepare_optimizers=prepare_optimizers, groups=groups)
+    return CapturedStep(fn, ts, cstate, bstate, key=key, prepare_optimizers=prepare_optimizers, groups=groups,
+                        name=name)

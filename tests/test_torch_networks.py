@@ -160,3 +160,176 @@ def test_mlp_init_is_orthogonal():
         gram = w @ w.T if w.shape[0] <= w.shape[1] else w.T @ w
         torch.testing.assert_close(gram, gain2 * torch.eye(gram.shape[0], dtype=torch.float64), rtol=0, atol=1e-5)
         assert torch.count_nonzero(layer.bias) == 0
+
+
+# NatureCNN's channels-last route in a 16-bit compute dtype (networks/conv.py
+# _conv_nhwc): space-to-depth for a strided layer with too few channels.
+
+def _s2d_case(c, k, s, hw, layout):
+    """A conv with ``c`` input channels, its float64 input ``[3, c, hw, hw]``
+    and that input as ``_to_hwc`` reads it from the given layout."""
+    from torch import nn
+
+    g = torch.Generator().manual_seed(4)
+    conv = nn.Conv2d(c, 32, k, stride=s).double()
+    with torch.no_grad():
+        conv.bias.normal_(generator=g)
+    x = torch.randn(3, c, hw, hw, dtype=torch.float64, generator=g)
+    given = x if layout == "chw" else x.permute(0, 2, 3, 1).contiguous()
+    return conv, x, _to_hwc(given, layout)
+
+
+@pytest.mark.parametrize("c,k,s,hw,layout", [
+    (4, 8, 4, 84, "chw"), (4, 8, 4, 84, "hwc"), (4, 8, 4, 87, "chw"), (1, 4, 2, 20, "chw"),
+], ids=["nature-chw", "nature-hwc", "unread-edges", "one-channel"])
+def test_space_to_depth_conv_matches_conv2d_in_float64(c, k, s, hw, layout):
+    from tianshou_tpu_torch.networks.conv import _conv_nhwc, _folds
+
+    conv, x, xh = _s2d_case(c, k, s, hw, layout)
+    assert _folds(conv)
+    got = _conv_nhwc(xh, conv, torch.float64)
+    ref = torch.nn.functional.conv2d(x, conv.weight, conv.bias, stride=s).permute(0, 2, 3, 1)
+    assert got.shape == ref.shape and got.is_contiguous()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-12)
+    dy = torch.randn(ref.shape, dtype=torch.float64, generator=torch.Generator().manual_seed(5))
+    grads = torch.autograd.grad((got * dy).sum(), [conv.weight, conv.bias])
+    refs = torch.autograd.grad((ref * dy).sum(), [conv.weight, conv.bias])
+    for g, r in zip(grads, refs):
+        assert g.is_contiguous() and g.dtype == torch.float64
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-12)
+
+
+def _nature(compute_dtype, obs_shape=(4, 84, 84)):
+    from tianshou_tpu_torch.networks.conv import NatureCNN
+
+    net = NatureCNN(obs_shape, compute_dtype=compute_dtype)
+    net.reset_parameters(torch.Generator().manual_seed(6))
+    return net
+
+
+def _frames(obs_shape, n=5):
+    return torch.randint(0, 256, (n, *obs_shape), dtype=torch.uint8, generator=torch.Generator().manual_seed(7))
+
+
+@pytest.mark.parametrize("obs_shape", [(4, 84, 84), (84, 84, 4), (36, 36, 2)], ids=["chw", "hwc", "small"])
+def test_bf16_nature_channels_last_matches_the_float32_nchw_route(obs_shape):
+    """bf16 compute: 2e-2 of the output scale, as against Flax."""
+    net = _nature(torch.bfloat16, obs_shape)
+    ref_net = _nature(None, obs_shape)
+    ref_net.load_state_dict(net.state_dict())
+    x = _frames(obs_shape)
+    with torch.no_grad():
+        got, ref = net(x), ref_net(x)
+    assert got.dtype == torch.float32 and ref.abs().max() > 1e-3
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-2 * float(ref.abs().max()))
+
+
+def test_bf16_nature_parameters_keep_their_names_shapes_dtypes_and_layout():
+    net = _nature(torch.bfloat16)
+    before = {k: (tuple(v.shape), v.dtype) for k, v in net.state_dict().items()}
+    assert before == {
+        "convs.0.weight": ((32, 4, 8, 8), torch.float32), "convs.0.bias": ((32,), torch.float32),
+        "convs.1.weight": ((64, 32, 4, 4), torch.float32), "convs.1.bias": ((64,), torch.float32),
+        "convs.2.weight": ((64, 64, 3, 3), torch.float32), "convs.2.bias": ((64,), torch.float32),
+        "dense.weight": ((512, 3136), torch.float32), "dense.bias": ((512,), torch.float32)}
+    params = list(net.parameters())
+    grads = torch.autograd.grad(net(_frames((4, 84, 84))).square().sum(), params)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in net.state_dict().items()} == before
+    for p, g in zip(params, grads):
+        assert p.is_contiguous() and g.is_contiguous() and g.dtype == p.dtype and g.shape == p.shape
+
+
+def test_float32_nature_is_the_nchw_conv2d_chain_bitwise():
+    import torch.nn.functional as F
+
+    net = _nature(None)
+    x = _frames((4, 84, 84))
+    with torch.no_grad():
+        got = net(x)
+        h = x.to(torch.float32)
+        for conv in net.convs:
+            h = F.relu(F.conv2d(h, conv.weight, conv.bias, stride=conv.stride))
+        ref = F.relu(F.linear(h.permute(0, 2, 3, 1).reshape(5, -1), net.dense.weight, net.dense.bias))
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("compute_dtype,expected", [
+    (torch.bfloat16, {"s2d_nhwc": 1, "nhwc": 2}), (None, {"nchw": 3}),
+], ids=["bf16", "float32"])
+def test_conv_route_counts_a_nature_forward(compute_dtype, expected):
+    from tianshou_tpu_torch.utils import trace
+
+    from tianshou_tpu_torch.networks.conv import _folds
+
+    net = _nature(compute_dtype, (36, 36, 4))
+    assert [_folds(conv) for conv in net.convs] == [True, False, False]
+    trace.clear()
+    try:
+        with torch.no_grad():
+            net(_frames((36, 36, 4), n=2))
+            net(_frames((36, 36, 4), n=2))
+        assert {tag: n for (name, tag), n in trace.counters().items() if name == "conv.route"} == {
+            tag: 2 * n for tag, n in expected.items()}
+    finally:
+        trace.clear()
+
+
+def test_bf16_conv_q_net_under_vmap_equals_a_loop():
+    """``torch.func.vmap`` over ``functional_call`` of a bf16 Nature
+    ``ConvQNet``, as TRPO's line search runs it, equals one call per
+    perturbation of the parameters, at the bf16 bound of this file: a
+    batched convolution rounds in bf16 apart from a single one (2.2e-3 of
+    the scale, as the NCHW chain's), while the perturbations move the output
+    by 0.17 and 0.62 of it."""
+    net = ConvQNet((4, 84, 84), 6)
+    net.reset_parameters(torch.Generator().manual_seed(9))
+    x = _frames((4, 84, 84), n=3)
+    params = {n: p.detach() for n, p in net.named_parameters()}
+    g = torch.Generator().manual_seed(10)
+    dirs = {n: torch.randn(p.shape, generator=g) for n, p in params.items()}
+
+    def at(frac):
+        return torch.func.functional_call(net, {n: p + 0.01 * frac * dirs[n] for n, p in params.items()}, (x,))
+
+    fracs = torch.tensor([0.0, 0.3, 1.0])
+    with torch.no_grad():
+        got = torch.func.vmap(at)(fracs)
+        ref = torch.stack([at(frac) for frac in fracs])
+    scale = float(ref.abs().max())
+    assert got.shape == (3, 3, 6) and float((ref[1:] - ref[0]).abs().amax((1, 2)).min()) > 0.1 * scale
+    torch.testing.assert_close(got, ref, rtol=0, atol=2e-2 * scale)
+
+
+def test_pixel_trpo_learns_once():
+    """One TRPO learn with the networks the high-level factories give an
+    84x84 pixel env: a bf16 Nature actor through the natural gradient's
+    double backward and the line search's vmap."""
+    from tianshou_tpu_torch.algos.npg import TRPO
+    from tianshou_tpu_torch.data.batch import Batch
+    from tianshou_tpu_torch.envs.synthetic import SyntheticPixelEnv
+    from tianshou_tpu_torch.highlevel.env import Environments
+    from tianshou_tpu_torch.highlevel.module import default_actor, default_value_network
+    from tianshou_tpu_torch.networks.conv import NatureCNN
+
+    env = SyntheticPixelEnv(84, 84, 4)
+    envs = Environments(None, None, env.observation_space, env.action_space, "torch")
+    algo = TRPO(default_actor(envs), default_value_network(envs), env.action_space, device="cpu")
+    assert isinstance(algo.actor.encoder, NatureCNN) and algo.actor.input_dtype == torch.bfloat16
+    ts = algo.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(11)
+    n = 8
+    obs = torch.randint(0, 256, (n, 84, 84, 4), dtype=torch.uint8, generator=g)
+    act = torch.randint(0, env.action_space.n, (n,), generator=g)
+    with torch.no_grad():
+        logp, _ = algo._log_prob_entropy(ts.actor(obs), act)
+    ret = torch.randn(n, generator=g) * 2
+    mb = Batch(obs=obs, act=act, ret=ret, v_s=ret + torch.randn(n, generator=g) * 0.5,
+               adv=torch.randn(n, generator=g) * 2 + 0.3, logp_old=logp + torch.randn(n, generator=g) * 0.3)
+    before = {k: v.clone() for k, v in ts.actor.state_dict().items()}
+    ts, metrics = algo.learn(ts, mb)
+    assert set(metrics) == {"value_loss", "accepted", "kl"}
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    moved = any(not torch.equal(v, ts.actor.state_dict()[k]) for k, v in before.items())
+    assert moved == bool(metrics["accepted"])
+    if moved:
+        assert float(metrics["kl"]) < algo.max_kl

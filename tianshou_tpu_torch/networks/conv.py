@@ -6,7 +6,18 @@ The public layout is the JAX package's: observations come in as
 ``[B, H, W, C]`` (or ``[B, S, H, W]`` stacks, see :func:`_to_hwc`), and the
 flatten before the first dense layer is in Flax's ``(h, w, c)`` order, so
 weights carried over from Flax (:mod:`.convert`) give the same function.
-Inside, the convolutions run on an NCHW view of the NHWC tensor.
+Parameters keep PyTorch's float32 NCHW (``[O, C, kh, kw]``) layout.
+
+Inside, a float32 encoder's convolutions run on an NCHW view of the NHWC
+tensor.  ``NatureCNN`` in a 16-bit compute dtype runs them channels-last
+from input to flatten (:func:`_conv_nhwc`): NHWC activations and
+channels-last weights, the layout cuDNN's tensor-core engines take, so
+cuDNN converts nothing around them and the flatten is a view.  A strided
+first layer whose input channels are not a multiple of 8, which cuDNN runs
+in float32 otherwise, is rewritten by space-to-depth into a stride-1
+convolution over ``C * s * s`` channels that computes the same sums.  The
+counter ``conv.route`` (:mod:`~tianshou_tpu_torch.utils.trace`) counts each
+convolution call by route: ``s2d_nhwc``, ``nhwc`` or ``nchw``.
 
 With ``compute_dtype=torch.bfloat16`` (the default) parameters stay float32
 and are cast for each layer; the encoder returns float32 features, as in
@@ -25,6 +36,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tianshou_tpu_torch.utils import trace
 
 __all__ = ["MinAtarCNN", "NatureCNN", "ConvQNet", "ConvValueNet", "ConvDuelingQNet", "ConvQRDQNNet"]
 
@@ -142,12 +155,86 @@ class NatureCNN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.input_dtype
-        x = _to_hwc(x, self.layout).to(dt).permute(0, 3, 1, 2)  # NHWC -> NCHW view
-        for conv in self.convs:
-            x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), stride=conv.stride))
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # Flax's (h, w, c) flatten
+        x = _to_hwc(x, self.layout)
+        if dt in (torch.bfloat16, torch.float16):
+            for conv in self.convs:
+                x = F.relu(_conv_nhwc(x, conv, dt))
+        else:
+            x = x.to(dt).permute(0, 3, 1, 2)  # NHWC -> NCHW view
+            for conv in self.convs:
+                trace.count("conv.route", "nchw")
+                x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), stride=conv.stride))
+            x = x.permute(0, 2, 3, 1)
+        x = x.reshape(x.shape[0], -1)  # Flax's (h, w, c) flatten
         x = F.relu(F.linear(x, self.dense.weight.to(dt), self.dense.bias.to(dt)))
         return x.to(torch.float32)
+
+
+def _folds(conv: nn.Conv2d) -> bool:
+    """Whether :func:`_conv_nhwc` runs ``conv`` (square and unpadded, as
+    NatureCNN's are) by space-to-depth: its stride is above 1 and divides
+    its kernel, and its input channels are not a multiple of 8, for which
+    cuDNN has no 16-bit tensor-core engine."""
+    k, s = conv.kernel_size[0], conv.stride[0]
+    return s > 1 and k % s == 0 and conv.in_channels % 8 != 0
+
+
+class _NHWCWeight(torch.autograd.Function):
+    """A ``[O, C, k, k]`` weight as the channels-last ``[O, C*s*s, k/s,
+    k/s]`` weight of its space-to-depth convolution (at ``s`` 1 the same
+    weight, channels-last), in ``dtype``: one copy.  Channel ``c*s*s + dy*s
+    + dx`` at tap ``(a, b)`` is ``w[:, c, a*s + dy, b*s + dx]``, the order of
+    :func:`_conv_nhwc`'s input.  The gradient comes back in one copy too, in
+    the parameter's dtype and contiguous layout: the optimizer's foreach
+    kernels take a slow path, one launch a tensor, where a gradient's
+    strides differ from its state's.  Written in the ``setup_context``
+    form, so that ``torch.func.vmap`` (TRPO's line search over
+    ``functional_call``) batches it."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(w: torch.Tensor, dtype: torch.dtype, s: int) -> torch.Tensor:
+        k = w.shape[-1]
+        w = w.unflatten(2, (k // s, s)).unflatten(4, (k // s, s))  # [O, C, k/s, s, k/s, s]
+        w = w.permute(0, 2, 4, 1, 3, 5).to(dtype, memory_format=torch.contiguous_format)
+        return w.flatten(3).permute(0, 3, 1, 2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output) -> None:
+        w, _, ctx.s = inputs
+        ctx.param_dtype = w.dtype
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        s = ctx.s
+        g = g.permute(0, 2, 3, 1).unflatten(3, (-1, s, s)).permute(0, 3, 1, 4, 2, 5)  # [O, C, k/s, s, k/s, s]
+        return g.to(ctx.param_dtype, memory_format=torch.contiguous_format).flatten(4).flatten(2, 3), None, None
+
+
+def _conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dt: torch.dtype) -> torch.Tensor:
+    """``conv`` over ``x`` (``[B, H, W, C]``, any strides and dtype) in
+    ``dt``, channels-last; returns its ``[B, H', W', O]`` output, NHWC in
+    memory.
+
+    Where :func:`_folds` holds, space-to-depth: rows and columns past
+    ``(out - 1) * s + k`` (which no output reads) are cropped, the input
+    becomes ``[B, H/s, W/s, C*s*s]`` in one copy that also casts it, and a
+    stride-1 ``k/s`` convolution with the matching weight
+    (:class:`_NHWCWeight`) computes the same sums."""
+    s = conv.stride[0]
+    if _folds(conv):
+        trace.count("conv.route", "s2d_nhwc")
+        k = conv.kernel_size[0]
+        h, w = ((n - k) // s * s + k for n in x.shape[1:3])
+        x = x[:, :h, :w].unflatten(1, (h // s, s)).unflatten(3, (w // s, s))  # [B, H/s, s, W/s, s, C]
+        x = x.permute(0, 1, 3, 5, 2, 4).to(dt, memory_format=torch.contiguous_format).flatten(3)
+        weight, s = _NHWCWeight.apply(conv.weight, dt, s), 1
+    else:
+        trace.count("conv.route", "nhwc")
+        x = x.to(dt, memory_format=torch.contiguous_format)
+        weight = _NHWCWeight.apply(conv.weight, dt, 1)
+    return F.conv2d(x.permute(0, 3, 1, 2), weight, conv.bias.to(dt), stride=s).permute(0, 2, 3, 1)
 
 
 _ENCODERS = {"minatar": MinAtarCNN, "nature": NatureCNN}

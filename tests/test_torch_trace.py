@@ -9,11 +9,17 @@ its spans, counters and graph events in OffPolicyTrainer.run():
   ``tianshou.run``;
 - under ``torch.profiler`` a span is a ``record_function`` range on the
   profiler's clock (the in-memory interval plus ``profiler_offset_ns``);
+- repeated intervals (``trace.interval`` under ``trace.marking``) summed
+  over the latest pass, on stand-in events; the updates of a prioritized
+  CPU run drawing one by one, those of a uniform one from one presample;
+- ``trace.enable(ranges=False)``: spans kept, no profiler range;
 - on a card only (skipped here; ``python3 -m pytest --noconftest -q
   tests/test_torch_trace.py -m cuda`` there): the device marks of the
   captured superstep, the ``graph.capture`` / ``graph.replay`` counters
   and graph events of a run, and the graph's event-record nodes, none
-  with tracing off.
+  with tracing off; the same of a prioritized run, whose superstep
+  records four nodes an update more and the data ``per_sample_ms`` and
+  ``per_write_back_ms``.
 """
 
 import ctypes
@@ -24,6 +30,7 @@ import torch
 from tianshou_tpu_torch.algos.dqn import DQN
 from tianshou_tpu_torch.collect.collector import Collector
 from tianshou_tpu_torch.data.buffer import ReplayBuffer
+from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
 from tianshou_tpu_torch.envs.base import VectorEnv
 from tianshou_tpu_torch.envs.classic import CartPole
 from tianshou_tpu_torch.networks.common import QNet
@@ -46,10 +53,10 @@ def tracing():
         trace.clear()
 
 
-def _trainer(device: str, **kw) -> OffPolicyTrainer:
+def _trainer(device: str, prioritized: bool = False, **kw) -> OffPolicyTrainer:
     env = CartPole()
     algo = DQN(QNet(4, (32,), 2), env.action_space, target_update_freq=50, device=device)
-    buffer = ReplayBuffer(capacity=200, num_envs=4)
+    buffer = (PrioritizedReplayBuffer if prioritized else ReplayBuffer)(capacity=200, num_envs=4)
     args = dict(max_epoch=2, step_per_epoch=64, step_per_collect=32, update_per_step=0.0625, batch_size=16,
                 episode_per_test=2, warmup_steps=32, seed=0, train_param_fn=lambda e, s: 0.5)
     return OffPolicyTrainer(algo, Collector(algo, VectorEnv(env, 4, device=device), buffer, device=device),
@@ -66,6 +73,63 @@ def test_disabled_span_records_nothing():
         s.set(x_ms=1.0)
     assert trace.spans() == [] and trace.dropped() == 0
     assert trace.device_marks(torch.device("cpu")) is None
+
+
+class _StandInEvent:
+    """A CUDA event's stand-in on the CPU: ``record`` reads a shared clock
+    that each record moves on by one millisecond."""
+
+    clock = [0.0]
+
+    def __init__(self):
+        self.t = None
+
+    def record(self):
+        self.clock[0] += 1.0
+        self.t = self.clock[0]
+
+    def elapsed_time(self, other):
+        return other.t - self.t
+
+
+def test_intervals_sum_over_the_latest_pass(monkeypatch):
+    monkeypatch.setattr(trace.DeviceMarks, "_event", staticmethod(_StandInEvent))
+    assert trace.interval("per_sample") is trace.span("tianshou.off")  # no marks active: the no-op
+    marks = trace.DeviceMarks()
+    for updates in (3, 2):  # two passes through a step's Python, the second shorter
+        marks.record("start")
+        with trace.marking(marks):
+            for _ in range(updates):
+                with trace.interval("per_sample"):
+                    _StandInEvent.clock[0] += 5.0
+                with trace.interval("per_write_back"):
+                    pass
+        with trace.marking(None):
+            with trace.interval("per_sample"):
+                pass
+        marks.record("updates")
+    assert trace.interval("per_sample") is trace.span("tianshou.off")
+    out = marks.read()
+    # the second pass: two draws of 6 ms and two write-backs of 1 ms, each
+    # interval its own pair of events; the plain marks as before (an
+    # update's four records and its 5 ms, the last record's 1 ms)
+    assert out["per_sample_ms"] == 12.0 and out["per_write_back_ms"] == 2.0
+    assert out["updates_ms"] == 2 * (4 + 5.0) + 1.0 and len(marks._pairs["per_sample"]) == 3
+
+
+@pytest.mark.parametrize("prioritized", [False, True])
+def test_prioritized_updates_draw_one_by_one(prioritized, monkeypatch):
+    sizes = []
+    presample = DQN.presample
+
+    def counted(self, buffer, bstate, generator, batch_size):
+        sizes.append(batch_size)
+        return presample(self, buffer, bstate, generator, batch_size)
+
+    monkeypatch.setattr(DQN, "presample", counted)
+    _trainer("cpu", prioritized, max_epoch=1).run()
+    # two supersteps of two updates of 16: a draw an update, or one of 32
+    assert sizes == ([16] * 4 if prioritized else [32] * 2)
 
 
 def test_nesting_parents_supersteps_and_counters(tracing):
@@ -182,6 +246,19 @@ def test_span_under_the_profiler_shares_its_clock(tracing):
     assert trace.profiler_offset_ns() == offset
 
 
+def test_span_kept_out_of_the_profiler(tracing):
+    from torch.profiler import ProfilerActivity, profile
+
+    trace.enable(ranges=False)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.span("tianshou.quiet"):
+            torch.ones(64).sum()
+    assert [x.name for x in trace.spans()] == ["tianshou.quiet"]
+    assert not [e for e in prof.profiler.kineto_results.events() if e.name().startswith("tianshou.")]
+    assert trace.profiler_offset_ns() is None
+    trace.enable()
+
+
 # -- on a card only ----------------------------------------------------------------
 def _event_record_nodes(graph: torch.cuda.CUDAGraph) -> tuple[int, int]:
     """``(nodes, event-record nodes)`` of a graph captured with
@@ -238,4 +315,33 @@ def test_device_marks_counters_and_event_nodes_on_the_card(monkeypatch):
         assert [x.tag for x in s if x.name == "tianshou.graph.capture"].count(tag) == 1
     print(f"superstep graph nodes (all, event-record): tracing off {counts[False]}, on {counts[True]}")
     assert counts[False][1] == 0 and counts[True] == (counts[False][0] + 4, 4)
+    trace.clear()
+
+
+@pytest.mark.cuda
+def test_per_update_intervals_and_event_nodes_on_the_card(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("device marks are CUDA events inside a CUDA graph (run on the card)")
+    real = torch.cuda.CUDAGraph
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: real(keep_graph=True))
+    counts = {}
+    for on in (False, True):
+        trace.clear()
+        if on:
+            trace.enable()
+        try:
+            trainer = _trainer("cuda", prioritized=True)
+            trainer.run()
+        finally:
+            trace.disable()
+        [entry] = trainer.compiled_superstep.graphs.values()
+        counts[on] = _event_record_nodes(entry.graph)
+        if on:
+            data = [x.data for x in trace.spans() if x.name == "tianshou.superstep"]
+            for d in data:
+                assert set(d) == {"rollout_ms", "updates_ms", "per_sample_ms", "per_write_back_ms"}, d
+                assert all(v > 0 for v in d.values()) and d["per_sample_ms"] + d["per_write_back_ms"] < d["updates_ms"]
+    k = trainer.updates_per_segment
+    print(f"prioritized superstep graph nodes (all, event-record): tracing off {counts[False]}, on {counts[True]}")
+    assert counts[False][1] == 0 and counts[True] == (counts[False][0] + 3 + 4 * k, 3 + 4 * k)
     trace.clear()

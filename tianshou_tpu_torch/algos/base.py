@@ -51,6 +51,7 @@ from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.her import HERReplayBuffer
 from tianshou_tpu_torch.data.tree import tree_leaves, tree_map
 from tianshou_tpu_torch.envs.spaces import Box, Discrete, Space
+from tianshou_tpu_torch.utils import trace
 from tianshou_tpu_torch.utils.device import make_generator, resolve_device
 
 __all__ = ["TrainState", "Algorithm", "RandomPolicy", "polyak_update", "sync_gradients", "uniform_legal_action",
@@ -103,10 +104,12 @@ def write_back(
 ) -> ReplayBufferState:
     """An update's per-sample priorities written back to ``buffer`` (a
     no-op for uniform replay).  ``buffer`` is ``None`` for an update run
-    on a batch that comes from no buffer."""
+    on a batch that comes from no buffer.  The write-back is the device
+    interval ``per_write_back`` (:func:`~tianshou_tpu_torch.utils.trace.interval`)."""
     if buffer is None:
         return bstate
-    return buffer.update_priorities(bstate, env_idx, pos, td_abs.detach())
+    with trace.interval("per_write_back"):
+        return buffer.update_priorities(bstate, env_idx, pos, td_abs.detach())
 
 
 @dataclasses.dataclass
@@ -329,10 +332,12 @@ class Algorithm:
         of ``batch_size`` transitions, then :meth:`update_sampled`, both
         drawing from ``generator``.  The trainer calls this once per update
         when sampling depends on the updates before it (prioritized
-        replay) or when a subclass overrides it."""
+        replay) or when a subclass overrides it.  The draw is the device
+        interval ``per_sample`` (:func:`~tianshou_tpu_torch.utils.trace.interval`)."""
         if not self.supports_presampled:
             raise NotImplementedError(f"{type(self).__name__} has no presample + update_sampled update")
-        sampled = self.presample(buffer, bstate, generator, batch_size)
+        with trace.interval("per_sample"):
+            sampled = self.presample(buffer, bstate, generator, batch_size)
         return self.update_sampled(ts, buffer, bstate, sampled, generator)
 
     # -- on-policy learning ----------------------------------------------

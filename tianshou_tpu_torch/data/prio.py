@@ -43,7 +43,14 @@ class PrioritizedReplayBufferState(ReplayBufferState):
 
 class PrioritizedReplayBuffer(ReplayBuffer):
     """The uniform ring plus sum-tree priorities over flat slot ids
-    ``env * capacity + pos``."""
+    ``env * capacity + pos``.
+
+    The memory options are the ring's (:class:`ReplayBuffer`): with
+    ``save_only_last_obs`` and ``ignore_obs_next`` a slot holds one frame
+    and the sampled slots' stacks and next stacks are rebuilt along the
+    ``prev`` and ``next`` chains, as in the uniform ring.  The tree's draws
+    do not apply ``sample_avail``, as the reference's prioritized buffer
+    does not."""
 
     def __init__(
         self,
@@ -53,8 +60,11 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         alpha: float = 0.6,
         beta: float = 0.4,
         weight_norm: bool = True,
+        save_only_last_obs: bool = False,
+        ignore_obs_next: bool = False,
+        sample_avail: bool = False,
     ):
-        super().__init__(capacity, num_envs, stack_num)
+        super().__init__(capacity, num_envs, stack_num, save_only_last_obs, ignore_obs_next, sample_avail)
         self.alpha = alpha
         self.init_beta = beta
         self.weight_norm = weight_norm

@@ -119,12 +119,16 @@ class NatureCNN(nn.Module):
 
     ``obs_shape`` is one observation's shape, in any layout that
     :func:`_to_hwc` reads; PyTorch layers need their input sizes up front.
+    ``hidden=None`` drops the dense layer: the encoder returns the
+    flattened convolution features (3,136 at 84x84), as the Rainbow
+    network's noisy streams take them.  :attr:`out_features` is the
+    feature width either way.
     """
 
     def __init__(
         self,
         obs_shape: tuple[int, ...],
-        hidden: int = 512,
+        hidden: int | None = 512,
         compute_dtype: torch.dtype | None = torch.bfloat16,
         layout: str = "auto",
     ):
@@ -139,7 +143,8 @@ class NatureCNN(nn.Module):
         if h < 1 or w < 1:
             raise ValueError(f"observation {obs_shape} is too small for NatureCNN (needs >= 36x36)")
         self.convs = nn.ModuleList(convs)
-        self.dense = nn.Linear(h * w * c, hidden)
+        self.dense = None if hidden is None else nn.Linear(h * w * c, hidden)
+        self.out_features = h * w * c if hidden is None else hidden
         self.reset_parameters()
 
     @property
@@ -149,7 +154,7 @@ class NatureCNN(nn.Module):
         return self.compute_dtype or torch.float32
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        for layer in (*self.convs, self.dense):
+        for layer in (*self.convs, *([] if self.dense is None else [self.dense])):
             _lecun_normal_(layer.weight, generator)
             nn.init.zeros_(layer.bias)
 
@@ -166,7 +171,8 @@ class NatureCNN(nn.Module):
                 x = F.relu(F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), stride=conv.stride))
             x = x.permute(0, 2, 3, 1)
         x = x.reshape(x.shape[0], -1)  # Flax's (h, w, c) flatten
-        x = F.relu(F.linear(x, self.dense.weight.to(dt), self.dense.bias.to(dt)))
+        if self.dense is not None:
+            x = F.relu(F.linear(x, self.dense.weight.to(dt), self.dense.bias.to(dt)))
         return x.to(torch.float32)
 
 

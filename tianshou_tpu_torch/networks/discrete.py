@@ -11,8 +11,9 @@
   (the order in which the JAX package's layers draw theirs), so a forward
   can be repeated with the same noise and the tests can inject the JAX
   package's draws.
-- :class:`C51Net` (noisy branch dueling or not, plain branch an ``MLP``)
-  and :class:`QRDQNNet` return ``[B, A, atoms]`` probabilities and ``[B, A,
+- :class:`C51Net` (noisy branch dueling or not, plain branch an ``MLP``),
+  :class:`ConvC51Net` (the pixel Rainbow network: Nature CNN features,
+  dueling noisy streams) and :class:`QRDQNNet` return ``[B, A, atoms]`` probabilities and ``[B, A,
   K]`` quantiles.
 - :class:`ImplicitQuantileNetwork` maps ``(obs [B, d], taus [B, K])`` to
   ``[B, K, A]`` through a cosine embedding of the fractions;
@@ -38,12 +39,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from tianshou_tpu_torch.networks.common import MLP, _flat_dim
-from tianshou_tpu_torch.networks.conv import _lecun_normal_
+from tianshou_tpu_torch.networks.conv import NatureCNN, _lecun_normal_
 
 __all__ = [
     "NoisyLinear",
     "NoisyMLP",
     "C51Net",
+    "ConvC51Net",
     "QRDQNNet",
     "ImplicitQuantileNetwork",
     "FractionProposalNetwork",
@@ -98,13 +100,14 @@ def draw_noise(net: nn.Module, generator: torch.Generator) -> list[tuple[torch.T
 
 
 class NoisyMLP(nn.Module):
-    """An MLP of :class:`NoisyLinear` layers (the Rainbow head); ``noise``
-    holds one pair per layer, or is ``None`` for the mean weights."""
+    """An MLP of :class:`NoisyLinear` layers (the Rainbow head) with the
+    noise scale ``sigma0``; ``noise`` holds one pair per layer, or is
+    ``None`` for the mean weights."""
 
-    def __init__(self, in_features: int, hidden_sizes: Sequence[int], output_dim: int):
+    def __init__(self, in_features: int, hidden_sizes: Sequence[int], output_dim: int, sigma0: float = 0.5):
         super().__init__()
         sizes = [in_features, *hidden_sizes, output_dim]
-        self.layers = nn.ModuleList([NoisyLinear(i, o) for i, o in zip(sizes[:-1], sizes[1:])])
+        self.layers = nn.ModuleList([NoisyLinear(i, o, sigma0) for i, o in zip(sizes[:-1], sizes[1:])])
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         for layer in self.layers:
@@ -181,6 +184,54 @@ class C51Net(nn.Module):
         v = self.v(feat, None if noise is None else noise[n_a:])
         logits = v[:, None, :] + a - a.mean(dim=1, keepdim=True)
         return torch.softmax(logits, dim=-1)
+
+
+class ConvC51Net(nn.Module):
+    """Pixel obs -> per-action categorical distribution ``[B, A,
+    num_atoms]``: the Rainbow network of Hessel et al. 2018 (Tianshou's
+    Atari ``Rainbow``).  The Nature CNN's convolutions without their dense
+    layer (:class:`~tianshou_tpu_torch.networks.conv.NatureCNN` with
+    ``hidden=None``) give the flattened features; two noisy streams of one
+    ``hidden``-unit layer each, with noise scale ``noisy_std``, give the
+    advantage ``a`` (``A * num_atoms`` logits) and the value ``v``
+    (``num_atoms``), combined as ``v + a - mean_a(a)`` and normalised by a
+    softmax over the atoms.  The streams run in float32; ``input_dtype`` is
+    the encoder's, so the replay gathers observations straight into it.
+    ``forward(obs, noise)`` takes the pairs of :func:`draw_noise`, which
+    lists the advantage stream's layers first (``None``: the mean
+    weights)."""
+
+    def __init__(
+        self,
+        obs_shape: tuple[int, ...],
+        num_actions: int,
+        num_atoms: int = 51,
+        hidden: int = 512,
+        noisy_std: float = 0.5,
+        encoder_kwargs: dict | None = None,
+    ):
+        super().__init__()
+        self.num_actions, self.num_atoms = num_actions, num_atoms
+        self.encoder = NatureCNN(obs_shape, **{**(encoder_kwargs or {}), "hidden": None})
+        feat = self.encoder.out_features
+        self.a = NoisyMLP(feat, (hidden,), num_actions * num_atoms, sigma0=noisy_std)
+        self.v = NoisyMLP(feat, (hidden,), num_atoms, sigma0=noisy_std)
+
+    @property
+    def input_dtype(self) -> torch.dtype:
+        return self.encoder.input_dtype
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for part in (self.encoder, self.a, self.v):
+            part.reset_parameters(generator)
+
+    def forward(self, obs: torch.Tensor, noise: Noise | None = None) -> torch.Tensor:
+        feat = self.encoder(obs)
+        n_a = len(self.a.layers)
+        a = self.a(feat, None if noise is None else noise[:n_a]).reshape(obs.shape[0], self.num_actions,
+                                                                          self.num_atoms)
+        v = self.v(feat, None if noise is None else noise[n_a:])
+        return torch.softmax(v[:, None, :] + a - a.mean(dim=1, keepdim=True), dim=-1)
 
 
 class QRDQNNet(nn.Module):

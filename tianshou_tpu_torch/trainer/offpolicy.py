@@ -55,9 +55,11 @@ default, and off it adds nothing to a superstep but a flag test a span
 and, in a replay, a counter's increment.
 On, ``run`` records spans of set-up, of each superstep and of each epoch's
 end (:meth:`OffPolicyTrainer._run_device`); a superstep compiled while it
-is on holds four event-record nodes, its device marks, and ``run`` reads
-their three elapsed times after the superstep's one host read: no launch
-and no synchronisation more.  The host path records only ``tianshou.run``.
+is on holds four event-record nodes, its device marks (three where the
+updates sample one by one, which add four an update: the intervals of
+each draw and each priority write-back), and ``run`` reads their elapsed
+times after the superstep's one host read: no launch and no
+synchronisation more.  The host path records only ``tianshou.run``.
 """
 
 from __future__ import annotations
@@ -101,7 +103,10 @@ def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_
     update, or an overridden ``update``) each update samples its own batch
     through ``algo.update``.  ``marks`` (:func:`trace.device_marks`)
     records ``presample`` after the presample and ``updates`` after the
-    updates."""
+    updates; in the per-update branch they are active
+    (:func:`trace.marking`), and each update's draw and priority
+    write-back record the intervals ``per_sample`` and ``per_write_back``
+    (``Algorithm.update``, ``algos.base.write_back``)."""
     presampled = (
         algo.supports_presampled
         # a subclass that overrides update() while inheriting
@@ -117,14 +122,15 @@ def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_
             if marks is not None:
                 marks.record("presample")
         history: dict[str, list[torch.Tensor]] = {}
-        for i in range(n_updates):
-            if presampled:
-                ts, bstate, metrics = algo.update_sampled(
-                    ts, buffer, bstate, tree_map(lambda x: x[i], views), generator)
-            else:
-                ts, bstate, metrics = algo.update(ts, buffer, bstate, generator, batch_size)
-            for k, v in metrics.items():
-                history.setdefault(k, []).append(v)
+        with trace.marking(None if presampled else marks):
+            for i in range(n_updates):
+                if presampled:
+                    ts, bstate, metrics = algo.update_sampled(
+                        ts, buffer, bstate, tree_map(lambda x: x[i], views), generator)
+                else:
+                    ts, bstate, metrics = algo.update(ts, buffer, bstate, generator, batch_size)
+                for k, v in metrics.items():
+                    history.setdefault(k, []).append(v)
         means = {k: torch.stack(v).mean() for k, v in history.items()}
         if marks is not None:
             marks.record("updates")
@@ -650,7 +656,8 @@ class OffPolicyTrainer:
         the tracer's ``tianshou.superstep`` span with the children
         ``.param``, ``.launch``, ``.host_read``, ``.summarize`` and ``.log``
         and, where the superstep has device marks, its device milliseconds
-        (``rollout_ms``, ``presample_ms``, ``updates_ms``) read after the
+        (``rollout_ms``, ``presample_ms``, ``updates_ms``; ``per_sample_ms``
+        and ``per_write_back_ms`` where the updates sample one by one) read after the
         host read; set-up's ``tianshou.setup.init`` and
         ``tianshou.setup.ring_fill``; each epoch's ``tianshou.epoch_end``
         and ``tianshou.test_phase``."""

@@ -18,7 +18,8 @@ process, :func:`disable` off; :func:`clear` empties what was recorded.
   counted in :func:`dropped` and not kept.  They are read through
   :func:`spans` and written out only by whoever asks.
 - While a ``torch.profiler`` is active, each span is also a
-  ``record_function`` range of the same name, so that the profiler's trace
+  ``record_function`` range of the same name (unless :func:`enable` was
+  told ``ranges=False``), so that the profiler's trace
   (``RunContext(profile_dir)``'s Chrome trace) carries it beside the device
   records.  The profiler's host clock is the wall clock
   (``time.time_ns()``), not ``perf_counter_ns``: the offset between the two
@@ -37,13 +38,16 @@ process, :func:`disable` off; :func:`clear` empties what was recorded.
 - :class:`DeviceMarks` are CUDA events recorded inside a step, each
   captured as an event-record node that every replay records again; a step
   built while tracing is on gets them (:func:`device_marks`), and a step
-  built while it is off holds none.
+  built while it is off holds none.  Code below the step (an algorithm's
+  update, say) records intervals on them through :func:`interval`, which
+  does nothing unless the step made its marks active (:func:`marking`).
 
 Every span name of the port begins with ``tianshou.``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -51,12 +55,14 @@ import time
 import torch
 
 __all__ = ["CAPACITY", "DeviceMarks", "Event", "Span", "clear", "count", "counters", "device_marks", "disable",
-           "dropped", "enable", "enabled", "events", "note", "profiler_offset_ns", "set_superstep", "span", "spans"]
+           "dropped", "enable", "enabled", "events", "interval", "marking", "note", "profiler_offset_ns",
+           "set_superstep", "span", "spans"]
 
 #: the most spans kept, and the most graph events
 CAPACITY = 262_144
 
 _on = False
+_ranges = True
 _spans: list["Span"] = []
 _dropped = 0
 _events: list["Event"] = []
@@ -119,7 +125,7 @@ class _Span:
 
     def __enter__(self) -> "_Span":
         global _dropped, _offset_ns
-        if torch.autograd.profiler._is_profiler_enabled:
+        if _ranges and torch.autograd.profiler._is_profiler_enabled:
             if _offset_ns is None:
                 _offset_ns = _measure_offset()
             self._range = torch.autograd.profiler.record_function(self.record.name)
@@ -156,10 +162,12 @@ def span(name: str, tag: str | None = None) -> _Span | _NoSpan:
     return _Span(name, tag)
 
 
-def enable() -> None:
-    """Turn spans and device marks on for the process."""
-    global _on
-    _on = True
+def enable(ranges: bool = True) -> None:
+    """Turn spans and device marks on for the process; ``ranges=False``
+    keeps spans out of an active profiler's records, whose device track
+    would otherwise carry each as an annotation."""
+    global _on, _ranges
+    _on, _ranges = True, ranges
 
 
 def disable() -> None:
@@ -245,20 +253,88 @@ class DeviceMarks:
     CUDA event of a name on the current stream (inside a capture, an
     event-record node that each replay records again); after the host has
     synchronised with the step, :meth:`read` gives the milliseconds between
-    each mark and the one recorded before it, as ``"<mark>_ms"``."""
+    each mark and the one recorded before it, as ``"<mark>_ms"``.
+
+    Intervals that repeat inside a step (one a prioritized update, say)
+    are recorded by :func:`interval` while the marks are active
+    (:func:`marking`): the ``k``-th interval of a name since the activation
+    has its own pair of events, the same pair in every pass through the
+    step's Python (the warm-up and the capture), and :meth:`read` gives
+    their sum as ``"<name>_ms"``."""
 
     def __init__(self):
         self._events: dict[str, torch.cuda.Event] = {}
+        self._pairs: dict[str, list[tuple[torch.cuda.Event, torch.cuda.Event]]] = {}
+        self._counts: dict[str, int] = {}
+
+    @staticmethod
+    def _event() -> torch.cuda.Event:
+        return torch.cuda.Event(enable_timing=True, external=True)
 
     def record(self, name: str) -> None:
         event = self._events.get(name)
         if event is None:
-            event = self._events[name] = torch.cuda.Event(enable_timing=True, external=True)
+            event = self._events[name] = self._event()
         event.record()
+
+    def _pair(self, name: str) -> tuple[torch.cuda.Event, torch.cuda.Event]:
+        """The events of the next interval ``name`` of this pass."""
+        k = self._counts.get(name, 0)
+        self._counts[name] = k + 1
+        pairs = self._pairs.setdefault(name, [])
+        if k == len(pairs):
+            pairs.append((self._event(), self._event()))
+        return pairs[k]
 
     def read(self) -> dict[str, float]:
         names = list(self._events)
-        return {f"{b}_ms": self._events[a].elapsed_time(self._events[b]) for a, b in zip(names, names[1:])}
+        out = {f"{b}_ms": self._events[a].elapsed_time(self._events[b]) for a, b in zip(names, names[1:])}
+        for name, pairs in self._pairs.items():
+            out[f"{name}_ms"] = sum(a.elapsed_time(b) for a, b in pairs[:self._counts.get(name, 0)])
+        return out
+
+
+class _Interval:
+    __slots__ = ("pair",)
+
+    def __init__(self, pair: tuple[torch.cuda.Event, torch.cuda.Event]):
+        self.pair = pair
+
+    def __enter__(self) -> "_Interval":
+        self.pair[0].record()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.pair[1].record()
+        return False
+
+
+_active: DeviceMarks | None = None
+
+
+def interval(name: str) -> _Interval | _NoSpan:
+    """A context manager that records the interval ``name`` on the card
+    between its entry and its exit, on the active marks
+    (:func:`marking`), and the shared no-op while none are active: a step
+    built while tracing is off, or without marks, records nothing."""
+    if _active is None:
+        return _NO_SPAN
+    return _Interval(_active._pair(name))
+
+
+@contextlib.contextmanager
+def marking(marks: DeviceMarks | None):
+    """Make ``marks`` (``None``: none) the marks that :func:`interval`
+    records on, for the body, where a pass through a step's Python starts
+    its intervals anew."""
+    global _active
+    if marks is not None:
+        marks._counts.clear()
+    previous, _active = _active, marks
+    try:
+        yield
+    finally:
+        _active = previous
 
 
 def device_marks(device: torch.device) -> DeviceMarks | None:

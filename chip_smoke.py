@@ -41,8 +41,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    within ``TRPO_FLOAT32_STEP_LIMIT`` (relative) of the CPU's float64 step.
    Then prioritized replay and the distributional family, in float32 with
    TF32 off, within rtol 1e-4 / atol 1e-5 of the CPU (indices exact): the
-   sum tree at ``rainbow_per``'s 20,000 slots (update, and the descent on
-   the same draws), PER weights in both modes, and one update each of DQN
+   sum tree at ``rainbow_per``'s 20,000 slots (update, and the draw's
+   ``(env, pos, p)`` on the same ``u``), PER weights in both modes, and one update each of DQN
    on a PER buffer (the tree after the write-back included), C51, Rainbow
    (the same noise), QRDQN, IQN (the same fractions) and FQF (both of its
    parameter sets).  Then the rest of the off-policy families, in float32
@@ -228,7 +228,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    unmoved.  In the main run every superstep must be a pattern's warm-up or
    a replay, and at least one a replay; the kernel's launches there are
    the wrapper's count (the launches from the host: the warm-ups') and the
-   profiler's device records over the run (every superstep's).  On
+   profiler's device records over the run (every superstep's).  The
+   prioritized paths' (``rainbow_per``, ``dist_rainbow_per``) sum-tree
+   kernels are held the same way: per superstep one ``segtree_draw_kernel``
+   an update and one ``segtree_update_kernel`` a write-back and a rollout
+   step, and one ``segtree_update_kernel`` a step of the warm-up's ring
+   fill (``_check_segtree_run``).  On
    ``hl_atari`` the trained state also goes through a checkpoint, and a
    superstep compiled over the restored state replays bitwise equal to
    eager supersteps from it.  On the paths whose superstep another path
@@ -888,6 +893,140 @@ def phase_kernels() -> dict:
         "plain_device_ms": atari["plain"]["device_ms"][0],
         "library_device_ms": atari["library"]["device_ms"][0],
         "host_issue_us": sum(atari["new"]["host_issue_us"]) / 2,
+        "shapes": shapes,
+    }
+
+
+# phase 3b: the sum tree at nature_rainbow.replay's shapes: a 128 x 782 ring
+# (100,096 slots, 2^17 leaves), 512 draws an update, a 512-row write-back, a
+# 128-row add (a rollout step's new slots); graphs replayed back to back
+SEGTREE_RING, SEGTREE_DRAWS, SEGTREE_ADD = (128, 782), 512, 128
+SEGTREE_REPLAYS, SEGTREE_CALLS = 400, 20
+
+
+def _segtree_ops(tree: torch.Tensor, gen, kernel: bool) -> dict:
+    """One prioritized update's draw and write-back and one rollout step's
+    add on ``tree``, through the kernels' wrappers or the plain loops run on
+    the card's tensors (the flat index computed as the old buffer did)."""
+    from tianshou_tpu_torch.ops import segtree as st
+
+    envs, capacity = SEGTREE_RING
+    slots = envs * capacity
+    u = torch.rand(SEGTREE_DRAWS, generator=gen, device="cuda")
+    flat = torch.randperm(slots, generator=gen, device="cuda")[:SEGTREE_DRAWS]
+    env_idx, pos = flat // capacity, flat % capacity
+    values = torch.rand(SEGTREE_DRAWS, generator=gen, device="cuda") + 0.01
+    cursor = torch.randint(0, capacity, (SEGTREE_ADD,), generator=gen, device="cuda")
+    top = torch.full((), 1.5, device="cuda")
+    if kernel:
+        return {"draw": lambda: st.segtree_draw(tree, u, slots, capacity),
+                "write_back": lambda: st.segtree_update(tree, pos, values, rows=env_idx, row_stride=capacity),
+                "add": lambda: st.segtree_update(tree, cursor, top, row_stride=capacity)}
+    return {"draw": lambda: st.segtree_draw_plain(tree, u, slots, capacity),
+            "write_back": lambda: st.segtree_update_plain(tree, env_idx * capacity + pos, values),
+            "add": lambda: st.segtree_update_plain(
+                tree, torch.arange(SEGTREE_ADD, device="cuda") * capacity + cursor, top.expand(SEGTREE_ADD))}
+
+
+def _graph_ms(fn, replays: int) -> float:
+    """Milliseconds a replay of a CUDA graph of one ``fn()`` call, by events
+    around ``replays`` replays back to back (L2-warm, as in a superstep)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def _device_sum_ms(fn, calls: int) -> tuple[float, float]:
+    """Device milliseconds of one eager ``fn()`` summed over every kernel it
+    runs, and its kernels, from the profiler's records of ``calls`` calls."""
+    events = _device_records(lambda: [fn() for _ in range(calls)])
+    events = [e for e in events if "Memcpy" not in e.name() and "Memset" not in e.name()]
+    return sum(e.end_ns() - e.start_ns() for e in events) / calls / 1e6, len(events) / calls
+
+
+def phase_segtree() -> dict:
+    """The sum tree's kernels at ``nature_rainbow.replay``'s shapes: each
+    operation bitwise against the plain loop on the card (the tree and every
+    output), then timed against it in turns (kernel, plain, plain, kernel)
+    as a replayed graph, with the device time, the kernels a call and the
+    floor: the larger of the bytes over the memory rate and the device time
+    of one 1-element kernel, since a call is a chain of dependent reads."""
+    from tianshou_tpu_torch.ops import segtree as st
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    envs, capacity = SEGTREE_RING
+    slots = envs * capacity
+    base = st.segtree_init(slots, "cuda")
+    st.segtree_update_plain(base, torch.arange(slots, device="cuda"), torch.rand(slots, generator=gen, device="cuda"))
+    trees = {True: base.clone(), False: base.clone()}
+    ops = {route: _segtree_ops(trees[route], torch.Generator(device="cuda").manual_seed(1), route)
+           for route in (True, False)}
+    for op in ops[True]:
+        got, want = ops[True][op](), ops[False][op]()
+        torch.cuda.synchronize()
+        pairs = [("tree", trees[True], trees[False])]
+        if op == "draw":
+            pairs += list(zip(("env", "pos", "p"), got, want))
+        for what, g, w in pairs:
+            if not _bitwise(g, w):
+                raise AssertionError(f"segtree {op}: the kernel's {what} differs from the plain loop's")
+        log(f"kernel check segtree {op} at {slots} slots: bitwise equal to the plain loop (tree and outputs)")
+
+    one = torch.zeros(1, device="cuda")
+    floor_ms, _ = _device_sum_ms(lambda: one.add_(1), SEGTREE_CALLS)
+    rows = {"draw": SEGTREE_DRAWS, "write_back": SEGTREE_DRAWS, "add": SEGTREE_ADD}
+    levels = st.segtree_capacity(base).bit_length() - 1
+    shapes = {}
+    for op, n in rows.items():
+        # draw: u in, (env, pos, p) out, a node a level; an update: the row
+        # index and value in, the leaf and a node a level written from two
+        # children read
+        nbytes = n * (4 + 20 + 4 * levels) if op == "draw" else n * (20 + 4 + 12 * levels)
+        bound_ms = max(nbytes / H100_BYTES_PER_S * 1e3, floor_ms)
+        graph = {True: [], False: []}
+        for route in (True, False, False, True):
+            graph[route].append(_graph_ms(ops[route][op], SEGTREE_REPLAYS))
+        device = {route: _device_sum_ms(ops[route][op], SEGTREE_CALLS) for route in (True, False)}
+        shapes[op] = {"rows": n, "bytes": nbytes, "bound_ms": bound_ms,
+                      "bound_by": "bytes" if bound_ms > floor_ms else "one launch",
+                      "graph_ms": graph[True], "plain_graph_ms": graph[False],
+                      "device_ms": device[True][0], "kernels": device[True][1],
+                      "plain_device_ms": device[False][0], "plain_kernels": device[False][1]}
+        log(f"segtree {op} at {slots} slots, {n} rows: replayed graph {' / '.join(f'{x:.4f}' for x in graph[True])} "
+            f"ms a call, plain loop {' / '.join(f'{x:.4f}' for x in graph[False])} ms; device "
+            f"{device[True][0]:.4f} ms in {device[True][1]:.0f} kernels, plain {device[False][0]:.4f} ms in "
+            f"{device[False][1]:.0f}; bound {bound_ms:.4f} ms ({shapes[op]['bound_by']}: {nbytes} bytes, one "
+            f"1-element kernel {floor_ms:.4f} ms); {levels} levels")
+    draw = shapes["draw"]
+    return {
+        "name": "segtree",
+        "route": "cuda",
+        "source": "tianshou_tpu_torch/csrc/segtree.cu",
+        "replaces": None,
+        "launches": None,
+        "max_abs_err": 0.0,
+        "ms": sum(draw["graph_ms"]) / 2,
+        "plain_ms": sum(draw["plain_graph_ms"]) / 2,
+        "bound_ms": draw["bound_ms"],
+        "bound_by": draw["bound_by"],
+        "library_ms": None,
+        "device_ms": draw["device_ms"],
+        "plain_device_ms": draw["plain_device_ms"],
+        "library_device_ms": None,
+        "host_issue_us": None,
         "shapes": shapes,
     }
 
@@ -2267,20 +2406,56 @@ def _run_captures(path: str, trainer, supersteps: int) -> int:
     return captures
 
 
-def _counted_run(path: str, gather, run):
+def _counted_run(path: str, gather, run, segtree: dict | None = None):
     """``run()`` with ``gather``'s count set to 0 just before it: its
     result, the count read just after it (the wrapper's launches from the
     host) and, where the path's superstep runs the kernel inside a CUDA
     graph (``COMPILED_PATHS``), the kernel's device records in the profiler
     over the same run (the host's launches and the replays' alike; None
-    elsewhere)."""
+    elsewhere).  With ``segtree`` (a dict; the prioritized paths) the sum
+    tree's the same way: its wrappers' counts set to 0 just before ``run()``
+    and read just after it into ``segtree["host"]``, the profiler's records
+    of its two kernels over the run into ``segtree["card"]``."""
+    from tianshou_tpu_torch.ops import segtree as st
+
     gather.launches = 0
-    if path not in COMPILED_PATHS or not KERNEL_LAUNCHES[path]:
+    profile_gather = path in COMPILED_PATHS and bool(KERNEL_LAUNCHES[path])
+    if segtree is not None:
+        st.segtree_draw.launches = st.segtree_update.launches = 0
+    elif not profile_gather:
         out = run()
         return out, gather.launches, None
     result = []
     records = _device_records(lambda: result.append(run()))
-    return result[0], gather.launches, sum("gather_rows_cast" in e.name() for e in records)
+    if segtree is not None:
+        segtree["host"] = {"draw": st.segtree_draw.launches, "update": st.segtree_update.launches}
+        segtree["card"] = {op: sum(f"segtree_{op}_kernel" in e.name() for e in records) for op in ("draw", "update")}
+    device = sum("gather_rows_cast" in e.name() for e in records) if profile_gather else None
+    return result[0], gather.launches, device
+
+
+# the sum tree's launches in each prioritized path's main run, host and
+# card, as _check_segtree_run found them
+SEGTREE_RUNS: dict[str, dict] = {}
+
+
+def _check_segtree_run(path: str, counts: dict, supersteps: int, captures: int) -> None:
+    """Holds a prioritized path's main run (``_counted_run``'s ``segtree``)
+    to its sum-tree launches: on the card, every superstep's one draw an
+    update, one write-back an update and one add a rollout step, and one add
+    a step of the warm-up's ring fill; from the host, the same of the eager
+    steps only (the ring fill and the ``captures`` supersteps that warmed a
+    capture up; a capture and its replays launch nothing from the host)."""
+    cfg = PATHS[DIST_PATHS.get(path, path)]
+    fill = cfg.get("warmup", 0) // cfg["num_envs"]
+    want = {side: {"draw": cfg["updates"] * n, "update": fill + (cfg["segment"] + cfg["updates"]) * n}
+            for side, n in (("card", supersteps), ("host", captures))}
+    got = {side: counts[side] for side in want}
+    if got != want:
+        raise AssertionError(f"{path}: the sum tree's kernels launched {got} in run() ({supersteps} supersteps, "
+                             f"{captures} warm-ups, a ring fill of {fill} steps), not {want}")
+    log(f"{path} run(): the sum tree's kernels {got['card']} on the card, {got['host']} from the host")
+    SEGTREE_RUNS[path] = got
 
 
 def _run_launches(path: str, host: int, device: int | None, supersteps: int, captures: int) -> int:
@@ -2304,10 +2479,14 @@ def phase_main_path(path: str, gather) -> int:
     phase; the launch count is read over exactly that run."""
     cfg = PATHS[path]
     trainer = build_offline_path(path, "cuda")[-1] if path in OFFLINE_PATHS else build(path)[-1]
-    info, host, device = _counted_run(path, gather, trainer.run)
+    segtree = {} if path in PER_PATHS else None
+    info, host, device = _counted_run(path, gather, trainer.run, segtree)
     log(f"{path} {type(trainer).__name__}.run(): {info}")
     supersteps = cfg.get("main_supersteps", 2)
-    launches = _run_launches(path, host, device, supersteps, _run_captures(path, trainer, supersteps))
+    captures = _run_captures(path, trainer, supersteps)
+    launches = _run_launches(path, host, device, supersteps, captures)
+    if segtree is not None:
+        _check_segtree_run(path, segtree, supersteps, captures)
     if path in OFFLINE_PATHS:
         # the offline accounting: env_step = gradient_step * batch
         env_steps = supersteps * cfg["updates"] * cfg["batch"]
@@ -3092,7 +3271,7 @@ def phase_reference_onpolicy() -> None:
 def phase_reference_distributional() -> None:
     """Prioritized replay and the distributional family on the card against
     the CPU (float32, TF32 off, rtol 1e-4 / atol 1e-5, indices exact): the
-    sum tree at 20,000 slots (update and descent on the same ``u``); PER
+    sum tree at 20,000 slots (update, and draw on the same ``u``); PER
     weights in both modes; one update each of DQN on a PER buffer (with the
     tree after the write-back), C51, Rainbow (the same noise), QRDQN, IQN
     (the same fractions) and FQF (the quantile net and the fraction
@@ -3107,26 +3286,32 @@ def phase_reference_distributional() -> None:
     from tianshou_tpu_torch.networks.common import QNet
     from tianshou_tpu_torch.networks.discrete import (
         C51Net, FractionProposalNetwork, FullQuantileFunction, ImplicitQuantileNetwork, QRDQNNet, draw_noise)
-    from tianshou_tpu_torch.ops.segtree import segtree_init, segtree_sample, segtree_total, segtree_update
+    from tianshou_tpu_torch.ops.segtree import segtree_draw, segtree_init, segtree_update
 
     rng = np.random.default_rng(0)
-    # the sum tree at the rainbow_per ring's 20,000 slots
-    slots = PATHS["rainbow_per"]["num_envs"] * PATHS["rainbow_per"]["capacity"]
+    # the sum tree at the rainbow_per ring's 20,000 slots: the card's kernels
+    # against the CPU's plain loop
+    capacity = PATHS["rainbow_per"]["capacity"]
+    slots = PATHS["rainbow_per"]["num_envs"] * capacity
     n = min(4096, slots // 2)
     idx = rng.choice(slots, n, replace=False)
     vals = rng.random(n).astype(np.float32)
     u01 = rng.random(n).astype(np.float32)
-    trees, leaves = {}, {}
+    trees, draws = {}, {}
+    launches = segtree_update.launches, segtree_draw.launches
     for dev in ("cuda", "cpu"):
         tree = segtree_init(slots, dev)
         segtree_update(tree, torch.from_numpy(idx).to(dev), torch.from_numpy(vals).to(dev))
         trees[dev] = tree
-        leaves[dev] = segtree_sample(tree, torch.from_numpy(u01).to(dev) * segtree_total(tree))
+        draws[dev] = segtree_draw(tree, torch.from_numpy(u01).to(dev), slots, capacity)
+    if (segtree_update.launches, segtree_draw.launches) != (launches[0] + 1, launches[1] + 1):
+        raise AssertionError("the card's sum tree did not run on its kernels")
     err = _assert_close("segtree_update tree", trees["cuda"], trees["cpu"])
-    if not torch.equal(leaves["cuda"].cpu(), leaves["cpu"]):
-        raise AssertionError("segtree_sample: the card and the CPU descend to different leaves")
+    for what, card, cpu in zip(("env", "pos", "p"), draws["cuda"], draws["cpu"]):
+        if not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"segtree_draw: the card and the CPU draw different {what}")
     log(f"reference segtree at {slots} slots: {n} updated leaves give the same tree (largest difference "
-        f"{err:.3e}) and {n} draws the same leaves on the card and the CPU")
+        f"{err:.3e}) and {n} draws the same (env, pos, p) on the card's kernels and the CPU's plain loop")
 
     obs_dim, n_act, hidden, batch = 4, 3, (32, 32), 16
     steps = [dict(obs=rng.normal(size=(2, obs_dim)).astype(np.float32), act=rng.integers(0, n_act, 2),
@@ -4747,9 +4932,13 @@ def phase_dist_main(path: str, trainer, gather) -> int:
     warm-up's) and on the card (the profiler's, every segment's) over
     exactly that run."""
     cfg = PATHS[DIST_PATHS[path]]
-    info, host, device = _counted_run(path, gather, trainer.run)
+    segtree = {} if DIST_PATHS[path] in PER_PATHS else None
+    info, host, device = _counted_run(path, gather, trainer.run, segtree)
     log(f"{path} {type(trainer).__name__}.run(): {info}")
-    launches = _run_launches(path, host, device, 2, _run_captures(path, trainer, 2))
+    captures = _run_captures(path, trainer, 2)
+    launches = _run_launches(path, host, device, 2, captures)
+    if segtree is not None:
+        _check_segtree_run(path, segtree, 2, captures)
     warmup = cfg.get("warmup", 0) // cfg["num_envs"] * cfg["num_envs"]
     if info.env_step != warmup + 2 * cfg["num_envs"] * cfg["segment"] or info.gradient_step != 2 * cfg["updates"]:
         raise AssertionError(f"{path}: counters env_step={info.env_step} gradient_step={info.gradient_step}")
@@ -5458,6 +5647,7 @@ def main() -> int:
     smi = timed_phase("device", phase_device)
     timed_phase("build", phase_build)
     kernel = timed_phase("kernels", phase_kernels)
+    segtree = timed_phase("segtree", phase_segtree)
     for path in ("atari", "atari_dedup"):
         timed_phase(f"reference {path}", phase_reference, path)
     for fn in (phase_reference_continuous, phase_reference_onpolicy, phase_reference_distributional,
@@ -5515,13 +5705,16 @@ def main() -> int:
     launches += n
     results["examples"]["phase_s"] = time.perf_counter() - t_path
     kernel["launches"] = launches
+    if set(SEGTREE_RUNS) != {"rainbow_per", "dist_rainbow_per"}:
+        raise AssertionError(f"the sum tree's launches were checked on {sorted(SEGTREE_RUNS)}")
+    segtree["launches"] = SEGTREE_RUNS
     stored, dedup = results["atari"], results["atari_dedup"]
     log("atari memory regime: frames stored once (atari_dedup) beside stored stacks (atari): "
         + ", ".join(f"{k} {dedup[k]:.4f} vs {stored[k]:.4f}" for k in (
             "ring_gb", "max_memory_allocated_gib", "ms_per_superstep", "env_steps_per_s")))
     log(f"chip_smoke: all phases passed; {time.perf_counter() - t0:.1f} s of its own clock")
     print(json.dumps({"card": smi, "paths": results, "phase_s": phase_times}))
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, segtree]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -6,7 +6,11 @@ branch) against the JAX package, on the CPU in float32.
   same tree (exact: each node is one float32 add of its children), and the
   descent gives the same leaves on the same ``u``; a write-back with
   duplicate indices leaves every internal node equal to the sum of its
-  children.
+  children.  The wrappers take the plain loop for a CPU tensor (one
+  ``plain`` on the counter ``segtree.route``, no kernel launch counted) and
+  refuse a wrong dtype, shape or a non-contiguous tree, a device without a
+  kernel, and leaves outside the tree; the kernels themselves are held to
+  the plain loop on the card (tests/test_torch_segtree_cuda.py).
 - PER add / sample / update_priorities / set_beta against the JAX buffer in
   both ``weight_norm`` modes on the same uniform draws: indices exact,
   weights and tree rtol 1e-6; and against the numpy oracle of
@@ -86,6 +90,117 @@ def test_segtree_sampling_is_proportional():
     counts = np.bincount(tseg.segtree_sample(tree, u).numpy(), minlength=8) / 8000
     np.testing.assert_allclose(counts[[0, 2, 7]], [1 / 8, 3 / 8, 4 / 8], atol=0.02)
     assert counts[[1, 3, 4, 5, 6]].sum() == 0
+
+
+def _filled_tree(slots, seed):
+    rng = np.random.default_rng(seed)
+    tree = tseg.segtree_init(slots, "cpu")
+    tseg.segtree_update_plain(tree, torch.arange(slots), _t(rng.random(slots).astype(np.float32)))
+    return tree, rng
+
+
+def _wrapper_and_plain(op, tree, rng):
+    """``(wrapper call, plain call)`` of one operation on ``tree``: an update
+    by flat index, by ``(env, pos)`` rows and by a 0-d value at each env's
+    cursor (a ring's add), a descent of scaled ``u``, a draw of ``u`` in
+    [0, 1)."""
+    envs, cap = 4, tseg.segtree_capacity(tree) // 4
+    pos = _t(rng.choice(cap, envs, replace=False))
+    rows = _t(rng.permutation(envs))
+    vals = _t(rng.random(envs).astype(np.float32) + 1.0)
+    u01 = _t(rng.random(64).astype(np.float32))
+    if op == "update":
+        idx = _t(rng.choice(envs * cap, 16, replace=False))
+        vals = _t(rng.random(16).astype(np.float32))
+        return (lambda t: tseg.segtree_update(t, idx, vals)), (lambda t: tseg.segtree_update_plain(t, idx, vals))
+    if op == "update_rows":
+        return (lambda t: tseg.segtree_update(t, pos, vals, rows=rows, row_stride=cap),
+                lambda t: tseg.segtree_update_plain(t, rows * cap + pos, vals))
+    if op == "update_add":
+        value = torch.tensor(2.5)
+        return (lambda t: tseg.segtree_update(t, pos, value, row_stride=cap),
+                lambda t: tseg.segtree_update_plain(t, torch.arange(envs) * cap + pos, value))
+    if op == "sample":
+        return (lambda t: tseg.segtree_sample(t, u01 * t[1]), lambda t: tseg.segtree_sample_plain(t, u01 * t[1]))
+    return (lambda t: tseg.segtree_draw(t, u01, envs * cap - 3, cap),
+            lambda t: tseg.segtree_draw_plain(t, u01, envs * cap - 3, cap))
+
+
+@pytest.mark.parametrize("op", ["update", "update_rows", "update_add", "sample", "draw"])
+def test_segtree_wrappers_take_the_plain_loop_on_cpu(op):
+    """A CPU tensor takes the plain loop: the same result, one ``plain`` on
+    the counter ``segtree.route``, no kernel launch counted."""
+    from tianshou_tpu_torch.utils import trace
+
+    tree, rng = _filled_tree(48, seed=2)
+    wrapper, plain = _wrapper_and_plain(op, tree, rng)
+    launches = [f.launches for f in (tseg.segtree_update, tseg.segtree_draw)]
+    trace.clear()
+    try:
+        a, b = tree.clone(), tree.clone()
+        got, want = wrapper(a), plain(b)
+        routes = {tag: n for (name, tag), n in trace.counters().items() if name == "segtree.route"}
+    finally:
+        trace.clear()
+    assert routes == {"plain": 1}
+    assert [f.launches for f in (tseg.segtree_update, tseg.segtree_draw)] == launches
+    assert torch.equal(a, b)
+    for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+_TREE, _IDX, _VALS = tseg.segtree_init(48, "cpu"), torch.arange(4), torch.ones(4)
+BAD_CALLS = {
+    "float64 tree": lambda: tseg.segtree_update(_TREE.double(), _IDX, _VALS),
+    "non-contiguous tree": lambda: tseg.segtree_update(torch.zeros(256)[::2], _IDX, _VALS),
+    "tree not a power of two": lambda: tseg.segtree_update(torch.zeros(96), _IDX, _VALS),
+    "2-D tree": lambda: tseg.segtree_update(_TREE.view(2, 64), _IDX, _VALS),
+    "float idx": lambda: tseg.segtree_update(_TREE, _IDX.float(), _VALS),
+    "2-D idx": lambda: tseg.segtree_update(_TREE, _IDX.view(2, 2), _VALS),
+    "values of another length": lambda: tseg.segtree_update(_TREE, _IDX, torch.ones(5)),
+    "integer values": lambda: tseg.segtree_update(_TREE, _IDX, torch.ones(4, dtype=torch.int64)),
+    "rows of another length": lambda: tseg.segtree_update(_TREE, _IDX, _VALS, rows=torch.arange(3), row_stride=8),
+    "float64 tree, sample": lambda: tseg.segtree_sample(_TREE.double(), torch.rand(4)),
+    "integer u, sample": lambda: tseg.segtree_sample(_TREE, _IDX),
+    "float64 u, draw": lambda: tseg.segtree_draw(_TREE, torch.rand(4, dtype=torch.float64), 48, 12),
+    "2-D u, draw": lambda: tseg.segtree_draw(_TREE, torch.rand(2, 2), 48, 12),
+    "non-contiguous tree, draw": lambda: tseg.segtree_draw(torch.zeros(256)[::2], torch.rand(4), 48, 12),
+    "slots past the leaves, draw": lambda: tseg.segtree_draw(_TREE, torch.rand(4), 65, 13),
+    "row_len 0, draw": lambda: tseg.segtree_draw(_TREE, torch.rand(4), 48, 0),
+    "tree on a device without a kernel": lambda: tseg.segtree_update(_TREE.to("meta"), _IDX.to("meta"),
+                                                                      _VALS.to("meta")),
+    "sample off the CPU": lambda: tseg.segtree_sample(_TREE.to("meta"), torch.rand(4, device="meta")),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_CALLS))
+def test_segtree_wrappers_reject_bad_inputs(case):
+    with pytest.raises(ValueError):
+        BAD_CALLS[case]()
+
+
+# leaves outside the tree's 64 leaves: by flat index, by a negative row, by
+# a row stride past the end (the kernel traps on the same calls,
+# tests/test_torch_segtree_cuda.py)
+OUT_OF_TREE = {
+    "index past the end": lambda t: tseg.segtree_update(t, torch.tensor([3, 64]), torch.ones(2)),
+    "negative index": lambda t: tseg.segtree_update(t, torch.tensor([-1]), torch.ones(1)),
+    "negative row": lambda t: tseg.segtree_update(t, torch.tensor([0, 1]), torch.ones(2), rows=torch.tensor([1, -1]),
+                                                  row_stride=12),
+    "row stride past the end": lambda t: tseg.segtree_update(t, torch.tensor([5, 5]), torch.tensor(1.0),
+                                                             row_stride=60),
+}
+
+
+@pytest.mark.parametrize("case", list(OUT_OF_TREE))
+def test_segtree_update_refuses_leaves_outside_the_tree(case):
+    """A leaf outside the tree raises and writes nothing (a negative index
+    would otherwise land on an internal node)."""
+    tree, _ = _filled_tree(48, seed=3)
+    before = tree.clone()
+    with pytest.raises(IndexError):
+        OUT_OF_TREE[case](tree)
+    assert torch.equal(tree, before)
 
 
 # -- the buffer -----------------------------------------------------------------

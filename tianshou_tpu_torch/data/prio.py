@@ -28,7 +28,7 @@ import torch
 
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
-from tianshou_tpu_torch.ops.segtree import segtree_capacity, segtree_init, segtree_sample, segtree_total, segtree_update
+from tianshou_tpu_torch.ops.segtree import segtree_draw, segtree_init, segtree_update
 
 __all__ = ["PrioritizedReplayBuffer", "PrioritizedReplayBufferState"]
 
@@ -69,9 +69,6 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         self.init_beta = beta
         self.weight_norm = weight_norm
 
-    def _flat(self, env_idx: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-        return env_idx.to(torch.int64) * self.capacity + pos.to(torch.int64)
-
     def init(self, example_transition: Batch, device: str | torch.device = "cuda") -> PrioritizedReplayBufferState:
         base = super().init(example_transition, device)
         dev = base.cursor.device
@@ -87,9 +84,7 @@ class PrioritizedReplayBuffer(ReplayBuffer):
 
     def add(self, state: PrioritizedReplayBufferState, transition: Batch) -> PrioritizedReplayBufferState:
         """New transitions enter at the running maximum priority."""
-        env_ids = torch.arange(self.num_envs, device=state.cursor.device)
-        segtree_update(state.tree, self._flat(env_ids, state.cursor),
-                       (state.max_prio ** self.alpha).expand(self.num_envs))
+        segtree_update(state.tree, state.cursor, state.max_prio ** self.alpha, row_stride=self.capacity)
         return super().add(state, transition)
 
     def sample_with_weights(
@@ -105,18 +100,14 @@ class PrioritizedReplayBuffer(ReplayBuffer):
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """:meth:`sample_with_weights` as a deterministic function of the
         uniform draws ``u`` in ``[0, 1)``."""
-        tree = state.tree
-        flat = segtree_sample(tree, u * segtree_total(tree))
-        # a draw at the very top of the range may land on a padding leaf
-        flat = torch.clamp(flat, max=self.num_envs * self.capacity - 1)
-        p = tree[flat + segtree_capacity(tree)]
+        env_idx, pos, p = segtree_draw(state.tree, u, self.num_envs * self.capacity, self.capacity)
         if self.weight_norm:
             # (p / p_min) ** -beta / max(...): the p_min factor cancels
             w = torch.clamp(p, min=1e-12) ** (-state.beta)
             w = w / w.max()
         else:
             w = (torch.clamp(p, min=1e-12) / state.min_prio) ** (-state.beta)
-        return flat // self.capacity, flat % self.capacity, w
+        return env_idx, pos, w
 
     def update_priorities(
         self,
@@ -128,7 +119,7 @@ class PrioritizedReplayBuffer(ReplayBuffer):
         """Write ``(|td_abs| + 1e-6) ** alpha`` at the sampled slots and move
         the running extrema of the raw priorities."""
         prio = td_abs.detach().abs() + 1e-6
-        segtree_update(state.tree, self._flat(env_idx, pos), prio ** self.alpha)
+        segtree_update(state.tree, pos, prio ** self.alpha, rows=env_idx, row_stride=self.capacity)
         return dataclasses.replace(
             state,
             max_prio=torch.maximum(state.max_prio, prio.max()),

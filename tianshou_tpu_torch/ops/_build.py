@@ -39,6 +39,14 @@ _SIGNATURES: dict[str, dict[str, tuple]] = {
         #  smem_bytes, device, stream) -> cudaError_t
         "ts_gather_rows_cast": (_INT, [_P, _P, _P, *[_I64] * 10, _P]),
     },
+    "segtree": {
+        # (tree, cap, u, B, slots, row_len, env, pos, p, device, stream)
+        #  -> cudaError_t
+        "ts_segtree_draw": (_INT, [_P, _I64, _P, *[_I64] * 3, _P, _P, _P, _I64, _P]),
+        # (tree, cap, rows, idx, row_stride, values, value_step, B, device,
+        #  stream) -> cudaError_t
+        "ts_segtree_update": (_INT, [_P, _I64, _P, _P, _I64, _P, _I64, _I64, _I64, _P]),
+    },
 }
 
 

@@ -251,6 +251,20 @@ def test_prepare_optimizer_makes_only_the_ports_adam_capturable(dtype):
         mark_capturable(torch.optim.SGD([w], lr=0.1))
 
 
+def test_the_capture_mark_survives_a_copy():
+    """A copy of the port's Adam made before any capture (a cloned or
+    restored train state) is still made capturable by the capture."""
+    import pickle
+
+    from tianshou_tpu_torch.algos.ddpg import adam
+
+    opt = adam([torch.nn.Parameter(torch.ones(3))], 1e-2)
+    for copied in (copy.deepcopy(opt), pickle.loads(pickle.dumps(opt))):
+        assert not copied.param_groups[0]["capturable"]
+        prepare_optimizer(copied)
+        assert copied.param_groups[0]["capturable"]
+
+
 @pytest.mark.parametrize("kind", ["adam", "adamw-amsgrad", "rmsprop"])
 def test_created_optimizer_state_steps_as_a_lazy_one(kind):
     from tianshou_tpu_torch.algos.qrdqn import RMSprop

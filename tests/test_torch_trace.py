@@ -6,7 +6,8 @@ its spans, counters and graph events in OffPolicyTrainer.run():
   buffer is bounded with a ``dropped`` count, counters and graph events;
 - a 2-epoch CPU ``run()`` with tracing on records set-up, the superstep's
   children and the test phase in order, every superstep inside
-  ``tianshou.run``;
+  ``tianshou.run``; an on-policy ``run()`` records the same epoch loop's
+  spans (no set-up spans, no ``.param``);
 - under ``torch.profiler`` a span is a ``record_function`` range on the
   profiler's clock (the in-memory interval plus ``profiler_offset_ns``);
 - repeated intervals (``trace.interval`` under ``trace.marking``) summed
@@ -35,6 +36,7 @@ from tianshou_tpu_torch.envs.base import VectorEnv
 from tianshou_tpu_torch.envs.classic import CartPole
 from tianshou_tpu_torch.networks.common import QNet
 from tianshou_tpu_torch.trainer.offpolicy import OffPolicyTrainer
+from tianshou_tpu_torch.trainer.onpolicy import OnPolicyTrainer
 from tianshou_tpu_torch.utils import trace
 
 SUPERSTEP_CHILDREN = ["tianshou.superstep.param", "tianshou.superstep.launch", "tianshou.superstep.host_read",
@@ -194,29 +196,55 @@ def test_buffer_is_bounded(tracing, monkeypatch):
     assert trace.spans()[-1].parent == -1
 
 
-def test_offpolicy_run_records_its_spans_in_order(tracing):
-    info = _trainer("cpu").run()
+def _onpolicy_trainer(device: str) -> OnPolicyTrainer:
+    from tianshou_tpu_torch.algos.ppo import PPO
+    from tianshou_tpu_torch.networks.continuous import ValueNet
+
+    env = CartPole()
+    algo = PPO(QNet(4, (32,), 2), ValueNet(4, (32,)), env.action_space, device=device)
+    return OnPolicyTrainer(algo, Collector(algo, VectorEnv(env, 4, device=device), device=device),
+                           Collector(algo, VectorEnv(env, 2, device=device), device=device), max_epoch=2,
+                           step_per_epoch=64, step_per_collect=32, batch_size=16, episode_per_test=2, seed=0,
+                           device=device)
+
+
+# per run: its trainer, the spans before the first superstep (the first the
+# run's outermost), the superstep's children, the env steps that are no
+# superstep's (the off-policy ring fill)
+RUNS = {
+    "offpolicy": (_trainer, ["tianshou.run", "tianshou.setup.init", "tianshou.setup.ring_fill"], SUPERSTEP_CHILDREN,
+                  32),
+    "onpolicy": (_onpolicy_trainer, [], SUPERSTEP_CHILDREN[1:], 0),
+}
+
+
+@pytest.mark.parametrize("kind", list(RUNS))
+def test_offpolicy_run_records_its_spans_in_order(tracing, kind):
+    build, setup, children, unstepped = RUNS[kind]
+    info = build("cpu").run()
     s = trace.spans()
     names = [x.name for x in s]
-    assert names[:3] == ["tianshou.run", "tianshou.setup.init", "tianshou.setup.ring_fill"]
-    run = s[0]
+    assert names[:len(setup)] == setup
+    top_parent = 0 if setup else -1  # inside tianshou.run, or outermost
     supersteps = [x for x in s if x.name == "tianshou.superstep"]
-    assert len(supersteps) == info.env_step // 32 - 1  # the fill's 32 env steps are no superstep
+    assert len(supersteps) == (info.env_step - unstepped) // 32
     assert [x.superstep for x in supersteps] == list(range(1, len(supersteps) + 1))
     for sup in supersteps:
-        assert run.start_ns <= sup.start_ns <= sup.end_ns <= run.end_ns
+        if setup:
+            assert s[0].start_ns <= sup.start_ns <= sup.end_ns <= s[0].end_ns
         at = s.index(sup)
+        assert sup.parent == top_parent
         kids = [x for x in s if x.parent == at]
-        assert [x.name for x in kids] == SUPERSTEP_CHILDREN
+        assert [x.name for x in kids] == children
         assert all(x.superstep == sup.superstep for x in kids)
         assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))
         assert sup.data is None  # no device marks on the CPU
     for x in s:
         if x.name.startswith("tianshou.setup."):
             assert x.parent == 0 and x.end_ns <= supersteps[0].start_ns
-    top = [x.name for x in s if x.parent == 0]
+    top = [x.name for x in s if x.parent == top_parent]
     epoch = ["tianshou.superstep"] * 2 + ["tianshou.epoch_end", "tianshou.test_phase"]
-    assert top == ["tianshou.setup.init", "tianshou.setup.ring_fill"] + epoch * 2
+    assert top == setup[1:] + epoch * 2
     for at, x in enumerate(s):
         if x.name == "tianshou.test_phase":
             kids = [y.name for y in s if y.parent == at]

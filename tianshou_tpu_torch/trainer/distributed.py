@@ -80,7 +80,6 @@ import time
 from collections.abc import Callable
 from typing import Any
 
-import numpy as np
 import torch
 
 from tianshou_tpu_torch.algos.base import Algorithm
@@ -99,8 +98,7 @@ from tianshou_tpu_torch.parallel.distributed import (
     rank_seed,
 )
 from tianshou_tpu_torch.parallel.mesh import shard_ensemble_modules
-from tianshou_tpu_torch.trainer.hooks import log_test, log_train
-from tianshou_tpu_torch.trainer.onpolicy import _read as _read_metrics
+from tianshou_tpu_torch.trainer.loop import OnPolicySuperstep, SuperstepStep, run_epochs
 from tianshou_tpu_torch.trainer.onpolicy import build_rollout_learn
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 from tianshou_tpu_torch.utils.graphs import compile_step
@@ -114,12 +112,22 @@ def _check_devices(device: torch.device, **parts) -> None:
             raise ValueError(f"trainer on {device} but {what.replace('_', ' ')} on {dev}")
 
 
-def _test(collector: Collector, ts, generator, episodes: int, test_param: float, group, device) -> tuple[float, float]:
-    """The lockstep test phase: every rank's mean and std of the returns,
-    averaged over the ranks."""
-    stats = collector.collect_episodes(ts, generator, episodes, explore=False, explore_param=test_param)
-    rew, rew_std = mean_over_ranks([stats.returns_mean, stats.returns_std], group, device)
-    return rew, rew_std
+def _run(trainer, step: SuperstepStep, g_test, test_param: float, pid: int, env_step: int,
+         t_start: float) -> InfoStats:
+    """The epoch loop of a distributed trainer: the lockstep test phase
+    (every rank's mean and std of the returns, averaged over the ranks),
+    the logs on rank 0 alone, no epoch save and no ``save_best_fn``."""
+
+    def test(ts) -> tuple[float, float]:
+        stats = trainer.test_collector.collect_episodes(ts, g_test, trainer.episode_per_test, explore=False,
+                                                        explore_param=test_param)
+        return mean_over_ranks([stats.returns_mean, stats.returns_std], trainer.group, trainer.device)
+
+    info, _ = run_epochs(step, test, max_epoch=trainer.max_epoch, step_per_epoch=trainer.step_per_epoch,
+                         t_start=t_start, desc="distributed", logger=trainer.logger if pid == 0 else None,
+                         save_epochs=False, stop_fn=trainer.stop_fn, env_step=env_step)
+    trainer.train_state, trainer.collect_state = step.ts, step.cstate
+    return info
 
 
 class DistributedOffPolicyTrainer:
@@ -272,62 +280,22 @@ class DistributedOffPolicyTrainer:
     def run(self) -> InfoStats:
         t_start = time.time()
         self._check_priorities()
-        group, pid = self.group, process_index()
-        n_proc = process_count(group)
-        col = self.train_collector
+        pid = process_index()
         ts, cstate, bstate, generators, g_test = self.init_states()
-
-        env_step = grad_step = 0
-        best_reward, best_reward_std = -np.inf, 0.0
-        last_metrics: dict = {}
-        train_time = 0.0
+        env_step = 0
         if self.warmup_steps > 0:
             warm_len = max(1, self.warmup_steps // self.global_envs)
-            cstate, bstate, stats, _ = col.collect(ts, cstate, bstate, warm_len, explore=True,
-                                                   random=self.warmup_random)
-            env_step += stats.n_collected_steps * n_proc
-
+            cstate, bstate, stats, _ = self.train_collector.collect(ts, cstate, bstate, warm_len, explore=True,
+                                                                    random=self.warmup_random)
+            env_step = stats.n_collected_steps * process_count(self.group)
         superstep = self.compiled_superstep = self._compile_superstep(ts, cstate, bstate)
-        stop_triggered = False
-        epoch = 0
-        for epoch in range(1, self.max_epoch + 1):
-            steps_this_epoch = 0
-            while steps_this_epoch < self.step_per_epoch:
-                explore_param = float(self.train_param_fn(epoch, env_step))
-                t0 = time.time()
-                ts, cstate, bstate, outputs, metrics = superstep(ts, cstate, bstate, generators, explore_param)
-                last_metrics = _read_metrics(metrics)  # the one read of the segment
-                train_time += time.time() - t0
-                env_step += self.steps_per_segment
-                steps_this_epoch += self.steps_per_segment
-                grad_step += self.updates_per_segment
-                if pid == 0:
-                    log_train(self.logger, env_step, Collector.summarize(outputs, self.steps_per_segment),
-                              last_metrics)
-            rew, rew_std = _test(self.test_collector, ts, g_test, self.episode_per_test, self.test_param, group,
-                                 self.device)
-            if rew > best_reward:
-                best_reward, best_reward_std = rew, rew_std
-            if pid == 0:
-                log_test(self.logger, rew, rew_std, env_step)
-            if self.stop_fn is not None and self.stop_fn(rew):
-                stop_triggered = True
-                break
-
-        self.train_state = ts
-        self.collect_state = cstate
-        self.buffer_state = bstate
-        return InfoStats(
-            gradient_step=grad_step,
-            env_step=env_step,
-            epoch=epoch,
-            best_reward=float(best_reward),
-            best_reward_std=float(best_reward_std),
-            duration=time.time() - t_start,
-            train_time=train_time,
-            stop_triggered=stop_triggered,
-            last_metrics=last_metrics,
-        )
+        # the segment's episodes are summarized where they are logged
+        step = SuperstepStep(superstep, ts, cstate, bstate, generators, env_steps=self.steps_per_segment,
+                             grad_steps=self.updates_per_segment, param=self.train_param_fn,
+                             summarize=self.steps_per_segment if pid == 0 else None)
+        info = _run(self, step, g_test, self.test_param, pid, env_step, t_start)
+        self.buffer_state = step.bstate
+        return info
 
 
 class DistributedOnPolicyTrainer:
@@ -428,52 +396,14 @@ class DistributedOnPolicyTrainer:
 
     def run(self) -> InfoStats:
         t_start = time.time()
-        group, pid = self.group, process_index(self.group)
+        pid = process_index(self.group)
         gen = make_generator(self.seed, self.device)
         g_init, g_test = fork_generator(gen), fork_generator(gen)
         local = make_generator(rank_seed(self.seed, pid), self.device)
         cstate = self.train_collector.reset(fork_generator(local))
         ts = self.algo.init(g_init)
         superstep = self.compiled_superstep = self._compile_superstep(ts, cstate)
-
-        env_step = grad_step = 0
-        best_reward, best_reward_std = -np.inf, 0.0
-        last_metrics: dict = {}
-        train_time = 0.0
-        stop_triggered = False
-        epoch = 0
-        for epoch in range(1, self.max_epoch + 1):
-            steps_this_epoch = 0
-            while steps_this_epoch < self.step_per_epoch:
-                t0 = time.time()
-                ts, cstate, _, outputs, metrics = superstep(ts, cstate, None, gen, 0.0)
-                last_metrics = _read_metrics(metrics)  # replicated: the same on every rank
-                stats = Collector.summarize(outputs, self.train_collector.venv.num_envs * self.segment_len)
-                train_time += time.time() - t0
-                env_step += self.steps_per_segment
-                steps_this_epoch += self.steps_per_segment
-                grad_step += self.updates_per_segment
-                if pid == 0:
-                    log_train(self.logger, env_step, stats, last_metrics)
-            rew, rew_std = _test(self.test_collector, ts, g_test, self.episode_per_test, 0.0, group, self.device)
-            if rew > best_reward:
-                best_reward, best_reward_std = rew, rew_std
-            if pid == 0:
-                log_test(self.logger, rew, rew_std, env_step)
-            if self.stop_fn is not None and self.stop_fn(rew):
-                stop_triggered = True
-                break
-
-        self.train_state = ts
-        self.collect_state = cstate
-        return InfoStats(
-            gradient_step=grad_step,
-            env_step=env_step,
-            epoch=epoch,
-            best_reward=float(best_reward),
-            best_reward_std=float(best_reward_std),
-            duration=time.time() - t_start,
-            train_time=train_time,
-            stop_triggered=stop_triggered,
-            last_metrics=last_metrics,
-        )
+        step = OnPolicySuperstep(superstep, ts, cstate, None, gen, env_steps=self.steps_per_segment,
+                                 grad_steps=self.updates_per_segment,
+                                 summarize=self.train_collector.venv.num_envs * self.segment_len)
+        return _run(self, step, g_test, 0.0, pid, 0, t_start)

@@ -22,7 +22,7 @@ import torch
 
 from tianshou_tpu_torch.utils.statistics import MovAvg
 
-__all__ = ["MetricSmoother", "RunContext", "log_train", "save_epoch", "log_test"]
+__all__ = ["MetricSmoother", "RunContext"]
 
 
 class MetricSmoother:
@@ -105,26 +105,3 @@ class RunContext(contextlib.AbstractContextManager):
             self._bar = None
         return None
 
-
-def log_train(logger, env_step: int, stats, metrics: dict) -> None:
-    """A superstep's train scope: the env step, the mean return of the
-    episodes it finished (only when it finished some: a constant 0.0
-    between episode ends would make the curve unreadable) and the host
-    metrics."""
-    if logger is not None:
-        returns = {"returns_mean": stats.returns_mean} if stats.returns.size else {}
-        logger.log_train_data({"env_step": env_step, **returns, **metrics}, env_step)
-
-
-def save_epoch(logger, save_checkpoint_fn, epoch: int, env_step: int, gradient_step: int) -> None:
-    """An epoch's end: the counters through the logger, which calls
-    ``save_checkpoint_fn``, or ``save_checkpoint_fn`` alone without one."""
-    if logger is not None:
-        logger.save_data(epoch, env_step, gradient_step, save_checkpoint_fn)
-    elif save_checkpoint_fn is not None:
-        save_checkpoint_fn(epoch, env_step, gradient_step)
-
-
-def log_test(logger, reward: float, reward_std: float, step: int) -> None:
-    if logger is not None:
-        logger.log_test_data({"returns_mean": reward, "returns_std": reward_std}, step)

@@ -30,19 +30,33 @@ import time
 from collections.abc import Callable
 from typing import Any
 
-import numpy as np
 import torch
 
 from tianshou_tpu_torch.algos.base import Algorithm, TrainState
 from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.stats import InfoStats
-from tianshou_tpu_torch.trainer.hooks import log_test
+from tianshou_tpu_torch.trainer.loop import SuperstepStep, run_epochs
 from tianshou_tpu_torch.trainer.offpolicy import build_update_scan
-from tianshou_tpu_torch.trainer.onpolicy import _read
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 from tianshou_tpu_torch.utils.graphs import compile_step
 
 __all__ = ["OfflineTrainer"]
+
+
+class _UpdateLog:
+    """The logger as the offline epoch loop writes to it: each epoch's
+    metrics in the update scope, and every log at the gradient step (the
+    loop's env step, updates times the batch, over the batch size)."""
+
+    def __init__(self, logger, batch_size: int):
+        self.logger, self.batch_size = logger, batch_size
+
+    def log_train_data(self, data: dict, step: int) -> None:
+        metrics = {k: v for k, v in data.items() if k != "env_step"}
+        self.logger.log_update_data(metrics, step // self.batch_size)
+
+    def log_test_data(self, data: dict, step: int) -> None:
+        self.logger.log_test_data(data, step // self.batch_size)
 
 
 class OfflineTrainer:
@@ -115,6 +129,9 @@ class OfflineTrainer:
                             name="offline.superstep")
 
     def run(self) -> InfoStats:
+        """Training in epochs (:func:`~tianshou_tpu_torch.trainer.loop.run_epochs`)
+        of one step each: the epoch's supersteps and their one metric read,
+        logged at the gradient step in the update scope."""
         t_start = time.time()
         gen = make_generator(self.seed, self.device)
         ts = self.algo.init(fork_generator(gen))
@@ -123,45 +140,19 @@ class OfflineTrainer:
         if prepare is not None:
             bstate = prepare(self.buffer, bstate)
         superstep = self.compiled_superstep = self._compile_superstep(ts, bstate)
-        cstate = ()
+        k = self.updates_per_superstep
+        launches = -(-self.update_per_epoch // max(k, 1))  # supersteps until the epoch's updates are done
+        epoch_steps = launches * k * self.batch_size  # the reference's env steps: updates x batch
+        step = SuperstepStep(superstep, ts, (), bstate, gen, env_steps=epoch_steps, grad_steps=launches * k,
+                             launches=launches)
 
-        grad_step = epoch = 0
-        best_reward, best_reward_std = -np.inf, 0.0
-        last_metrics: dict = {}
-        train_time = 0.0
-        stop_triggered = False
-        for epoch in range(1, self.max_epoch + 1):
-            t0 = time.time()
-            done_updates = 0
-            metrics: dict = {}
-            while done_updates < self.update_per_epoch:
-                ts, cstate, bstate, _, metrics = superstep(ts, cstate, bstate, gen, 0.0)
-                done_updates += self.updates_per_superstep
-                grad_step += self.updates_per_superstep
-            last_metrics = _read(metrics)  # the one metric read of the epoch
-            train_time += time.time() - t0
-            if self.logger is not None:
-                self.logger.log_update_data(last_metrics, grad_step)
-            test = self.test_collector.collect_episodes(ts, gen, self.episode_per_test, explore=False)
-            rew, rew_std = test.returns_mean, test.returns_std
-            if rew > best_reward:
-                best_reward, best_reward_std = rew, rew_std
-                if self.save_best_fn is not None:
-                    self.save_best_fn(ts)
-            log_test(self.logger, rew, rew_std, grad_step)
-            if self.stop_fn is not None and self.stop_fn(rew):
-                stop_triggered = True
-                break
+        def test(ts) -> tuple[float, float]:
+            stats = self.test_collector.collect_episodes(ts, gen, self.episode_per_test, explore=False)
+            return stats.returns_mean, stats.returns_std
 
-        self.train_state = ts
-        return InfoStats(
-            gradient_step=grad_step,
-            env_step=grad_step * self.batch_size,
-            epoch=epoch,
-            best_reward=float(best_reward),
-            best_reward_std=float(best_reward_std),
-            duration=time.time() - t_start,
-            train_time=train_time,
-            stop_triggered=stop_triggered,
-            last_metrics=last_metrics,
-        )
+        logger = _UpdateLog(self.logger, self.batch_size) if self.logger is not None else None
+        info, _ = run_epochs(step, test, max_epoch=self.max_epoch, step_per_epoch=epoch_steps, t_start=t_start,
+                             desc="offline", logger=logger, save_epochs=False, save_best_fn=self.save_best_fn,
+                             stop_fn=self.stop_fn)
+        self.train_state = step.ts
+        return info

@@ -17,10 +17,11 @@ superstep of each pattern run eagerly as its capture's warm-up), over the
 state ``run`` started from as the graphs' static state; on the CPU the
 eager superstep itself.
 Epochs, test episodes and early stopping stay on the host, as in the JAX
-package.
+package: ``run`` hands its step to the epoch loop,
+:func:`~tianshou_tpu_torch.trainer.loop.run_epochs`.
 
 With a :class:`~tianshou_tpu_torch.collect.host_collector.HostCollector`
-``run`` takes the host-env path (:meth:`OffPolicyTrainer._run_host`): a
+``run`` takes the host-env path (:class:`HostLoop`): a
 segment collected from host envs, then one host step (:class:`HostStep`):
 ONE packed host-to-device copy of the segment, ``add_trajectory`` and the k
 updates.  Its device part runs compiled as the superstep does
@@ -42,8 +43,8 @@ the one for the step at which the action executes.  ``fused_fine_host``
 (``ValueError`` naming each failed condition), ``False`` keeps the segment
 path.
 
-Both loops take a ``logger`` (train data each superstep, from the metrics
-``run`` already read; the counters at each epoch's end, with
+Every path takes a ``logger`` (train data each superstep, from the
+metrics ``run`` already read; the counters at each epoch's end, with
 ``save_checkpoint_fn``; test results), ``resume_from_log`` (the counters
 restored from the logger, epochs continued) and ``profile_dir`` (a device
 trace of the run, :class:`~tianshou_tpu_torch.trainer.hooks.RunContext`,
@@ -53,13 +54,15 @@ None of them adds a launch or a host synchronisation to a superstep.
 The port's tracer (:mod:`~tianshou_tpu_torch.utils.trace`) is off by
 default, and off it adds nothing to a superstep but a flag test a span
 and, in a replay, a counter's increment.
-On, ``run`` records spans of set-up, of each superstep and of each epoch's
-end (:meth:`OffPolicyTrainer._run_device`); a superstep compiled while it
-is on holds four event-record nodes, its device marks (three where the
-updates sample one by one, which add four an update: the intervals of
-each draw and each priority write-back), and ``run`` reads their elapsed
-times after the superstep's one host read: no launch and no
-synchronisation more.  The host path records only ``tianshou.run``.
+On, ``run`` records ``tianshou.run``, the on-device path's set-up spans
+(:meth:`OffPolicyTrainer._device_setup`) and the epoch loop's spans of each
+step and each epoch's end; the superstep's step
+(:class:`~tianshou_tpu_torch.trainer.loop.SuperstepStep`) adds its
+children.  A superstep compiled while the tracer is on holds four
+event-record nodes, its device marks (three where the updates sample one
+by one, which add four an update: the intervals of each draw and each
+priority write-back), and the step reads their elapsed times after the
+superstep's one host read: no launch and no synchronisation more.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ from tianshou_tpu_torch.data.buffer import ReplayBuffer, ReplayBufferState
 from tianshou_tpu_torch.data.prio import PrioritizedReplayBuffer
 from tianshou_tpu_torch.data.stats import InfoStats
 from tianshou_tpu_torch.data.tree import tree_map
-from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext, log_test, log_train, save_epoch
+from tianshou_tpu_torch.trainer.loop import Step, Stepped, SuperstepStep, read_metrics, run_epochs
 from tianshou_tpu_torch.utils import trace
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 from tianshou_tpu_torch.utils.graphs import compile_step
@@ -139,11 +142,6 @@ def build_update_scan(algo: Algorithm, buffer: ReplayBuffer, batch_size: int, n_
     return updates
 
 
-def _read_metrics(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
-    """Device metrics on the host, in one device-to-host copy."""
-    return dict(zip(metrics.keys(), torch.stack(list(metrics.values())).tolist()))
-
-
 class HostStep:
     """One segment of the host path on the card.  :meth:`upload` is the
     host part: the segment's numpy leaves packed and sent in ONE copy.
@@ -166,9 +164,31 @@ class HostStep:
         return self.updates_fn(ts, bstate, generator)
 
 
-class HostLoop:
+class _SegmentReads(Step):
+    """The host paths' metric reads, which wait on the card: the previous
+    segment's every ``max(1, 4096 // steps_per_segment)`` segments, and the
+    last segment's when the run ends (:meth:`finish`)."""
+
+    metrics: dict[str, torch.Tensor] | None = None
+    _count = 0
+
+    def _due(self) -> dict[str, float] | None:
+        due = self.metrics is not None and self._count % max(1, 4096 // self.trainer.steps_per_segment) == 0
+        self._count += 1
+        return self.read_metrics() if due else None
+
+    def read_metrics(self) -> dict[str, float]:
+        """The last segment's mean metrics, in one device-to-host copy."""
+        return read_metrics(self.metrics)
+
+    def finish(self) -> dict[str, float] | None:
+        return self.read_metrics() if self.metrics is not None else None
+
+
+class HostLoop(_SegmentReads):
     """The host path's carried state and its work a segment: :meth:`collect`
-    on the host envs, then :meth:`update` (one :class:`HostStep`).
+    on the host envs, then :meth:`update` (one :class:`HostStep`); a call is
+    both, with the previous segment's metrics read between them where due.
 
     With ``pipeline_host_updates`` the envs are stepped with a snapshot of
     the actor taken before the updates in flight, and on CUDA the acting
@@ -183,7 +203,6 @@ class HostLoop:
         self.host_step = trainer._build_host_step()
         # the compiled device part and its staging, from the first segment
         self.compiled = self.staging = None
-        self.metrics: dict[str, torch.Tensor] | None = None
         self.pipelined = trainer.pipeline_host_updates
         dev = trainer.device
         self.side = torch.cuda.Stream(dev) if self.pipelined and dev.type == "cuda" else None
@@ -219,12 +238,19 @@ class HostLoop:
             self.ts, self.staging, self.bstate, self.generator, 0.0)
         self.ts_act = algo.with_act_params(self.ts, self.snapshot) if self.pipelined else self.ts
 
-    def read_metrics(self) -> dict[str, float]:
-        """The last segment's mean metrics, in one device-to-host copy."""
-        return _read_metrics(self.metrics)
+    def __call__(self, epoch: int, env_step: int) -> Stepped:
+        t = self.trainer
+        explore_param = float(t.train_param_fn(epoch, env_step))
+        t0 = time.time()
+        stats, traj = self.collect(explore_param)
+        # the previous segment's metrics, read after this segment's
+        # collection so that it does not wait on them
+        metrics = self._due()
+        self.update(traj)
+        return Stepped(stats, metrics, t.steps_per_segment, t.updates_per_segment, time.time() - t0)
 
 
-class FusedHostLoop:
+class FusedHostLoop(_SegmentReads):
     """The fused fine host cycle, for segments of one step per env: the
     reference's collect-one-step / update order with one host
     synchronisation a cycle.
@@ -253,7 +279,6 @@ class FusedHostLoop:
         self.generator = generator
         self.updates_fn = build_update_scan(trainer.algo, trainer.buffer, trainer.batch_size,
                                             trainer.updates_per_segment)
-        self.metrics: dict[str, torch.Tensor] | None = None
         self.env_act: np.ndarray | None = None  # the pending action, fetched
         self.staging: tuple | None = None  # (flat, raw_act, env_act), static on the card
         self.compiled = None
@@ -333,9 +358,17 @@ class FusedHostLoop:
         self.env_act = self.env_act_device.cpu().numpy()  # the cycle's one synchronisation
         return stats
 
-    def read_metrics(self) -> dict[str, float]:
-        """The last cycle's mean metrics, in one device-to-host copy."""
-        return _read_metrics(self.metrics)
+    def __call__(self, epoch: int, env_step: int) -> Stepped:
+        t = self.trainer
+        explore_param = float(t.train_param_fn(epoch, env_step))
+        t0 = time.time()
+        if self.env_act is None:
+            self.prime(explore_param)
+        metrics = self._due()
+        # the action computed in this cycle executes at the next step: its
+        # schedule value is that step's
+        stats = self.cycle(float(t.train_param_fn(epoch, env_step + t.steps_per_segment)))
+        return Stepped(stats, metrics, t.steps_per_segment, t.updates_per_segment, time.time() - t0)
 
 
 class OffPolicyTrainer:
@@ -554,226 +587,54 @@ class OffPolicyTrainer:
             return FusedHostLoop(self, ts, bstate, gen), env_step
         return HostLoop(self, ts, bstate, gen, g_collect), env_step
 
-    def _run_host(self) -> InfoStats:
-        """Training over host envs: per segment, the host steps the envs
-        (acting on the card), then one host step sends the segment and runs
-        the updates.  Metrics are read every ~4096 env steps and once at the
-        end."""
-        t_start = time.time()
-        smooth = MetricSmoother(self.smooth_window)
-        loop, env_step = self._host_setup()
-        grad_step = start_epoch = 0
-        if self.resume_from_log and self.logger is not None:
-            start_epoch, restored_step, grad_step = self.logger.restore_data()
-            env_step += restored_step
-        best_reward, best_reward_std = -np.inf, 0.0
-        last_metrics: dict = {}
-        metrics_interval = max(1, 4096 // self.steps_per_segment)
-        seg_count = 0
-        stop_triggered = False
-        epoch = 0
-        with RunContext((self.max_epoch - start_epoch) * self.step_per_epoch, self.show_progress, self.profile_dir,
-                        desc="offpolicy") as rc:
-            for epoch in range(start_epoch + 1, self.max_epoch + 1):
-                steps_this_epoch = 0
-                while steps_this_epoch < self.step_per_epoch:
-                    explore_param = float(self.train_param_fn(epoch, env_step))
-                    if self.last_run_used_fused:
-                        if loop.env_act is None:
-                            loop.prime(explore_param)
-                        if loop.metrics is not None and seg_count % metrics_interval == 0:
-                            last_metrics = smooth(loop.read_metrics())
-                        seg_count += 1
-                        # the action computed in this cycle executes at the
-                        # next step: its schedule value is that step's
-                        stats = loop.cycle(float(self.train_param_fn(epoch, env_step + self.steps_per_segment)))
-                    else:
-                        stats, traj = loop.collect(explore_param)
-                        # the previous segment's metrics, read after this
-                        # segment's collection so that it does not wait on them
-                        if loop.metrics is not None and seg_count % metrics_interval == 0:
-                            last_metrics = smooth(loop.read_metrics())
-                        seg_count += 1
-                        loop.update(traj)
-                    env_step += self.steps_per_segment
-                    steps_this_epoch += self.steps_per_segment
-                    grad_step += self.updates_per_segment
-                    rc.step(self.steps_per_segment, last_metrics)
-                    if (
-                        self.test_in_train
-                        and self.stop_fn is not None
-                        and stats.returns.size
-                        and self.stop_fn(stats.returns_mean)
-                    ):
-                        tt = self.test_collector.collect_episodes(
-                            loop.ts, loop.generator, self.episode_per_test, explore=False,
-                            explore_param=self.test_param)
-                        if self.stop_fn(tt.returns_mean):
-                            best_reward = max(best_reward, tt.returns_mean)
-                            best_reward_std = tt.returns_std
-                            stop_triggered = True
-                            break
-                    log_train(self.logger, env_step, stats, last_metrics)
-                if stop_triggered:
-                    break
-                save_epoch(self.logger, self.save_checkpoint_fn, epoch, env_step, grad_step)
-                test_stats = self.test_collector.collect_episodes(
-                    loop.ts, loop.generator, self.episode_per_test, explore=False, explore_param=self.test_param)
-                rew, rew_std = test_stats.returns_mean, test_stats.returns_std
-                if rew > best_reward:
-                    best_reward, best_reward_std = rew, rew_std
-                    if self.save_best_fn is not None:
-                        self.save_best_fn(loop.ts)
-                log_test(self.logger, rew, rew_std, env_step)
-                if self.stop_fn is not None and self.stop_fn(rew):
-                    stop_triggered = True
-                    break
-        self.trace_path = rc.trace_path
-        if loop.metrics is not None:
-            last_metrics = smooth(loop.read_metrics())
-
-        self.train_state = loop.ts
-        self.buffer_state = loop.bstate
-        return InfoStats(
-            gradient_step=grad_step,
-            env_step=env_step,
-            epoch=epoch,
-            best_reward=float(best_reward),
-            best_reward_std=float(best_reward_std),
-            duration=time.time() - t_start,
-            stop_triggered=stop_triggered,
-            last_metrics=last_metrics,
-        )
-
-    def run(self) -> InfoStats:
-        with trace.span("tianshou.run"):
-            if getattr(self.train_collector, "is_host_collector", False):
-                return self._run_host()
-            return self._run_device()
-
-    def _run_device(self) -> InfoStats:
-        """The on-device path: supersteps of the compiled superstep, each
-        the tracer's ``tianshou.superstep`` span with the children
-        ``.param``, ``.launch``, ``.host_read``, ``.summarize`` and ``.log``
-        and, where the superstep has device marks, its device milliseconds
-        (``rollout_ms``, ``presample_ms``, ``updates_ms``; ``per_sample_ms``
-        and ``per_write_back_ms`` where the updates sample one by one) read after the
-        host read; set-up's ``tianshou.setup.init`` and
-        ``tianshou.setup.ring_fill``; each epoch's ``tianshou.epoch_end``
-        and ``tianshou.test_phase``."""
-        t_start = time.time()
-        smooth = MetricSmoother(self.smooth_window)
+    def _device_setup(self) -> tuple[SuperstepStep, int]:
+        """The on-device path's start: the envs reset, the parameters drawn,
+        the ring filled by the warm-up (the spans ``tianshou.setup.init`` and
+        ``tianshou.setup.ring_fill``) and the superstep compiled.  Returns
+        the step and the warm-up's env steps.  Where the superstep has
+        device marks, each ``tianshou.superstep`` span holds its device
+        milliseconds (``rollout_ms``, ``presample_ms``, ``updates_ms``;
+        ``per_sample_ms`` and ``per_write_back_ms`` where the updates sample
+        one by one)."""
         gen = make_generator(self.seed, self.device)
         g_init, g_reset = fork_generator(gen), fork_generator(gen)
-
         with trace.span("tianshou.setup.init"):
             cstate = self.train_collector.reset(g_reset)
             ts = self.algo.init(g_init)
-            bstate = self.buffer.init(
-                self.train_collector.example_transition(ts, cstate), device=self.device
-            )
-
-        env_step = grad_step = start_epoch = 0
-        if self.resume_from_log and self.logger is not None:
-            start_epoch, env_step, grad_step = self.logger.restore_data()
-        best_reward = -np.inf
-        best_reward_std = 0.0
-        last_metrics: dict = {}
-        train_time = 0.0
-
+            bstate = self.buffer.init(self.train_collector.example_transition(ts, cstate), device=self.device)
+        env_step = 0
         # warm-up collection (reference start_timesteps)
         if self.warmup_steps > 0:
             warm_len = max(1, self.warmup_steps // self.train_collector.venv.num_envs)
             with trace.span("tianshou.setup.ring_fill"):
                 cstate, bstate, stats, _ = self.train_collector.collect(
-                    ts, cstate, bstate, warm_len, explore=True, random=self.warmup_random,
-                )
+                    ts, cstate, bstate, warm_len, explore=True, random=self.warmup_random)
             env_step += stats.n_collected_steps
-
         superstep = self.compiled_superstep = self._compile_superstep(ts, cstate, bstate)
-        marks = self.superstep_marks
-        n_superstep = 0
-        stop_triggered = False
-        epoch = 0
-        with RunContext((self.max_epoch - start_epoch) * self.step_per_epoch, self.show_progress, self.profile_dir,
-                        desc="offpolicy") as rc:
-            for epoch in range(start_epoch + 1, self.max_epoch + 1):
-                steps_this_epoch = 0
-                while steps_this_epoch < self.step_per_epoch:
-                    n_superstep += 1
-                    trace.set_superstep(n_superstep)
-                    with trace.span("tianshou.superstep") as span:
-                        with trace.span("tianshou.superstep.param"):
-                            explore_param = float(self.train_param_fn(epoch, env_step))
-                        t0 = time.time()
-                        with trace.span("tianshou.superstep.launch"):
-                            ts, cstate, bstate, outputs, metrics = superstep(
-                                ts, cstate, bstate, gen, explore_param
-                            )
-                        # the one host read of the superstep
-                        with trace.span("tianshou.superstep.host_read"):
-                            host_metrics = _read_metrics(metrics)
-                        train_time += time.time() - t0
-                        if marks is not None and trace.enabled():
-                            span.set(**marks.read())
-                        env_step += self.steps_per_segment
-                        steps_this_epoch += self.steps_per_segment
-                        grad_step += self.updates_per_segment
-                        with trace.span("tianshou.superstep.summarize"):
-                            stats = Collector.summarize(outputs, self.steps_per_segment)
-                        # in-training test: when training returns already clear
-                        # the bar, confirm with a real test phase and stop early
-                        if (
-                            self.test_in_train
-                            and self.stop_fn is not None
-                            and stats.returns.size
-                            and self.stop_fn(stats.returns_mean)
-                        ):
-                            tt = self.test_collector.collect_episodes(
-                                ts, gen, self.episode_per_test,
-                                explore=False, explore_param=self.test_param,
-                            )
-                            if self.stop_fn(tt.returns_mean):
-                                best_reward = max(best_reward, tt.returns_mean)
-                                best_reward_std = tt.returns_std
-                                stop_triggered = True
-                                break
-                        with trace.span("tianshou.superstep.log"):
-                            last_metrics = smooth(host_metrics)
-                            rc.step(self.steps_per_segment, last_metrics)
-                            log_train(self.logger, env_step, stats, last_metrics)
+        return SuperstepStep(superstep, ts, cstate, bstate, gen, env_steps=self.steps_per_segment,
+                             grad_steps=self.updates_per_segment, param=self.train_param_fn,
+                             marks=self.superstep_marks, summarize=self.steps_per_segment), env_step
 
-                if stop_triggered:
-                    break
-                with trace.span("tianshou.epoch_end"):
-                    save_epoch(self.logger, self.save_checkpoint_fn, epoch, env_step, grad_step)
-                with trace.span("tianshou.test_phase"):
-                    test_stats = self.test_collector.collect_episodes(
-                        ts, gen, self.episode_per_test,
-                        explore=False, explore_param=self.test_param,
-                    )
-                rew, rew_std = test_stats.returns_mean, test_stats.returns_std
-                if rew > best_reward:
-                    best_reward, best_reward_std = rew, rew_std
-                    if self.save_best_fn is not None:
-                        self.save_best_fn(ts)
-                log_test(self.logger, rew, rew_std, env_step)
-                if self.stop_fn is not None and self.stop_fn(rew):
-                    stop_triggered = True
-                    break
+    def run(self) -> InfoStats:
+        """Training in epochs (:func:`~tianshou_tpu_torch.trainer.loop.run_epochs`)
+        of the compiled superstep, or over host envs of :class:`HostLoop`'s
+        segments or :class:`FusedHostLoop`'s cycles; the whole run is the
+        tracer's span ``tianshou.run``."""
+        with trace.span("tianshou.run"):
+            t_start = time.time()
+            host = getattr(self.train_collector, "is_host_collector", False)
+            step, env_step = self._host_setup() if host else self._device_setup()
 
-        self.trace_path = rc.trace_path
-        self.train_state = ts
-        self.collect_state = cstate
-        self.buffer_state = bstate
-        return InfoStats(
-            gradient_step=grad_step,
-            env_step=env_step,
-            epoch=epoch,
-            best_reward=float(best_reward),
-            best_reward_std=float(best_reward_std),
-            duration=time.time() - t_start,
-            train_time=train_time,
-            stop_triggered=stop_triggered,
-            last_metrics=last_metrics,
-        )
+            def test(ts) -> tuple[float, float]:
+                stats = self.test_collector.collect_episodes(ts, step.generator, self.episode_per_test,
+                                                             explore=False, explore_param=self.test_param)
+                return stats.returns_mean, stats.returns_std
+
+            info, self.trace_path = run_epochs(
+                step, test, max_epoch=self.max_epoch, step_per_epoch=self.step_per_epoch, t_start=t_start,
+                desc="offpolicy", logger=self.logger, save_checkpoint_fn=self.save_checkpoint_fn,
+                save_best_fn=self.save_best_fn, stop_fn=self.stop_fn, test_in_train=self.test_in_train,
+                resume_from_log=self.resume_from_log, env_step=env_step, smooth_window=self.smooth_window,
+                show_progress=self.show_progress, profile_dir=self.profile_dir)
+            self.train_state, self.collect_state, self.buffer_state = step.ts, step.cstate, step.bstate
+            return info

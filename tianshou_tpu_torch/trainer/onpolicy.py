@@ -16,7 +16,8 @@ compiled form, which ``run`` launches: on CUDA a
 graph of it (the first superstep its capture's warm-up) over the train and
 collect states ``run`` started from; on the CPU the eager superstep.
 Epochs, test episodes and early stopping stay on the host, as in the JAX
-package.
+package: ``run`` hands its step to the epoch loop,
+:func:`~tianshou_tpu_torch.trainer.loop.run_epochs`.
 
 With a :class:`~tianshou_tpu_torch.collect.host_collector.HostCollector`
 ``run`` takes the host-env path: a segment collected from host envs, its
@@ -36,15 +37,14 @@ import time
 from collections.abc import Callable
 from typing import Any
 
-import numpy as np
 import torch
 
 from tianshou_tpu_torch.algos.base import Algorithm, TrainState
-from tianshou_tpu_torch.collect.collector import Collector, rollout_segment
+from tianshou_tpu_torch.collect.collector import rollout_segment
 from tianshou_tpu_torch.data.batch import Batch
 from tianshou_tpu_torch.data.stats import InfoStats
 from tianshou_tpu_torch.data.tree import tree_map
-from tianshou_tpu_torch.trainer.hooks import MetricSmoother, RunContext, log_test, log_train, save_epoch
+from tianshou_tpu_torch.trainer.loop import OnPolicySuperstep, Step, Stepped, read_metrics, run_epochs
 from tianshou_tpu_torch.utils.device import fork_generator, make_generator, resolve_device
 from tianshou_tpu_torch.utils.graphs import compile_step
 
@@ -100,9 +100,28 @@ def build_rollout_learn(
     return learn
 
 
-def _read(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
-    """The metrics on the host, in one device-to-host copy."""
-    return dict(zip(metrics, torch.stack(list(metrics.values())).tolist())) if metrics else {}
+class _HostLearnStep(Step):
+    """The host path's step: a segment collected from host envs, its numpy
+    leaves sent in one packed copy into the static staging tree (the first
+    segment's upload), the compiled learning over it and the one metric
+    read."""
+
+    def __init__(self, trainer: OnPolicyTrainer):
+        self.trainer = trainer
+        self.ts, self.generator, self.g_collect = trainer._host_setup()
+        self.learn = self.staging = None  # compiled over the first segment's upload
+
+    def __call__(self, epoch: int, env_step: int) -> Stepped:
+        t, col = self.trainer, self.trainer.train_collector
+        t0 = time.time()
+        _, stats, traj = col.collect(self.ts, None, t.segment_len, self.g_collect, explore=True, record_traj=True)
+        self.staging = col.upload(traj, self.staging)  # one packed copy
+        if self.learn is None:
+            self.learn = t.compiled_learn = t._compile_learn(self.ts, self.staging)
+            self.staging = getattr(self.learn, "cstate", self.staging)
+        self.ts, self.staging, _, _, metrics = self.learn(self.ts, self.staging, None, self.generator, 0.0)
+        metrics = read_metrics(metrics)
+        return Stepped(stats, metrics, t.steps_per_segment, t.updates_per_segment, time.time() - t0)
 
 
 class OnPolicyTrainer:
@@ -229,96 +248,31 @@ class OnPolicyTrainer:
         self.train_collector.reset(seed=self.seed)
         return self.algo.init(g_init), gen, g_collect
 
-    def _test(self, ts, generator) -> tuple[float, float]:
-        stats = self.test_collector.collect_episodes(ts, generator, self.episode_per_test, explore=False)
-        return stats.returns_mean, stats.returns_std
-
     def run(self) -> InfoStats:
+        """Training in epochs (:func:`~tianshou_tpu_torch.trainer.loop.run_epochs`)
+        of the compiled superstep, or over host envs of host segments and
+        the compiled learning."""
         t_start = time.time()
-        smooth = MetricSmoother(self.smooth_window)
-        host = getattr(self.train_collector, "is_host_collector", False)
-        if host:
-            ts, gen, g_collect = self._host_setup()
-            learn = staging = None  # compiled over the first segment's upload
+        if getattr(self.train_collector, "is_host_collector", False):
+            step = _HostLearnStep(self)
         else:
             gen = make_generator(self.seed, self.device)
             g_init, g_reset = fork_generator(gen), fork_generator(gen)
             cstate = self.train_collector.reset(g_reset)
             ts = self.algo.init(g_init)
             superstep = self.compiled_superstep = self._compile_superstep(ts, cstate)
+            step = OnPolicySuperstep(superstep, ts, cstate, None, gen, env_steps=self.steps_per_segment,
+                                     grad_steps=self.updates_per_segment, summarize=self.steps_per_segment)
 
-        env_step = grad_step = epoch = start_epoch = 0
-        if self.resume_from_log and self.logger is not None:
-            start_epoch, env_step, grad_step = self.logger.restore_data()
-        best_reward, best_reward_std = -np.inf, 0.0
-        last_metrics: dict = {}
-        train_time = 0.0
-        stop_triggered = False
-        with RunContext((self.max_epoch - start_epoch) * self.step_per_epoch, self.show_progress, self.profile_dir,
-                        desc="onpolicy") as rc:
-            for epoch in range(start_epoch + 1, self.max_epoch + 1):
-                steps_this_epoch = 0
-                while steps_this_epoch < self.step_per_epoch:
-                    t0 = time.time()
-                    if host:
-                        col = self.train_collector
-                        _, stats, traj = col.collect(ts, None, self.segment_len, g_collect, explore=True,
-                                                     record_traj=True)
-                        staging = col.upload(traj, staging)  # one packed copy
-                        if learn is None:
-                            learn = self.compiled_learn = self._compile_learn(ts, staging)
-                            staging = getattr(learn, "cstate", staging)
-                        ts, staging, _, _, metrics = learn(ts, staging, None, gen, 0.0)
-                    else:
-                        ts, cstate, _, outputs, metrics = superstep(ts, cstate, None, gen, 0.0)
-                        stats = Collector.summarize(outputs, self.steps_per_segment)
-                    host_metrics = _read(metrics)  # the one metric read of the superstep
-                    train_time += time.time() - t0
-                    env_step += self.steps_per_segment
-                    steps_this_epoch += self.steps_per_segment
-                    grad_step += self.updates_per_segment
-                    last_metrics = smooth(host_metrics)
-                    rc.step(self.steps_per_segment, last_metrics)
-                    # in-training test: when training returns already clear
-                    # the bar, confirm with a real test phase and stop early
-                    if (
-                        self.test_in_train
-                        and self.stop_fn is not None
-                        and stats.returns.size
-                        and self.stop_fn(stats.returns_mean)
-                    ):
-                        rew, rew_std = self._test(ts, gen)
-                        if self.stop_fn(rew):
-                            best_reward = max(best_reward, rew)
-                            best_reward_std = rew_std
-                            stop_triggered = True
-                            break
-                    log_train(self.logger, env_step, stats, last_metrics)
-                if stop_triggered:
-                    break
-                save_epoch(self.logger, self.save_checkpoint_fn, epoch, env_step, grad_step)
-                rew, rew_std = self._test(ts, gen)
-                if rew > best_reward:
-                    best_reward, best_reward_std = rew, rew_std
-                    if self.save_best_fn is not None:
-                        self.save_best_fn(ts)
-                log_test(self.logger, rew, rew_std, env_step)
-                if self.stop_fn is not None and self.stop_fn(rew):
-                    stop_triggered = True
-                    break
+        def test(ts) -> tuple[float, float]:
+            stats = self.test_collector.collect_episodes(ts, step.generator, self.episode_per_test, explore=False)
+            return stats.returns_mean, stats.returns_std
 
-        self.trace_path = rc.trace_path
-        self.train_state = ts
-        if not host:
-            self.collect_state = cstate
-        return InfoStats(
-            gradient_step=grad_step,
-            env_step=env_step,
-            epoch=epoch,
-            best_reward=float(best_reward),
-            best_reward_std=float(best_reward_std),
-            duration=time.time() - t_start,
-            train_time=train_time,
-            stop_triggered=stop_triggered,
-            last_metrics=last_metrics,
-        )
+        info, self.trace_path = run_epochs(
+            step, test, max_epoch=self.max_epoch, step_per_epoch=self.step_per_epoch, t_start=t_start,
+            desc="onpolicy", logger=self.logger, save_checkpoint_fn=self.save_checkpoint_fn,
+            save_best_fn=self.save_best_fn, stop_fn=self.stop_fn, test_in_train=self.test_in_train,
+            resume_from_log=self.resume_from_log, smooth_window=self.smooth_window,
+            show_progress=self.show_progress, profile_dir=self.profile_dir)
+        self.train_state, self.collect_state = step.ts, step.cstate
+        return info

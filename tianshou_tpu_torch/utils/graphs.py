@@ -231,10 +231,12 @@ def mark_capturable(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
     """Mark a ``torch.optim.Adam`` or ``AdamW`` that a capture may make
     capturable (:func:`prepare_optimizer`); returns it.  The port marks its
     own Adam (:func:`~tianshou_tpu_torch.algos.ddpg.adam`); an optimizer a
-    caller builds is used as built."""
+    caller builds is used as built.  The mark is kept in the optimizer's
+    ``defaults``, which a copy, a pickle or a restored checkpoint of it
+    keeps: ``Optimizer.__getstate__`` drops any other attribute."""
     if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
         raise TypeError(f"only Adam and AdamW are made capturable at capture, not {type(optimizer).__name__}")
-    optimizer.capturable_at_capture = True
+    optimizer.defaults["capturable_at_capture"] = True
     return optimizer
 
 
@@ -250,7 +252,7 @@ def prepare_optimizer(optimizer: torch.optim.Optimizer) -> None:
     (:func:`mark_capturable`) becomes capturable, its step counts moved to
     its parameters' device; then :func:`check_capturable` and
     :func:`init_optimizer_state`."""
-    if getattr(optimizer, "capturable_at_capture", False):
+    if optimizer.defaults.get("capturable_at_capture", False):
         for group in optimizer.param_groups:
             if group["capturable"]:
                 continue
